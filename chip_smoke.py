@@ -1,0 +1,524 @@
+#!/usr/bin/env python3
+"""Smoke run of tpu_mednet_torch on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``tpu_mednet_torch/csrc``, holds each
+kernel against its plain PyTorch version at the shapes of the main path,
+runs the full-width ResidualUNet3D forward on both paths, prints one bf16
+forward's device time by kernel (``torch.profiler``), and drives the
+main path — ``predict_volumes_on_device`` on two seeded volumes at the
+``configs/predict.yaml`` geometry — counting kernel launches, timing
+repeated calls and the device's idle share, and holding its masks to the
+plain path's outside the logit tie band.  Any failed check raises, so the
+script exits non-zero; it also exits non-zero without a result when CUDA is
+unavailable or the package is not beside it.
+
+Output: the card's ``nvidia-smi`` name and power limit, one line per
+check, a ``{"kernels": [...]}`` JSON line, and, last,
+``{"ok": true, "device": {...}}``.  Times are CUDA-event times on this card;
+bounds use the H100 SXM peaks (3.35 TB/s HBM, 67 TFLOP/s fp32 without
+tensor cores).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+FULL_WIDTH_PARAMS = 35_316_738
+BATCH, PATCH, OVERLAP = 8, (96, 96, 96), (16, 16, 16)
+GROUPS = 8
+# per level i of the full-width net: channels 32*2^i, extent 96/2^i;
+# GroupNorms per forward: 3 in the encoder block, 3 in the decoder block
+# (none at the deepest level); in each block one of three adds the residual
+LEVELS = [(32 * 2**i, 96 // 2**i, 6 if i < 4 else 3) for i in range(5)]
+FWD_FP32_ATOL = 1e-3
+FWD_BF16_REL = 5e-2    # bf16 logits: max |kernel - plain| <= 5e-2 * max |plain|
+# Forward and slice masks, kernel path vs plain path: a voxel's class may
+# differ only where the plain path's top-2 logit margin is at most twice the
+# largest logit difference between the paths (the tie band); outside it no
+# difference of that size can flip the argmax.
+SLICE_VOLUMES = (("v0", (160, 160, 160)), ("v1", (192, 176, 144)))
+SLICE_REPEATS = 5      # timed runs of the slice after the counted one
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean CUDA-event time of ``fn`` over ``reps`` calls, after a warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, flops: float) -> float:
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
+
+
+@contextlib.contextmanager
+def plain_kernels(gn, P):
+    """Route the kernel wrappers to their plain versions (comparisons only)."""
+    saved = (gn.group_norm_stats, gn.group_norm_apply, P.extract_patches)
+    gn.group_norm_stats = gn.group_norm_stats_plain
+    gn.group_norm_apply = gn.group_norm_apply_plain
+    P.extract_patches = P.extract_patches_plain
+    try:
+        yield
+    finally:
+        gn.group_norm_stats, gn.group_norm_apply, P.extract_patches = saved
+
+
+def device_rows(torch, fn, reps):
+    """(ms per call, launches per call, name) of every device activity that
+    ``torch.profiler`` records over ``reps`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = getattr(evt, "cuda_time_total", 0.0)
+        if us > 0 and not evt.key.startswith("cuda"):
+            rows.append((us / reps / 1e3, evt.count // reps, evt.key))
+    return rows
+
+
+def bf16_ulp(ref):
+    """One bf16 ulp at each value of ``ref`` (8 significant bits)."""
+    import torch
+
+    _, exp = torch.frexp(ref.float())
+    return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - 8).clamp_min(2.0**-133)
+
+
+def check_gn(torch, gn, dev, gen):
+    """K1 against its plain version at the five level shapes, bf16 and fp32."""
+    cl3d = torch.channels_last_3d
+    totals = {dt: dict(stats_ms=0.0, stats_plain_ms=0.0, stats_bound=0.0,
+                       apply_ms=0.0, apply_plain_ms=0.0, apply_bound=0.0,
+                       library_ms=0.0, stats_library_ms=0.0, stats_err=0.0,
+                       apply_err=0.0)
+              for dt in ("bf16", "fp32")}
+    for dt_name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        tot = totals[dt_name]
+        for level, (c, e, n_gn) in enumerate(LEVELS):
+            shape = (BATCH, e, e, e, c)
+            x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+            x = x.permute(0, 4, 1, 2, 3)
+            r = torch.randn(shape, generator=gen, device=dev).to(dtype).permute(0, 4, 1, 2, 3)
+            assert x.is_contiguous(memory_format=cl3d)
+            w = torch.rand(c, generator=gen, device=dev) + 0.5
+            b = torch.rand(c, generator=gen, device=dev) - 0.5
+            spatial = e**3
+
+            s, q = gn.group_norm_stats(x)
+            s_p, q_p = gn.group_norm_stats_plain(x)
+            torch.testing.assert_close(s, s_p, rtol=1e-5, atol=0)
+            torch.testing.assert_close(q, q_p, rtol=1e-5, atol=0)
+            s_err = max(float((s - s_p).abs().max()), float((q - q_p).abs().max()))
+
+            mean_c, mul_c = gn.fold_group_stats(s_p, q_p, spatial, GROUPS, w, 1e-5)
+            errs = []
+            for res in (None, r):
+                y = gn.group_norm_apply(x, mean_c, mul_c, b, residual=res, act="e")
+                y_p = gn.group_norm_apply_plain(x, mean_c, mul_c, b, residual=res, act="e")
+                diff = (y.float() - y_p.float()).abs()
+                tol = torch.full_like(diff, 1e-5) if dtype == torch.float32 else bf16_ulp(y_p)
+                if not bool((diff <= tol).all()):
+                    i = int(torch.argmax(diff / tol))
+                    raise AssertionError(
+                        f"gn_apply {dt_name} level {level} residual={res is not None}: "
+                        f"max |diff| {float(diff.max())}; worst vs tolerance at flat index "
+                        f"{i}: kernel {float(y.flatten()[i])} plain {float(y_p.flatten()[i])} "
+                        f"tolerance {float(tol.flatten()[i])}")
+                errs.append(float(diff.max()))
+
+            esz = x.element_size()
+            n_el = x.numel()
+            t_s = cuda_ms(lambda: gn.group_norm_stats(x))
+            t_sp = cuda_ms(lambda: gn.group_norm_stats_plain(x), reps=5)
+            b_s = bound_ms(n_el * esz + 2 * BATCH * c * 4, 3 * n_el)
+            # yardstick only: the same per-(n, c) moments up to a rescale
+            t_sl = cuda_ms(lambda: torch.var_mean(x, dim=(2, 3, 4), correction=0))
+            t_a = cuda_ms(lambda: gn.group_norm_apply(x, mean_c, mul_c, b, act="e"))
+            t_ar = cuda_ms(lambda: gn.group_norm_apply(x, mean_c, mul_c, b, residual=r, act="e"))
+            t_ap = cuda_ms(lambda: gn.group_norm_apply_plain(x, mean_c, mul_c, b, act="e"), reps=5)
+            t_arp = cuda_ms(lambda: gn.group_norm_apply_plain(
+                x, mean_c, mul_c, b, residual=r, act="e"), reps=5)
+            small = (2 * BATCH * c + c) * 4
+            b_a = bound_ms(2 * n_el * esz + small, 5 * n_el)
+            b_ar = bound_ms(3 * n_el * esz + small, 6 * n_el)
+            t_lib = cuda_ms(lambda: torch.nn.functional.elu(
+                torch.nn.functional.group_norm(x, GROUPS, w.to(dtype), b.to(dtype), 1e-5)))
+            log(f"K1 {dt_name} level {level} {tuple(x.shape)}: stats {t_s:.4f} ms "
+                f"(plain {t_sp:.4f}, bound {b_s:.4f}, torch.var_mean {t_sl:.4f}, "
+                f"max|err| {s_err:.3g}); apply+elu "
+                f"{t_a:.4f} ms (plain {t_ap:.4f}, bound {b_a:.4f}), apply+res+elu "
+                f"{t_ar:.4f} ms (plain {t_arp:.4f}, bound {b_ar:.4f}), max|err| "
+                f"{max(errs):.3g}; F.group_norm+F.elu {t_lib:.4f} ms")
+            # one forward: n_gn stats calls; 2/3 plain and 1/3 residual applies
+            k, k_res = n_gn * 2 // 3, n_gn // 3
+            tot["stats_ms"] += n_gn * t_s
+            tot["stats_plain_ms"] += n_gn * t_sp
+            tot["stats_bound"] += n_gn * b_s
+            tot["apply_ms"] += k * t_a + k_res * t_ar
+            tot["apply_plain_ms"] += k * t_ap + k_res * t_arp
+            tot["apply_bound"] += k * b_a + k_res * b_ar
+            tot["library_ms"] += n_gn * t_lib
+            tot["stats_library_ms"] += n_gn * t_sl
+            if level == 0:
+                tot["stats_err"], tot["apply_err"] = s_err, max(errs)
+            del x, r
+        log(f"K1 {dt_name} per full-width forward (27 GroupNorms): stats "
+            f"{tot['stats_ms']:.4f} ms (bound {tot['stats_bound']:.4f}, torch.var_mean "
+            f"{tot['stats_library_ms']:.4f}), apply "
+            f"{tot['apply_ms']:.4f} ms (bound {tot['apply_bound']:.4f}), "
+            f"F.group_norm+F.elu {tot['library_ms']:.4f} ms")
+    return totals
+
+
+def check_gather(torch, P, grid_corners, dev, gen):
+    """K2 against its plain version on the padded 224^3 x 1 f16 volume."""
+    corners, padded = grid_corners(SLICE_VOLUMES[0][1], PATCH, OVERLAP)
+    corners = corners[:BATCH]
+    vol = torch.randn((*padded.tolist(), 1), generator=gen, device=dev).half()
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        got = P.extract_patches(vol, corners, PATCH, out_dtype=dtype)
+        ref = P.extract_patches_plain(vol, corners, PATCH, out_dtype=dtype)
+        if got.shape != ref.shape or not torch.equal(got.view(-1).view(torch.uint8),
+                                                     ref.view(-1).view(torch.uint8)):
+            raise AssertionError(f"gather_patches {dtype}: not byte-equal to plain")
+        err = max(err, float((got.float() - ref.float()).abs().max()))
+    gather = lambda: P.extract_patches(vol, corners, PATCH, out_dtype=torch.bfloat16)
+    t = cuda_ms(gather)
+    t_p = cuda_ms(lambda: P.extract_patches_plain(vol, corners, PATCH,
+                                                  out_dtype=torch.bfloat16), reps=5)
+    # the kernel's own device time, apart from the wrapper's host work
+    reps = 20
+    rows = device_rows(torch, gather, reps)
+    t_dev = sum(ms for ms, _, name in rows if "gather" in name.lower())
+    n_el = BATCH * int(np.prod(PATCH))
+    b = bound_ms(n_el * (2 + 2), 0)
+    log(f"K2 {tuple(vol.shape)} f16 -> {BATCH}x{PATCH} bf16: {t:.4f} ms per wrapper call "
+        f"(plain {t_p:.4f}, bound {b:.4f}); kernel device time {t_dev:.4f} ms (profiler, "
+        f"{reps} calls); byte-equal in bf16/fp32/f16, max|err| {err}")
+    for ms, count, name in sorted(rows, reverse=True):
+        log(f"K2 profile: {ms:8.4f} ms  x{count:<3d} {name[:100]}")
+    if t_dev == 0:
+        raise AssertionError("the profiler saw no gather kernel")
+    return dict(ms=t, plain_ms=t_p, bound=b, device_ms=t_dev, err=err)
+
+
+def check_forward(torch, gn, P, ResidualUNet3D, dev, gen):
+    """Full-width forward on the kernel path against the plain path."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.benchmark={torch.backends.cudnn.benchmark}")
+    fp32 = ResidualUNet3D(1, 2, f_maps=32, dtype=torch.float32, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in fp32.parameters())
+    log(f"ResidualUNet3D(1, 2, f_maps=32) parameters: {n_params}")
+    if n_params != FULL_WIDTH_PARAMS:
+        raise AssertionError(f"expected {FULL_WIDTH_PARAMS} parameters")
+    x = torch.randn((BATCH, 1, *PATCH), generator=gen, device=dev)
+    bf16 = ResidualUNet3D(1, 2, f_maps=32, dtype=torch.bfloat16, device=dev)
+    bf16.load_state_dict(fp32.state_dict())
+    with torch.inference_mode():
+        y = fp32(x)
+        with plain_kernels(gn, P):
+            y_p = fp32(x)
+        err32 = float((y - y_p).abs().max())
+        log(f"forward fp32 {tuple(y.shape)}: max|kernel - plain| {err32:.3g} "
+            f"(bound {FWD_FP32_ATOL}), max|logit| {float(y_p.abs().max()):.3g}")
+        if not (torch.isfinite(y).all() and err32 <= FWD_FP32_ATOL):
+            raise AssertionError("fp32 forward: kernel path disagrees with plain path")
+        del y, y_p
+
+        y = bf16(x)
+        with plain_kernels(gn, P):
+            y_p = bf16(x)
+            t_plain = cuda_ms(lambda: bf16(x), reps=3, warmup=1)
+        t_fwd = cuda_ms(lambda: bf16(x), reps=5, warmup=1)
+        err16 = float((y - y_p).abs().max())
+        scale = float(y_p.abs().max())
+        # two classes: an argmax can flip only where the plain margin is
+        # below twice the largest logit difference
+        margin = (y_p[:, 0] - y_p[:, 1]).abs()
+        flips = y.argmax(dim=1) != y_p.argmax(dim=1)
+        if bool((flips & (margin > 2 * err16)).any()):
+            raise AssertionError("bf16 forward: a class flipped outside the tie band")
+        log(f"forward bf16: voxels with top-2 margin <= max|kernel - plain|: "
+            f"{float((margin <= err16).float().mean()):.6f}; argmax flips "
+            f"{float(flips.float().mean()):.6f}, all within the tie band")
+        log(f"forward bf16: max|kernel - plain| {err16:.3g} (bound {FWD_BF16_REL} x "
+            f"max|logit| {scale:.3g}); {t_fwd:.2f} ms per forward of {BATCH}x96^3 "
+            f"(plain path {t_plain:.2f} ms)")
+        if not (torch.isfinite(y).all() and err16 <= FWD_BF16_REL * scale):
+            raise AssertionError("bf16 forward: kernel path disagrees with plain path")
+    return {"fp32": fp32, "bf16": bf16}, dict(fwd_ms=t_fwd, fwd_plain_ms=t_plain)
+
+
+def profile_forward(torch, model, dev, gen, reps=3):
+    """Device time of one bf16 forward by kernel, from torch.profiler."""
+    x = torch.randn((BATCH, 1, *PATCH), generator=gen, device=dev)
+    with torch.inference_mode():
+        model(x)
+        rows = [r for r in device_rows(torch, lambda: model(x), reps)
+                if not r[2].startswith(("Memcpy", "Memset"))]
+    total = sum(r[0] for r in rows)
+    if total == 0:
+        log("profile: the profiler saw no device time")
+        return
+    groups = {}
+    for ms, _, name in rows:
+        low = name.lower()
+        group = ("K1 groupnorm" if "gn_" in low else "K2 gather" if "gather" in low
+                 else "cuDNN conv" if any(t in low for t in ("conv", "xmma", "gemm", "cudnn",
+                                                             "cutlass", "dgrad", "wgrad"))
+                 else "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    log(f"profile: device time per bf16 forward {total:.3f} ms; " + ", ".join(
+        f"{g} {ms:.3f} ms ({100 * ms / total:.1f}%)" for g, ms in
+        sorted(groups.items(), key=lambda kv: -kv[1])))
+    for ms, count, name in sorted(rows, reverse=True)[:12]:
+        log(f"profile:   {ms:8.3f} ms  x{count:<4d} {name[:110]}")
+
+
+def tie_band_margin(torch, gn, P, model, vol, grid_corners, dev):
+    """The plain path's top-2 logit margin at every voxel of ``vol``'s mask,
+    and max |kernel - plain| over its tiles' logits.
+
+    Tiles, batches (the tail repeats the last corner) and cores are those of
+    ``predict_volumes_on_device``, so each voxel's margin is that of the
+    logits its mask value came from.
+    """
+    import torch.nn.functional as F
+
+    img = np.asarray(vol.shape[1:])
+    corners, padded = grid_corners(img, PATCH, OVERLAP)
+    corners = np.concatenate([corners, np.repeat(corners[-1:], -len(corners) % BATCH, 0)])
+    ov = OVERLAP
+    pads = [int(p) for o, pd, n in reversed(list(zip(ov, padded, img)))
+            for p in (o, pd - n - o)]
+    v = F.pad(torch.from_numpy(vol).to(dev).permute(1, 2, 3, 0).contiguous(), (0, 0, *pads))
+    margin = torch.zeros(tuple(padded.tolist()), device=dev)
+    err = 0.0
+    core = tuple(slice(o, p - o) for o, p in zip(ov, PATCH))
+    for i in range(0, len(corners), BATCH):
+        batch = corners[i:i + BATCH]
+        tiles = P.extract_patches_plain(v, batch, PATCH, out_dtype=model.config.dtype)
+        tiles = tiles.permute(0, 4, 1, 2, 3)
+        y = model(tiles)
+        with plain_kernels(gn, P):
+            y_p = model(tiles)
+        err = max(err, float((y - y_p).abs().max()))
+        m = (y_p[:, 0] - y_p[:, 1]).abs()
+        for (x0, y0, z0), tile in zip(batch.tolist(), m[(slice(None), *core)]):
+            margin[x0 + ov[0]:x0 + PATCH[0] - ov[0], y0 + ov[1]:y0 + PATCH[1] - ov[1],
+                   z0 + ov[2]:z0 + PATCH[2] - ov[2]] = tile
+    margin = margin[ov[0]:ov[0] + img[0], ov[1]:ov[1] + img[1], ov[2]:ov[2] + img[2]]
+    return margin.cpu().numpy(), err
+
+
+def run_slice(torch, gn, P, models, grid_corners, dev):
+    """The main path: predict_volumes_on_device on two seeded volumes, bf16
+    (launches counted, then timed and profiled), then both dtypes against
+    the plain path."""
+    from tpu_mednet_torch.data import MemoryReader
+    from tpu_mednet_torch.inference import predict_volumes_on_device
+    from tpu_mednet_torch.tasks import SegmentationTask
+
+    rng = np.random.default_rng(0)
+    store = {"images": {}}
+    for key, shape in SLICE_VOLUMES:
+        vol = rng.normal(0.0, 0.5, size=(1, *shape)).astype(np.float16)
+        vol[0, 40:100, 50:110, 30:90] += 2.0
+        store["images"][key] = vol
+    keys = list(store["images"])
+    kw = dict(patch_size=list(PATCH), patch_overlap=list(OVERLAP), batch_size=BATCH,
+              device=dev)
+
+    def predict(task):
+        return predict_volumes_on_device(task, None, keys, reader=MemoryReader(store), **kw)
+
+    def timed(task):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = predict(task)
+        return out, time.perf_counter() - t0
+
+    tasks = {dt: SegmentationTask(model=m) for dt, m in models.items()}
+    predict(tasks["bf16"])  # warm-up
+    gn.STATS_LAUNCHES = gn.APPLY_LAUNCHES = P.LAUNCHES = 0
+    got, seconds = timed(tasks["bf16"])
+    got = {"bf16": got}
+    counts = dict(gn_stats=gn.STATS_LAUNCHES, gn_apply=gn.APPLY_LAUNCHES,
+                  gather_patches=P.LAUNCHES)
+    n_batches = sum(
+        -(-int(np.prod([-(-s // (p - 2 * o)) for s, p, o in zip(shape, PATCH, OVERLAP)]))
+          // BATCH) for _, shape in SLICE_VOLUMES)
+    log(f"slice bf16: launches {counts} over {n_batches} batches")
+    expected = dict(gn_stats=27 * n_batches, gn_apply=27 * n_batches, gather_patches=n_batches)
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts}, expected {expected}")
+
+    # host-clock time of the whole call, from f16 host volumes to uint8 host masks
+    walls = [seconds] + [timed(tasks["bf16"])[1] for _ in range(SLICE_REPEATS)]
+    wall = float(np.median(walls))
+    vpm = [len(keys) / w * 60.0 for w in walls]
+    log(f"slice bf16: {len(keys)} volumes per call, {len(walls)} calls: "
+        f"{' '.join(f'{w:.4f}' for w in walls)} s; median {wall:.4f} s = "
+        f"{len(keys) / wall * 60.0:.2f} volumes/min (min {min(vpm):.2f}, max {max(vpm):.2f})")
+    rows = device_rows(torch, lambda: predict(tasks["bf16"]), 1)
+    busy = sum(ms for ms, _, _ in rows) / 1e3
+    log(f"slice bf16: device busy {busy:.4f} s per call (profiler, kernels and copies); "
+        f"idle share {1 - busy / wall:.4f} of the median call")
+
+    got["fp32"] = predict(tasks["fp32"])
+    agreement = {}
+    for dt, task in tasks.items():
+        launched = (gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES, P.LAUNCHES)
+        with plain_kernels(gn, P):
+            ref = predict(task)
+        if (gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES, P.LAUNCHES) != launched:
+            raise AssertionError("the plain-path run launched a kernel")
+        agree = total = 0
+        for k, shape in SLICE_VOLUMES:
+            a, b = np.asarray(got[dt][k]), np.asarray(ref[k])
+            if a.shape != (1, *shape) or a.dtype != np.uint8 or not set(np.unique(a)) <= {0, 1}:
+                raise AssertionError(f"{k}: bad mask {a.shape} {a.dtype}")
+            with torch.inference_mode():
+                margin, err = tie_band_margin(torch, gn, P, task.model, store["images"][k],
+                                              grid_corners, dev)
+            flips = a[0] != b[0]
+            outside = int((flips & (margin > 2 * err)).sum())
+            agree += int((~flips).sum())
+            total += flips.size
+            log(f"slice {dt} {k} {shape}: foreground {a.mean():.4f}; max|kernel - plain| "
+                f"logit {err:.3g}; voxels with margin <= 2x that {(margin <= 2 * err).mean():.6f}; "
+                f"mask differs on {flips.mean():.6f}, outside the tie band on {outside}")
+            if outside:
+                raise AssertionError(f"slice {dt} {k}: {outside} voxels differ from the "
+                                     "plain path outside the tie band")
+        agreement[dt] = agree / total
+        log(f"slice {dt}: voxel agreement with the plain path {agreement[dt]:.6f}")
+    return counts, dict(volumes_per_min=len(keys) / wall * 60.0, seconds=walls,
+                        device_busy_s=busy, n_batches=n_batches, agreement=agreement)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this run needs an NVIDIA card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE))
+    try:
+        import tpu_mednet_torch
+    except ImportError as exc:
+        print(f"chip_smoke: tpu_mednet_torch is not beside this script: {exc}",
+              file=sys.stderr)
+        return 2
+    if Path(tpu_mednet_torch.__file__).resolve().parent.parent != HERE:
+        print(f"chip_smoke: imported {tpu_mednet_torch.__file__}, not this checkout's",
+              file=sys.stderr)
+        return 2
+    from tpu_mednet_torch.inference.device_sliding import _grid_corners
+    from tpu_mednet_torch.models import ResidualUNet3D
+    from tpu_mednet_torch.ops import _build
+    from tpu_mednet_torch.ops import groupnorm as gn
+    from tpu_mednet_torch.ops import patches as P
+
+    # 1. card
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    log(smi.stdout.strip())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} python {sys.version.split()[0]}")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib = _build.build()
+    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    for line in _build.BUILD_LOG.splitlines():
+        if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            log(f"ptxas: {line.strip()}")
+
+    # 3-5. kernels against their plain versions, then the full-width forward
+    k1 = check_gn(torch, gn, dev, gen)
+    k2 = check_gather(torch, P, _grid_corners, dev, gen)
+    models, fwd = check_forward(torch, gn, P, ResidualUNet3D, dev, gen)
+
+    profile_forward(torch, models["bf16"], dev, gen)
+
+    # 6. the main path
+    counts, slice_ = run_slice(torch, gn, P, models, _grid_corners, dev)
+
+    b16 = k1["bf16"]
+    common = dict(route="cuda", bound_by="bytes", ok=True)
+    kernels = [
+        dict(name="gn_stats", source="tpu_mednet_torch/csrc/groupnorm.cu",
+             replaces="tpu_mednet/ops/pallas/groupnorm.py:94",
+             launches=counts["gn_stats"], max_abs_err=b16["stats_err"],
+             ms=b16["stats_ms"], plain_ms=b16["stats_plain_ms"],
+             bound_ms=b16["stats_bound"], library_ms=b16["stats_library_ms"],
+             library_call="torch.var_mean (the same moments up to a rescale)",
+             per="full-width bf16 forward, 27 calls", **common),
+        dict(name="gn_apply", source="tpu_mednet_torch/csrc/groupnorm.cu",
+             replaces="tpu_mednet/ops/pallas/groupnorm.py:94",
+             launches=counts["gn_apply"], max_abs_err=b16["apply_err"],
+             ms=b16["apply_ms"], plain_ms=b16["apply_plain_ms"],
+             bound_ms=b16["apply_bound"], library_ms=b16["library_ms"],
+             library_call="F.group_norm + F.elu (statistics and apply together)",
+             per="full-width bf16 forward, 27 calls", **common),
+        dict(name="gather_patches", source="tpu_mednet_torch/csrc/patches.cu",
+             replaces="tpu_mednet/ops/pallas/patches.py:95",
+             launches=counts["gather_patches"], max_abs_err=k2["err"],
+             ms=k2["ms"], device_ms=k2["device_ms"], plain_ms=k2["plain_ms"],
+             bound_ms=k2["bound"],
+             library_ms=None, per="one batch of 8 tiles of 96^3, f16 -> bf16", **common),
+    ]
+    log(json.dumps({"slice": slice_, **fwd}))
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
