@@ -16,9 +16,10 @@ unavailable or the package is not beside it.
 
 Output: the card's ``nvidia-smi`` name and power limit, one line per
 check, a ``{"kernels": [...]}`` JSON line, and, last,
-``{"ok": true, "device": {...}}``.  Times are CUDA-event times on this card;
-bounds use the H100 SXM peaks (3.35 TB/s HBM, 67 TFLOP/s fp32 without
-tensor cores).
+``{"ok": true, "device": {...}}``.  A kernel's time is its device time
+from ``torch.profiler``; CUDA-event times around the wrapper calls, which
+at small shapes measure the host, are printed beside it.  Bounds use the
+H100 SXM peaks (3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor cores).
 """
 
 from __future__ import annotations
@@ -80,14 +81,14 @@ def bound_ms(nbytes: float, flops: float) -> float:
 @contextlib.contextmanager
 def plain_kernels(gn, P):
     """Route the kernel wrappers to their plain versions (comparisons only)."""
-    saved = (gn.group_norm_stats, gn.group_norm_apply, P.extract_patches)
-    gn.group_norm_stats = gn.group_norm_stats_plain
+    saved = (gn.group_norm_moments, gn.group_norm_apply, P.extract_patches)
+    gn.group_norm_moments = gn.group_norm_moments_plain
     gn.group_norm_apply = gn.group_norm_apply_plain
     P.extract_patches = P.extract_patches_plain
     try:
         yield
     finally:
-        gn.group_norm_stats, gn.group_norm_apply, P.extract_patches = saved
+        gn.group_norm_moments, gn.group_norm_apply, P.extract_patches = saved
 
 
 def device_rows(torch, fn, reps):
@@ -110,6 +111,14 @@ def device_rows(torch, fn, reps):
     return rows
 
 
+def kernel_ms(torch, fn, name, reps=20):
+    """(device ms per call of the kernels whose name holds ``name``, device
+    activities launched per call) over ``reps`` calls of ``fn``."""
+    rows = device_rows(torch, fn, reps)
+    return (sum(ms for ms, _, key in rows if name in key),
+            sum(count for _, count, _ in rows))
+
+
 def bf16_ulp(ref):
     """One bf16 ulp at each value of ``ref`` (8 significant bits)."""
     import torch
@@ -119,13 +128,15 @@ def bf16_ulp(ref):
 
 
 def check_gn(torch, gn, dev, gen):
-    """K1 against its plain version at the five level shapes, bf16 and fp32."""
+    """K1 against its plain version at the five level shapes, bf16 and fp32:
+    moments to rtol 1e-5 and bitwise equal from call to call, apply within
+    one ulp; times per call and per forward."""
     cl3d = torch.channels_last_3d
-    totals = {dt: dict(stats_ms=0.0, stats_plain_ms=0.0, stats_bound=0.0,
-                       apply_ms=0.0, apply_plain_ms=0.0, apply_bound=0.0,
-                       library_ms=0.0, stats_library_ms=0.0, stats_err=0.0,
-                       apply_err=0.0)
-              for dt in ("bf16", "fp32")}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    keys = ("moments_ms", "moments_event_ms", "moments_plain_ms", "moments_bound",
+            "moments_library_ms", "apply_ms", "apply_event_ms", "apply_plain_ms",
+            "apply_bound", "library_ms", "moments_err", "apply_err")
+    totals = {dt: dict.fromkeys(keys, 0.0) for dt in ("bf16", "fp32")}
     for dt_name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         tot = totals[dt_name]
         for level, (c, e, n_gn) in enumerate(LEVELS):
@@ -136,19 +147,23 @@ def check_gn(torch, gn, dev, gen):
             assert x.is_contiguous(memory_format=cl3d)
             w = torch.rand(c, generator=gen, device=dev) + 0.5
             b = torch.rand(c, generator=gen, device=dev) - 0.5
-            spatial = e**3
 
-            s, q = gn.group_norm_stats(x)
-            s_p, q_p = gn.group_norm_stats_plain(x)
-            torch.testing.assert_close(s, s_p, rtol=1e-5, atol=0)
-            torch.testing.assert_close(q, q_p, rtol=1e-5, atol=0)
-            s_err = max(float((s - s_p).abs().max()), float((q - q_p).abs().max()))
+            moments = lambda: gn.group_norm_moments(x, GROUPS, w, 1e-5)
+            mean_c, mul_c = moments()
+            again = moments()
+            mean_p, mul_p = gn.group_norm_moments_plain(x, GROUPS, w, 1e-5)
+            torch.testing.assert_close(mean_c, mean_p, rtol=1e-5, atol=0)
+            torch.testing.assert_close(mul_c, mul_p, rtol=1e-5, atol=0)
+            if not (torch.equal(mean_c, again[0]) and torch.equal(mul_c, again[1])):
+                raise AssertionError(f"gn_moments {dt_name} level {level}: two calls "
+                                     "differ")
+            m_err = max(float((mean_c - mean_p).abs().max()),
+                        float((mul_c - mul_p).abs().max()))
 
-            mean_c, mul_c = gn.fold_group_stats(s_p, q_p, spatial, GROUPS, w, 1e-5)
             errs = []
             for res in (None, r):
-                y = gn.group_norm_apply(x, mean_c, mul_c, b, residual=res, act="e")
-                y_p = gn.group_norm_apply_plain(x, mean_c, mul_c, b, residual=res, act="e")
+                y = gn.group_norm_apply(x, mean_p, mul_p, b, residual=res, act="e")
+                y_p = gn.group_norm_apply_plain(x, mean_p, mul_p, b, residual=res, act="e")
                 diff = (y.float() - y_p.float()).abs()
                 tol = torch.full_like(diff, 1e-5) if dtype == torch.float32 else bf16_ulp(y_p)
                 if not bool((diff <= tol).all()):
@@ -162,13 +177,20 @@ def check_gn(torch, gn, dev, gen):
 
             esz = x.element_size()
             n_el = x.numel()
-            t_s = cuda_ms(lambda: gn.group_norm_stats(x))
-            t_sp = cuda_ms(lambda: gn.group_norm_stats_plain(x), reps=5)
-            b_s = bound_ms(n_el * esz + 2 * BATCH * c * 4, 3 * n_el)
+            plan = gn.plan_moments(BATCH, e**3, c, esz, x.data_ptr() % 16 == 0, sms)
+            t_m, launches = kernel_ms(torch, moments, "gn_moments")
+            if launches != 1:
+                raise AssertionError(f"the statistics side of one GroupNorm launched "
+                                     f"{launches} device activities, not 1")
+            t_me = cuda_ms(moments)
+            t_mp = cuda_ms(lambda: gn.group_norm_moments_plain(x, GROUPS, w, 1e-5), reps=5)
+            b_m = bound_ms(n_el * esz + 2 * BATCH * c * 4 + c * 4, 3 * n_el)
             # yardstick only: the same per-(n, c) moments up to a rescale
             t_sl = cuda_ms(lambda: torch.var_mean(x, dim=(2, 3, 4), correction=0))
-            t_a = cuda_ms(lambda: gn.group_norm_apply(x, mean_c, mul_c, b, act="e"))
-            t_ar = cuda_ms(lambda: gn.group_norm_apply(x, mean_c, mul_c, b, residual=r, act="e"))
+            apply = lambda: gn.group_norm_apply(x, mean_c, mul_c, b, act="e")
+            apply_r = lambda: gn.group_norm_apply(x, mean_c, mul_c, b, residual=r, act="e")
+            t_a, t_ar = kernel_ms(torch, apply, "gn_apply")[0], kernel_ms(torch, apply_r, "gn_apply")[0]
+            t_ae, t_are = cuda_ms(apply), cuda_ms(apply_r)
             t_ap = cuda_ms(lambda: gn.group_norm_apply_plain(x, mean_c, mul_c, b, act="e"), reps=5)
             t_arp = cuda_ms(lambda: gn.group_norm_apply_plain(
                 x, mean_c, mul_c, b, residual=r, act="e"), reps=5)
@@ -177,29 +199,34 @@ def check_gn(torch, gn, dev, gen):
             b_ar = bound_ms(3 * n_el * esz + small, 6 * n_el)
             t_lib = cuda_ms(lambda: torch.nn.functional.elu(
                 torch.nn.functional.group_norm(x, GROUPS, w.to(dtype), b.to(dtype), 1e-5)))
-            log(f"K1 {dt_name} level {level} {tuple(x.shape)}: stats {t_s:.4f} ms "
-                f"(plain {t_sp:.4f}, bound {b_s:.4f}, torch.var_mean {t_sl:.4f}, "
-                f"max|err| {s_err:.3g}); apply+elu "
-                f"{t_a:.4f} ms (plain {t_ap:.4f}, bound {b_a:.4f}), apply+res+elu "
-                f"{t_ar:.4f} ms (plain {t_arp:.4f}, bound {b_ar:.4f}), max|err| "
-                f"{max(errs):.3g}; F.group_norm+F.elu {t_lib:.4f} ms")
-            # one forward: n_gn stats calls; 2/3 plain and 1/3 residual applies
+            log(f"K1 {dt_name} level {level} {tuple(x.shape)}: moments {t_m:.4f} ms device "
+                f"(event {t_me:.4f}; plain {t_mp:.4f}, bound {b_m:.4f}, torch.var_mean "
+                f"{t_sl:.4f}), {launches} launch per GroupNorm, bulk={plan.bulk} "
+                f"{plan.blocks} blocks/sample, max|err| {m_err:.3g}, two calls bitwise "
+                f"equal; apply+elu {t_a:.4f} ms device (event {t_ae:.4f}; plain {t_ap:.4f}, "
+                f"bound {b_a:.4f}), apply+res+elu {t_ar:.4f} (event {t_are:.4f}; plain "
+                f"{t_arp:.4f}, bound {b_ar:.4f}), max|err| {max(errs):.3g}; "
+                f"F.group_norm+F.elu {t_lib:.4f} ms")
+            # one forward: n_gn moments calls; 2/3 plain and 1/3 residual applies
             k, k_res = n_gn * 2 // 3, n_gn // 3
-            tot["stats_ms"] += n_gn * t_s
-            tot["stats_plain_ms"] += n_gn * t_sp
-            tot["stats_bound"] += n_gn * b_s
+            tot["moments_ms"] += n_gn * t_m
+            tot["moments_event_ms"] += n_gn * t_me
+            tot["moments_plain_ms"] += n_gn * t_mp
+            tot["moments_bound"] += n_gn * b_m
+            tot["moments_library_ms"] += n_gn * t_sl
             tot["apply_ms"] += k * t_a + k_res * t_ar
+            tot["apply_event_ms"] += k * t_ae + k_res * t_are
             tot["apply_plain_ms"] += k * t_ap + k_res * t_arp
             tot["apply_bound"] += k * b_a + k_res * b_ar
             tot["library_ms"] += n_gn * t_lib
-            tot["stats_library_ms"] += n_gn * t_sl
-            if level == 0:
-                tot["stats_err"], tot["apply_err"] = s_err, max(errs)
+            tot["moments_err"] = max(tot["moments_err"], m_err)
+            tot["apply_err"] = max(tot["apply_err"], max(errs))
             del x, r
-        log(f"K1 {dt_name} per full-width forward (27 GroupNorms): stats "
-            f"{tot['stats_ms']:.4f} ms (bound {tot['stats_bound']:.4f}, torch.var_mean "
-            f"{tot['stats_library_ms']:.4f}), apply "
-            f"{tot['apply_ms']:.4f} ms (bound {tot['apply_bound']:.4f}), "
+        log(f"K1 {dt_name} per full-width forward (27 GroupNorms): moments "
+            f"{tot['moments_ms']:.4f} ms device (event {tot['moments_event_ms']:.4f}; "
+            f"bound {tot['moments_bound']:.4f}, torch.var_mean "
+            f"{tot['moments_library_ms']:.4f}), apply {tot['apply_ms']:.4f} ms device "
+            f"(event {tot['apply_event_ms']:.4f}; bound {tot['apply_bound']:.4f}), "
             f"F.group_norm+F.elu {tot['library_ms']:.4f} ms")
     return totals
 
@@ -227,14 +254,16 @@ def check_gather(torch, P, grid_corners, dev, gen):
     t_dev = sum(ms for ms, _, name in rows if "gather" in name.lower())
     n_el = BATCH * int(np.prod(PATCH))
     b = bound_ms(n_el * (2 + 2), 0)
-    log(f"K2 {tuple(vol.shape)} f16 -> {BATCH}x{PATCH} bf16: {t:.4f} ms per wrapper call "
-        f"(plain {t_p:.4f}, bound {b:.4f}); kernel device time {t_dev:.4f} ms (profiler, "
-        f"{reps} calls); byte-equal in bf16/fp32/f16, max|err| {err}")
+    # no one PyTorch call gathers N windows at host corners with the cast
+    # fused in, so K2 has no library time
+    log(f"K2 {tuple(vol.shape)} f16 -> {BATCH}x{PATCH} bf16: kernel device time "
+        f"{t_dev:.4f} ms (profiler, {reps} calls; bound {b:.4f}); {t:.4f} ms per wrapper "
+        f"call (event; plain {t_p:.4f}); byte-equal in bf16/fp32/f16, max|err| {err}")
     for ms, count, name in sorted(rows, reverse=True):
         log(f"K2 profile: {ms:8.4f} ms  x{count:<3d} {name[:100]}")
     if t_dev == 0:
         raise AssertionError("the profiler saw no gather kernel")
-    return dict(ms=t, plain_ms=t_p, bound=b, device_ms=t_dev, err=err)
+    return dict(ms=t_dev, wrapper_ms=t, plain_ms=t_p, bound=b, err=err)
 
 
 def check_forward(torch, gn, P, ResidualUNet3D, dev, gen):
@@ -299,6 +328,14 @@ def profile_forward(torch, model, dev, gen, reps=3):
     if total == 0:
         log("profile: the profiler saw no device time")
         return
+    moments = [(ms, count) for ms, count, name in rows if "gn_moments" in name]
+    stale = [name for _, _, name in rows if "gn_stats" in name or "gn_combine" in name]
+    if stale or sum(count for _, count in moments) != sum(n for _, _, n in LEVELS):
+        raise AssertionError(f"forward: expected one gn_moments launch per GroupNorm, "
+                             f"got {moments} and {stale}")
+    log(f"profile: statistics side per bf16 forward {sum(ms for ms, _ in moments):.4f} ms "
+        f"device in {sum(count for _, count in moments)} gn_moments launches; "
+        f"{sum(count for _, count, _ in rows)} device launches per forward")
     groups = {}
     for ms, _, name in rows:
         low = name.lower()
@@ -382,13 +419,13 @@ def run_slice(torch, gn, P, models, grid_corners, dev):
     gn.STATS_LAUNCHES = gn.APPLY_LAUNCHES = P.LAUNCHES = 0
     got, seconds = timed(tasks["bf16"])
     got = {"bf16": got}
-    counts = dict(gn_stats=gn.STATS_LAUNCHES, gn_apply=gn.APPLY_LAUNCHES,
+    counts = dict(gn_moments=gn.STATS_LAUNCHES, gn_apply=gn.APPLY_LAUNCHES,
                   gather_patches=P.LAUNCHES)
     n_batches = sum(
         -(-int(np.prod([-(-s // (p - 2 * o)) for s, p, o in zip(shape, PATCH, OVERLAP)]))
           // BATCH) for _, shape in SLICE_VOLUMES)
     log(f"slice bf16: launches {counts} over {n_batches} batches")
-    expected = dict(gn_stats=27 * n_batches, gn_apply=27 * n_batches, gather_patches=n_batches)
+    expected = dict(gn_moments=27 * n_batches, gn_apply=27 * n_batches, gather_patches=n_batches)
     if counts != expected:
         raise AssertionError(f"launch counts {counts}, expected {expected}")
 
@@ -491,26 +528,30 @@ def main() -> int:
     b16 = k1["bf16"]
     common = dict(route="cuda", bound_by="bytes", ok=True)
     kernels = [
-        dict(name="gn_stats", source="tpu_mednet_torch/csrc/groupnorm.cu",
+        dict(name="gn_moments", source="tpu_mednet_torch/csrc/groupnorm.cu",
              replaces="tpu_mednet/ops/pallas/groupnorm.py:94",
-             launches=counts["gn_stats"], max_abs_err=b16["stats_err"],
-             ms=b16["stats_ms"], plain_ms=b16["stats_plain_ms"],
-             bound_ms=b16["stats_bound"], library_ms=b16["stats_library_ms"],
+             launches=counts["gn_moments"], max_abs_err=b16["moments_err"],
+             ms=b16["moments_ms"], event_ms=b16["moments_event_ms"],
+             plain_ms=b16["moments_plain_ms"], bound_ms=b16["moments_bound"],
+             library_ms=b16["moments_library_ms"],
              library_call="torch.var_mean (the same moments up to a rescale)",
              per="full-width bf16 forward, 27 calls", **common),
         dict(name="gn_apply", source="tpu_mednet_torch/csrc/groupnorm.cu",
              replaces="tpu_mednet/ops/pallas/groupnorm.py:94",
              launches=counts["gn_apply"], max_abs_err=b16["apply_err"],
-             ms=b16["apply_ms"], plain_ms=b16["apply_plain_ms"],
-             bound_ms=b16["apply_bound"], library_ms=b16["library_ms"],
+             ms=b16["apply_ms"], event_ms=b16["apply_event_ms"],
+             plain_ms=b16["apply_plain_ms"], bound_ms=b16["apply_bound"],
+             library_ms=b16["library_ms"],
              library_call="F.group_norm + F.elu (statistics and apply together)",
              per="full-width bf16 forward, 27 calls", **common),
         dict(name="gather_patches", source="tpu_mednet_torch/csrc/patches.cu",
              replaces="tpu_mednet/ops/pallas/patches.py:95",
              launches=counts["gather_patches"], max_abs_err=k2["err"],
-             ms=k2["ms"], device_ms=k2["device_ms"], plain_ms=k2["plain_ms"],
-             bound_ms=k2["bound"],
-             library_ms=None, per="one batch of 8 tiles of 96^3, f16 -> bf16", **common),
+             ms=k2["ms"], event_ms=k2["wrapper_ms"], plain_ms=k2["plain_ms"],
+             bound_ms=k2["bound"], library_ms=None,
+             library_call="none: no one PyTorch call gathers N windows at host "
+                          "corners with the cast fused in",
+             per="one batch of 8 tiles of 96^3, f16 -> bf16", **common),
     ]
     log(json.dumps({"slice": slice_, **fwd}))
     log(json.dumps({"kernels": kernels}))

@@ -28,6 +28,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _activation(shape, dtype, device, seed, offset=0):
+    """(N, C, D, H, W) channels_last_3d; ``offset`` elements into its storage."""
+    g = torch.Generator().manual_seed(seed)
+    n, c, *sp = shape
+    flat = (torch.randn(offset + n * c * int(np.prod(sp)), generator=g) + 0.5).to(dtype)
+    x = flat.to(device)[offset:].view(n, *sp, c).permute(0, 4, 1, 2, 3)
+    assert x.is_contiguous(memory_format=CL3D)
+    return x
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gn_kernels_match_plain_on_card(cuda_device, dtype):
@@ -38,18 +48,90 @@ def test_gn_kernels_match_plain_on_card(cuda_device, dtype):
     r = r.contiguous(memory_format=CL3D)
     w = torch.rand(64, generator=g).to(cuda_device)
     b = torch.rand(64, generator=g).to(cuda_device)
-    s, q = gn.group_norm_stats(x)
-    s_p, q_p = gn.group_norm_stats_plain(x)
-    torch.testing.assert_close(s, s_p, rtol=1e-5, atol=0)
-    torch.testing.assert_close(q, q_p, rtol=1e-5, atol=0)
-    mean_c, mul_c = gn.fold_group_stats(s_p, q_p, 720, 8, w, 1e-5)
-    y = gn.group_norm_apply(x, mean_c, mul_c, b, residual=r, act="e")
-    y_p = gn.group_norm_apply_plain(x, mean_c, mul_c, b, residual=r, act="e")
+    mean_c, mul_c = gn.group_norm_moments(x, 8, w, 1e-5)
+    mean_p, mul_p = gn.group_norm_moments_plain(x, 8, w, 1e-5)
+    torch.testing.assert_close(mean_c, mean_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(mul_c, mul_p, rtol=1e-5, atol=0)
+    y = gn.group_norm_apply(x, mean_p, mul_p, b, residual=r, act="e")
+    y_p = gn.group_norm_apply_plain(x, mean_p, mul_p, b, residual=r, act="e")
     if dtype == torch.float32:
         torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
     else:  # one rounding of nearly the same fp32 value: within 1 bf16 ulp
         ulp = torch.finfo(torch.bfloat16).eps * y_p.float().abs().clamp_min(1e-30)
         assert bool(((y.float() - y_p.float()).abs() <= ulp).all())
+
+
+# one shape per route of gn_moments_kernel: (shape, dtype, storage offset,
+# groups, bulk copies expected)
+_MOMENT_CASES = {
+    "bulk-bf16": ((2, 64, 6, 10, 12), torch.bfloat16, 0, 8, True),
+    "bulk-fp32-c12": ((2, 12, 5, 6, 7), torch.float32, 0, 4, True),
+    "register-bf16-c12": ((2, 12, 5, 6, 7), torch.bfloat16, 0, 4, False),
+    "register-unaligned": ((2, 32, 4, 5, 6), torch.bfloat16, 1, 8, False),
+    "rows-below-one-block": ((3, 32, 1, 2, 3), torch.float32, 0, 8, True),
+    "one-sample": ((1, 128, 12, 12, 12), torch.bfloat16, 0, 8, True),
+    "many-blocks": ((2, 32, 40, 40, 40), torch.bfloat16, 0, 8, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_MOMENT_CASES))
+def test_gn_moments_kernel_matches_plain_on_card(cuda_device, case):
+    shape, dtype, offset, groups, bulk = _MOMENT_CASES[case]
+    x = _activation(shape, dtype, cuda_device, 7, offset)
+    n, c = shape[:2]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = gn.plan_moments(n, x.numel() // (n * c), c, x.element_size(),
+                           x.data_ptr() % 16 == 0, sms)
+    assert plan.bulk == bulk
+    w = torch.rand(c, generator=torch.Generator().manual_seed(8)).to(cuda_device) + 0.5
+    launched = gn.STATS_LAUNCHES
+    mean_c, mul_c = gn.group_norm_moments(x, groups, w, 1e-5)
+    assert gn.STATS_LAUNCHES == launched + 1
+    mean_p, mul_p = gn.group_norm_moments_plain(x, groups, w, 1e-5)
+    torch.testing.assert_close(mean_c, mean_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(mul_c, mul_p, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_gn_moments_kernel_is_deterministic(cuda_device):
+    """Two calls are bitwise equal, with a call at another N between them,
+    and every sample's ticket is back at 0 after each launch."""
+    a = _activation((4, 32, 24, 24, 24), torch.bfloat16, cuda_device, 9)
+    b = _activation((2, 64, 8, 8, 8), torch.bfloat16, cuda_device, 10)
+    w32, w64 = torch.ones(32, device=cuda_device), torch.ones(64, device=cuda_device)
+    first = gn.group_norm_moments(a, 8, w32)
+    gn.group_norm_moments(b, 8, w64)
+    second = gn.group_norm_moments(a, 8, w32)
+    torch.cuda.synchronize()
+    for u, v in zip(first, second):
+        assert torch.equal(u, v)
+    assert int(gn._TICKETS[a.device].abs().sum()) == 0
+
+
+# K2 cases: (volume shape, volume dtype, patch, corners) with corners
+# misaligned by 1-7 elements and rows whose bytes are not a multiple of 16
+_GATHER_CASES = {
+    "f16-c1-odd-rows": ((40, 36, 44, 1), torch.float16, (16, 16, 13),
+                        [[0, 0, z] for z in range(1, 8)] + [[8, 4, 12], [24, 20, 31]]),
+    "fp32-c3": ((20, 18, 22, 3), torch.float32, (5, 4, 7),
+                [[1, 2, 3], [0, 0, 1], [15, 14, 15], [7, 3, 5]]),
+    "bf16-long-rows": ((6, 5, 30, 64), torch.bfloat16, (3, 2, 21),
+                       [[0, 0, 1], [3, 3, 9], [2, 1, 5]]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_GATHER_CASES))
+def test_gather_kernel_byte_equal_at_misaligned_corners(cuda_device, case):
+    shape, dtype, patch, corners = _GATHER_CASES[case]
+    g = torch.Generator().manual_seed(11)
+    vol = torch.randn(shape, generator=g).to(dtype).to(cuda_device)
+    corners = np.asarray(corners, np.int32)
+    for dt in (torch.float16, torch.bfloat16, torch.float32):
+        got = P.extract_patches(vol, corners, patch, out_dtype=dt)
+        ref = P.extract_patches_plain(vol, corners, patch, dt)
+        assert torch.equal(got.view(-1).view(torch.uint8), ref.view(-1).view(torch.uint8))
 
 
 @pytest.mark.cuda

@@ -12,12 +12,14 @@ outputs atol 1e-5 in fp32 (same formula, another reduction order for the
 statistics); window gathers byte-equal (pure data movement).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from flax import linen as nn
 
+from tpu_mednet.ops.packed import packed_group_norm_stats
 from tpu_mednet.ops.pallas.groupnorm import _lane_moments_xla, lane_moments_pallas
 from tpu_mednet.ops.pallas.patches import extract_patches_pallas, extract_patches_xla
 from tpu_mednet_torch.ops import groupnorm as gn
@@ -45,10 +47,64 @@ def test_gn_stats_plain_matches_xla_and_pallas(shape, dtype):
     xj = jnp.asarray(x).astype(getattr(jnp, dtype))
     xt = _to_port(x, getattr(torch, dtype))
     assert xt.is_contiguous(memory_format=CL3D)
-    s, q = gn.group_norm_stats(xt)
+    s, q = gn.group_norm_stats_plain(xt)
     for s_ref, q_ref in (_lane_moments_xla(xj), lane_moments_pallas(xj, interpret=True)):
         np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), rtol=1e-5)
         np.testing.assert_allclose(q.numpy(), np.asarray(q_ref), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,groups", [((2, 8, 6, 4, 64), 8), ((3, 5, 4, 6, 24), 4)])
+def test_group_norm_moments_matches_jax_fold(shape, groups, dtype):
+    """mean_c and mul_c = rsqrt(var + eps) * gamma against the JAX package's
+    moments and group fold (``packed_group_norm_stats``, one z-slice)."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(0.5, 1.0, size=shape).astype(np.float32)
+    gamma = rng.normal(1.0, 0.2, size=shape[-1]).astype(np.float32)
+    mean, var = packed_group_norm_stats(jnp.asarray(x).astype(getattr(jnp, dtype)), 1, groups)
+    cg = shape[-1] // groups
+    mean_ref = np.repeat(np.asarray(mean), cg, axis=1)
+    mul_ref = np.repeat(np.asarray(jax.lax.rsqrt(jnp.maximum(var, 0.0) + 1e-5)), cg,
+                        axis=1) * gamma
+    mean_c, mul_c = gn.group_norm_moments(_to_port(x, getattr(torch, dtype)), groups,
+                                          torch.from_numpy(gamma), 1e-5)
+    assert mean_c.dtype == mul_c.dtype == torch.float32
+    np.testing.assert_allclose(mean_c.numpy(), mean_ref, rtol=1e-5)
+    np.testing.assert_allclose(mul_c.numpy(), mul_ref, rtol=1e-5)
+
+
+# the main path's five GroupNorm shapes, bf16, on a 132-SM card:
+# (N, S, C) -> (blocks per sample, rows per block, rows per bulk-copy stage)
+_LEVEL_PLANS = [((8, 96**3, 32), (33, 26811, 256)), ((8, 48**3, 64), (33, 3352, 128)),
+                ((8, 24**3, 128), (33, 419, 64)), ((8, 12**3, 256), (14, 124, 32)),
+                ((8, 6**3, 512), (4, 54, 16))]
+
+
+@pytest.mark.parametrize("shape,expected", _LEVEL_PLANS)
+def test_plan_moments_at_the_main_path_shapes(shape, expected):
+    n, s, c = shape
+    plan = gn.plan_moments(n, s, c, 2, True, 132)
+    assert plan == gn.MomentsPlan(True, *expected)
+    assert plan.stage_rows * c * 2 == gn._STAGE_BYTES
+
+
+@pytest.mark.parametrize("n,s,c,esize,aligned,bulk", [
+    (2, 210, 12, 2, True, False),      # 24-byte rows: no bulk copies
+    (2, 210, 12, 4, True, True),       # 48-byte rows
+    (2, 120, 32, 2, False, False),     # unaligned base
+    (1, 64, 4096, 2, True, False),     # 512 vectors per row: too wide for a consumer each
+    (3, 6, 32, 4, True, True),         # S below one block
+    (1, 10**6, 8, 4, True, True),      # one sample: the whole card's blocks
+])
+def test_plan_moments_routes_and_covers_every_row(n, s, c, esize, aligned, bulk):
+    plan = gn.plan_moments(n, s, c, esize, aligned, 132)
+    assert plan.bulk == bulk
+    assert plan.stage_rows == (gn._STAGE_BYTES // (c * esize) if bulk else 0)
+    # every row in exactly one block, no block empty
+    assert plan.blocks * plan.rows_per_block >= s > (plan.blocks - 1) * plan.rows_per_block
+    assert plan.blocks <= max(1, -(-gn._BLOCKS_PER_SM * 132 // n))
+    if plan.blocks > 1:
+        assert s * c * esize >= (plan.blocks - 1) * gn._MIN_BLOCK_BYTES
 
 
 # -- K1: normalize + affine (+ residual) (+ act) ---------------------------
@@ -96,7 +152,7 @@ def test_group_norm_plain_bf16_rounds_once():
 def test_group_norm_rejects_other_devices_and_bad_groups():
     x = torch.zeros((1, 8, 2, 2, 2), device="meta").contiguous(memory_format=CL3D)
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        gn.group_norm_stats(x)
+        gn.group_norm_moments(x, 4, torch.ones(8), 1e-5)
     with pytest.raises(ValueError, match="divisible"):
         gn.group_norm(torch.zeros(1, 6, 2, 2, 2), 4, torch.ones(6), torch.zeros(6))
     with pytest.raises(ValueError, match="nonlinearity"):

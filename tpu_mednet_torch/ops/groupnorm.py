@@ -1,23 +1,22 @@
-"""GroupNorm forward: K1 statistics kernel + fused normalize/act kernel.
+"""GroupNorm forward: K1 moments kernel + fused normalize/act kernel.
 
 Counterpart of ``tpu_mednet/ops/pallas/groupnorm.py`` (``lane_moments``:
-per-(batch, lane) fp32 sum and sum of squares in one streaming pass) and of
-the group fold and normalize in ``tpu_mednet/ops/packed.py:142-190``.  On a
-CUDA tensor the two hand-written kernels of ``csrc/groupnorm.cu`` run; on a
-CPU tensor their plain PyTorch versions below run instead, and any other
-device raises.
+per-(batch, lane) fp32 sum and sum of squares in one streaming pass), of
+the group fold ``packed_group_norm_stats`` and of the normalize in
+``tpu_mednet/ops/packed.py:142-190``.  On a CUDA tensor the two
+hand-written kernels of ``csrc/groupnorm.cu`` run: one launch from the
+activation to the per-(n, c) ``mean`` and ``mul = rstd * gamma``, one for
+the normalize.  On a CPU tensor their plain PyTorch versions below run
+instead, and any other device raises.
 
 Activations are logical (N, C, D, H, W) stored ``channels_last_3d``, i.e.
-physically (N, S, C) with S = D*H*W.  The (N, C) -> (N, G) fold, the clamp
-``var = max(0, E[x^2] - mean^2)`` (flax's ``use_fast_variance`` path) and
-``rsqrt(var + eps)`` act on (N, G) scalars in plain torch, as they stayed in
-XLA in the JAX package.
+physically (N, S, C) with S = D*H*W.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,9 +31,10 @@ ACT_CODES = {None: 0, "r": 1, "l": 2, "e": 3}
 LEAKY_SLOPE = 0.1
 CL3D = torch.channels_last_3d
 
-_STATS_ARGS = [
+_MOMENTS_ARGS = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
 _APPLY_ARGS = [
@@ -43,10 +43,14 @@ _APPLY_ARGS = [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_void_p,
 ]
-# stats grid: enough (n, chunk) blocks to fill every SM several times over,
-# but never a chunk shorter than this many rows
-_BLOCKS_PER_SM = 8
-_MIN_CHUNK_ROWS = 64
+# moments launch plan; _STAGE_BYTES and _CONSUMERS must match kMaxStageBytes
+# and kConsumers in csrc/groupnorm.cu
+_STAGE_BYTES = 16 * 1024   # one bulk copy into one stage of the ring
+_CONSUMERS = 256           # threads that sum, one 16-byte vector each
+_BLOCKS_PER_SM = 2         # grid of about one wave at the largest shapes
+_MIN_BLOCK_BYTES = 64 * 1024
+# per device: one int32 ticket per sample, zero between launches
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
 
 
 def activation_plain(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
@@ -79,34 +83,6 @@ def group_norm_stats_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     return xf.sum(dim=(2, 3, 4)), xf.square().sum(dim=(2, 3, 4))
 
 
-def _group_norm_stats_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    global STATS_LAUNCHES
-    _build.require_cuda(x, "group_norm_stats")
-    _check_activation(x, "group_norm_stats")
-    n, c = x.shape[:2]
-    s = x.numel() // (n * c)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chunks = max(1, min(-(-_BLOCKS_PER_SM * sms // n), -(-s // _MIN_CHUNK_ROWS)))
-    rows_per_chunk = -(-s // chunks)
-    chunks = -(-s // rows_per_chunk)
-    part = torch.empty((2, n, chunks, c), dtype=torch.float32, device=x.device)
-    out = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
-    fn = _build.kernel("tmt_gn_stats", _STATS_ARGS)
-    err = fn(x.data_ptr(), _build.DTYPE_CODES[x.dtype], n, s, c, chunks,
-             rows_per_chunk, part[0].data_ptr(), part[1].data_ptr(),
-             out[0].data_ptr(), out[1].data_ptr(), _build.stream_of(x))
-    _build.check(err, "tmt_gn_stats")
-    STATS_LAUNCHES += 1
-    return out[0], out[1]
-
-
-def group_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 statistics: (sum, sumsq), each (N, C) fp32."""
-    if x.device.type == "cpu":
-        return group_norm_stats_plain(x)
-    return _group_norm_stats_cuda(x)
-
-
 def fold_group_stats(s: torch.Tensor, q: torch.Tensor, spatial: int,
                      num_groups: int, weight: torch.Tensor, eps: float
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,6 +100,91 @@ def fold_group_stats(s: torch.Tensor, q: torch.Tensor, spatial: int,
     mean_c = mean.repeat_interleave(cg, dim=1)
     mul_c = rstd.repeat_interleave(cg, dim=1) * weight.float()
     return mean_c.contiguous(), mul_c.contiguous()
+
+
+def group_norm_moments_plain(x: torch.Tensor, num_groups: int,
+                             weight: torch.Tensor, eps: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(n, c) fp32 ``mean`` and ``mul = rstd * gamma``, each (N, C)."""
+    n, c = x.shape[:2]
+    return fold_group_stats(*group_norm_stats_plain(x), x.numel() // max(1, n * c),
+                            num_groups, weight, eps)
+
+
+class MomentsPlan(NamedTuple):
+    """How ``gn_moments_kernel`` is launched for one activation shape."""
+
+    bulk: bool            # rows streamed by bulk copies (else the register path)
+    blocks: int           # blocks per sample
+    rows_per_block: int
+    stage_rows: int       # rows per bulk-copy stage (0 on the register path)
+
+
+def plan_moments(n: int, s: int, c: int, esize: int, aligned: bool,
+                 sms: int) -> MomentsPlan:
+    """Launch plan for N samples of S rows of C channels of ``esize`` bytes.
+
+    Bulk copies need a 16-byte aligned base (``aligned``) and rows of a
+    multiple of 16 bytes, and each consumer thread owns one 16-byte vector
+    of a row.  The grid aims at ``_BLOCKS_PER_SM`` blocks per SM over all
+    samples, but never below ``_MIN_BLOCK_BYTES`` of input per block.
+    """
+    row_bytes = c * esize
+    bulk = aligned and row_bytes % 16 == 0 and row_bytes // 16 <= _CONSUMERS
+    per_sample = max(1, min(-(-_BLOCKS_PER_SM * sms // n),
+                            -(-s * row_bytes // _MIN_BLOCK_BYTES)))
+    rows_per_block = max(1, -(-s // per_sample))
+    blocks = max(1, -(-s // rows_per_block))
+    return MomentsPlan(bulk, blocks, rows_per_block,
+                       _STAGE_BYTES // row_bytes if bulk else 0)
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
+def _group_norm_moments_cuda(x, num_groups, weight, eps):
+    global STATS_LAUNCHES
+    _build.require_cuda(x, "group_norm_moments")
+    _check_activation(x, "group_norm_moments")
+    n, c = x.shape[:2]
+    s = x.numel() // (n * c) if n * c else 0
+    gamma = weight.float().contiguous()
+    if gamma.shape != (c,) or gamma.device != x.device:
+        raise ValueError("group_norm_moments: weight must be (C,) on x's device")
+    out = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+    if n == 0 or c == 0:
+        return out[0], out[1]
+    plan = plan_moments(n, s, c, x.element_size(), x.data_ptr() % 16 == 0,
+                        torch.cuda.get_device_properties(x.device).multi_processor_count)
+    part = torch.empty((n, plan.blocks, 2, c), dtype=torch.float32, device=x.device)
+    fn = _build.kernel("tmt_gn_moments", _MOMENTS_ARGS)
+    err = fn(x.data_ptr(), _build.DTYPE_CODES[x.dtype], n, s, c, num_groups,
+             gamma.data_ptr(), eps, plan.blocks, plan.rows_per_block, int(plan.bulk),
+             plan.stage_rows, part.data_ptr(), _tickets(x.device, n).data_ptr(),
+             out[0].data_ptr(), out[1].data_ptr(), _build.stream_of(x))
+    _build.check(err, "tmt_gn_moments")
+    STATS_LAUNCHES += 1
+    return out[0], out[1]
+
+
+def group_norm_moments(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
+                       eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 moments: per-(n, c) fp32 ``mean`` and ``mul = rstd * gamma``.
+
+    On CUDA one launch of ``gn_moments_kernel``.  Its per-sample tickets
+    live in one buffer per device, so concurrent calls on two streams of
+    one device are not supported.
+    """
+    if x.shape[1] % num_groups:
+        raise ValueError(f"{x.shape[1]} channels not divisible into {num_groups} groups")
+    if x.device.type == "cpu":
+        return group_norm_moments_plain(x, num_groups, weight, eps)
+    return _group_norm_moments_cuda(x, num_groups, weight, eps)
 
 
 # -- normalize + affine (+ residual) (+ act) --------------------------------
@@ -188,11 +249,6 @@ def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
                residual: Optional[torch.Tensor] = None,
                act: Optional[str] = None) -> torch.Tensor:
     """GroupNorm (+ residual add) (+ nonlinearity) of a channels_last_3d
-    activation: stats kernel, (N, G) fold, apply kernel."""
-    n, c = x.shape[:2]
-    if c % num_groups:
-        raise ValueError(f"{c} channels not divisible into {num_groups} groups")
-    s, q = group_norm_stats(x)
-    mean_c, mul_c = fold_group_stats(s, q, x.numel() // (n * c), num_groups,
-                                     weight, eps)
+    activation: the moments kernel, then the apply kernel."""
+    mean_c, mul_c = group_norm_moments(x, num_groups, weight, eps)
     return group_norm_apply(x, mean_c, mul_c, bias, residual, act)

@@ -79,7 +79,7 @@ def _extract_patches_cuda(volume, corners, patch_size, out_dtype=None):
     if max(px * py, pz * c) >= 2**31:
         raise ValueError("extract_patches: a patch's rows must stay below 2^31 elements")
     out = torch.empty((n, px, py, pz, c), dtype=out_dtype, device=volume.device)
-    if n == 0:
+    if out.numel() == 0:
         return out
     dev_corners = torch.from_numpy(arr).pin_memory().to(volume.device, non_blocking=True)
     fn = _build.kernel("tmt_gather_patches", _GATHER_ARGS)
