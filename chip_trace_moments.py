@@ -50,19 +50,36 @@ int tmt_trace_clear() {
 }
 """
 
-# (anchor in csrc/groupnorm.cu, stamp index, stamp after the anchor)
+_MOMENTS = "__global__ void gn_moments_kernel("
+_SUMS = "__device__ __forceinline__ bool sample_sums("
+
+# (function of csrc/groupnorm.cu, anchor in its body, stamp index, stamp
+# after the anchor).  The cross-block sum (stamps 4) lives in sample_sums,
+# which the backward's reduce shares; only the moments run here.
 _POINTS = [
-    ("const T* xs = static_cast<const T*>(p.x) + (long long)n * p.s * c;", 0, True),
-    ('asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");\n    }\n'
+    (_MOMENTS, "const T* xs = static_cast<const T*>(p.x) + (long long)n * p.s * c;", 0, True),
+    (_MOMENTS, 'asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");\n    }\n'
      "    __syncthreads();", 1, True),
-    ("    // every issued stage was waited for: the ring is free for the fold\n"
+    (_MOMENTS, "    // every issued stage was waited for: the ring is free for the fold\n"
      "    __syncthreads();", 2, True),
-    ("  // a sample of one block keeps its sums in shared memory", 3, False),
-    ("    if (!last_block) return;", 4, True),
-    ("  // the fold of ops/packed.py packed_group_norm_stats", 5, False),
-    ("    g_rstd[g] = __frsqrt_rn(__fadd_rn(var, p.eps));\n  }\n  __syncthreads();", 6, True),
-    ("  if (tid == 0 && !single) p.tickets[n] = 0;", 7, False),
+    (_MOMENTS, "  if (!sample_sums(", 3, False),
+    (_SUMS, "    if (!last_block) return false;", 4, True),
+    (_MOMENTS, "  // the fold of ops/packed.py packed_group_norm_stats", 5, False),
+    (_MOMENTS, "    g_rstd[g] = __frsqrt_rn(__fadd_rn(var, p.eps));\n  }\n  __syncthreads();",
+     6, True),
+    (_MOMENTS, "    p.rstd[(long long)n * c + ch] = g_rstd[g];\n  }", 7, True),
 ]
+
+
+def _find(s: str, function: str, anchor: str) -> int:
+    """Offset of ``anchor`` in the body of ``function``, where it must stand once."""
+    if s.count(function) != 1:
+        raise RuntimeError(f"not found once in groupnorm.cu: {function!r}")
+    start = s.index(function)
+    body = s[start:s.index("\n}\n", start)]
+    if body.count(anchor) != 1:
+        raise RuntimeError(f"anchor not found once in {function!r}: {anchor!r}")
+    return start + body.index(anchor)
 
 
 def stamped_copy(dest: Path = DEST) -> Path:
@@ -73,10 +90,8 @@ def stamped_copy(dest: Path = DEST) -> Path:
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     src = dest / "tpu_mednet_torch" / "csrc" / "groupnorm.cu"
     s = src.read_text()
-    for anchor, k, after in _POINTS:
-        if s.count(anchor) != 1:
-            raise RuntimeError(f"stamp {k}: anchor not found once in groupnorm.cu: {anchor!r}")
-        i = s.index(anchor) + (len(anchor) if after else 0)
+    for function, anchor, k, after in _POINTS:
+        i = _find(s, function, anchor) + (len(anchor) if after else 0)
         s = s[:i] + f"\n  if (threadIdx.x == 0) tstamp(blockIdx.y, blockIdx.x, {k});\n" + s[i:]
     s = s.replace("template <int V>\n__device__ __forceinline__ void accumulate",
                   _HELPERS + "template <int V>\n__device__ __forceinline__ void accumulate", 1)

@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_no_tpu_mednet():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 14
+    assert n_modules >= 22
 
 
 def test_port_sources_name_no_jax_import():
@@ -76,6 +76,12 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SegmentationTask.from_hparams(
             SimpleNamespace(in_channels=1, out_channels=2, fmaps=4))
+    from tpu_mednet_torch.data import DevicePatchSampler
+
+    labels = {"labels": {"s0": np.zeros((1, 8, 8, 8), np.uint8)}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DevicePatchSampler(None, ["s0"], 1, [4, 4, 4],
+                           reader=MemoryReader({**reader.store, **labels}))
 
 
 def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():
@@ -88,3 +94,6 @@ def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         patches.extract_patches(torch.empty((8, 8, 8, 1), device="meta"),
                                 np.zeros((1, 3), np.int32), (4, 4, 4))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        groupnorm.group_norm_backward(x, x, torch.zeros(1, 8), torch.ones(1, 8),
+                                      torch.ones(8), torch.zeros(8), 2)

@@ -8,7 +8,11 @@ without them, skipping the JAX test setup:
 
 Tolerances: moments rtol 1e-5 (another fp32 summation order); the fused
 apply atol 1e-5 in fp32 and within one bf16 ulp in bf16 (one rounding of
-nearly the same fp32 value); gathers byte-equal.
+nearly the same fp32 value); the backward's dγ, dβ within 1e-4 * max |ref|
+(per-(n, c) sums of another fp32 order), dx and d(residual) within
+1e-5 * max |ref| in fp32 and, in bf16, one bf16 ulp of the plain value
+plus 1e-5 * max |ref| (the same elementwise arithmetic on coefficients
+that differ by their sums' order, rounded once); gathers byte-equal.
 """
 
 import numpy as np
@@ -48,10 +52,10 @@ def test_gn_kernels_match_plain_on_card(cuda_device, dtype):
     r = r.contiguous(memory_format=CL3D)
     w = torch.rand(64, generator=g).to(cuda_device)
     b = torch.rand(64, generator=g).to(cuda_device)
-    mean_c, mul_c = gn.group_norm_moments(x, 8, w, 1e-5)
-    mean_p, mul_p = gn.group_norm_moments_plain(x, 8, w, 1e-5)
-    torch.testing.assert_close(mean_c, mean_p, rtol=1e-5, atol=0)
-    torch.testing.assert_close(mul_c, mul_p, rtol=1e-5, atol=0)
+    stats = gn.group_norm_moments(x, 8, w, 1e-5)
+    mean_p, mul_p, rstd_p = gn.group_norm_moments_plain(x, 8, w, 1e-5)
+    for got, ref in zip(stats, (mean_p, mul_p, rstd_p)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
     y = gn.group_norm_apply(x, mean_p, mul_p, b, residual=r, act="e")
     y_p = gn.group_norm_apply_plain(x, mean_p, mul_p, b, residual=r, act="e")
     if dtype == torch.float32:
@@ -86,11 +90,10 @@ def test_gn_moments_kernel_matches_plain_on_card(cuda_device, case):
     assert plan.bulk == bulk
     w = torch.rand(c, generator=torch.Generator().manual_seed(8)).to(cuda_device) + 0.5
     launched = gn.STATS_LAUNCHES
-    mean_c, mul_c = gn.group_norm_moments(x, groups, w, 1e-5)
+    stats = gn.group_norm_moments(x, groups, w, 1e-5)
     assert gn.STATS_LAUNCHES == launched + 1
-    mean_p, mul_p = gn.group_norm_moments_plain(x, groups, w, 1e-5)
-    torch.testing.assert_close(mean_c, mean_p, rtol=1e-5, atol=0)
-    torch.testing.assert_close(mul_c, mul_p, rtol=1e-5, atol=0)
+    for got, ref in zip(stats, gn.group_norm_moments_plain(x, groups, w, 1e-5)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda
@@ -142,3 +145,98 @@ def test_gather_kernel_matches_plain_on_card(cuda_device):
     for dt in (torch.float16, torch.bfloat16, torch.float32):
         got = P.extract_patches(vol, corners, (16, 16, 16), out_dtype=dt)
         assert torch.equal(got, P.extract_patches_plain(vol, corners, (16, 16, 16), dt))
+
+
+def _bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
+    _, exp = torch.frexp(ref.float())
+    return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - 8)
+
+
+def assert_grads_close(got, ref, dtype):
+    """GroupNormGrads of the kernels against the plain closed form."""
+    for name, g, r in zip(got._fields, got, ref):
+        if r is None:
+            assert g is None, name
+            continue
+        g, r = g.float(), r.float()
+        scale = float(r.abs().max())
+        if name in ("dweight", "dbias"):
+            tol = torch.full_like(r, 1e-4 * scale)
+        elif dtype == torch.float32:
+            tol = torch.full_like(r, 1e-5 * scale)
+        else:
+            tol = _bf16_ulp(r) + 1e-5 * scale
+        assert bool(((g - r).abs() <= tol).all()), (name, float((g - r).abs().max()), scale)
+
+
+# (shape, dtype, storage offset, groups): the vector and scalar routes of
+# both backward kernels, one block per sample and many
+_BWD_CASES = {
+    "bf16-vec": ((2, 64, 6, 10, 12), torch.bfloat16, 0, 8),
+    "fp32-vec": ((2, 32, 5, 6, 7), torch.float32, 0, 8),
+    "bf16-c12-scalar": ((2, 12, 5, 6, 7), torch.bfloat16, 0, 4),
+    "bf16-unaligned": ((2, 32, 4, 5, 6), torch.bfloat16, 1, 8),
+    "many-blocks": ((2, 32, 40, 40, 40), torch.bfloat16, 0, 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("act", [None, "e", "r", "l"])
+@pytest.mark.parametrize("case", list(_BWD_CASES))
+def test_gn_backward_kernels_match_plain_on_card(cuda_device, case, act, residual):
+    shape, dtype, offset, groups = _BWD_CASES[case]
+    x = _activation(shape, dtype, cuda_device, 12, offset)
+    dy = _activation(shape, dtype, cuda_device, 13, offset) - 0.5
+    r = _activation(shape, dtype, cuda_device, 14, offset) - 0.5 if residual else None
+    c = shape[1]
+    g = torch.Generator().manual_seed(15)
+    w = (torch.rand(c, generator=g) + 0.5).to(cuda_device)
+    w[0] = 0.0  # the statistics' rstd carries the gradient where gamma is 0
+    b = (torch.rand(c, generator=g) - 0.5).to(cuda_device)
+    stats = gn.group_norm_moments_plain(x, groups, w, 1e-5)
+    launched = (gn.BWD_REDUCE_LAUNCHES, gn.BWD_APPLY_LAUNCHES)
+    got = gn.group_norm_backward(x, dy, stats.mean, stats.rstd, w, b, groups, r, act)
+    assert (gn.BWD_REDUCE_LAUNCHES, gn.BWD_APPLY_LAUNCHES) == (launched[0] + 1,
+                                                               launched[1] + 1)
+    ref = gn.group_norm_backward_plain(x, dy, stats.mean, stats.rstd, w, b, groups, r, act)
+    assert got.dx.is_contiguous(memory_format=CL3D)
+    assert_grads_close(got, ref, dtype)
+    again = gn.group_norm_backward(x, dy, stats.mean, stats.rstd, w, b, groups, r, act)
+    for u, v in zip(got, again):
+        assert u is None or torch.equal(u, v)
+    assert int(gn._BWD_TICKETS[x.device].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_group_norm_function_on_card_matches_plain_autograd(cuda_device):
+    """The autograd Function on CUDA (forward and backward kernels) against
+    torch autograd through the plain forward, fp32."""
+    x = _activation((2, 32, 6, 6, 6), torch.float32, cuda_device, 16).requires_grad_()
+    r = _activation((2, 32, 6, 6, 6), torch.float32, cuda_device, 17).requires_grad_()
+    w = torch.rand(32, device=cuda_device).add_(0.5).requires_grad_()
+    b = torch.rand(32, device=cuda_device).requires_grad_()
+    dy = torch.randn_like(x)
+    ins = (x, w, b, r)
+    got = torch.autograd.grad(gn.group_norm(x, 8, w, b, residual=r, act="e"), ins, dy)
+    ref = torch.autograd.grad(gn.group_norm_plain(x, 8, w, b, residual=r, act="e"), ins, dy)
+    for u, v in zip(got, ref):
+        assert float((u - v).abs().max()) <= 1e-4 * float(v.abs().max())
+
+
+# indexed K2: stacked stores of bf16 images and uint8 labels, windows at
+# corners misaligned by 1-7 elements
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.uint8])
+def test_indexed_gather_byte_equal_at_misaligned_corners(cuda_device, dtype):
+    g = torch.Generator().manual_seed(18)
+    store = (torch.rand((3, 30, 28, 40, 1), generator=g) * 255).to(dtype).to(cuda_device)
+    corners = np.asarray([[0, 0, z] for z in range(1, 8)] + [[5, 7, 11], [14, 12, 24]],
+                         np.int32)
+    subjects = np.asarray([0, 1, 2, 2, 1, 0, 1, 2, 0], np.int32)
+    launched = P.LAUNCHES
+    got = P.extract_patches(store, corners, (16, 16, 16), subjects=subjects)
+    assert P.LAUNCHES == launched + 1
+    ref = P.extract_patches_plain(store, corners, (16, 16, 16), subjects=subjects)
+    assert got.dtype == dtype
+    assert torch.equal(got.view(-1).view(torch.uint8), ref.view(-1).view(torch.uint8))

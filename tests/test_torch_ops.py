@@ -56,21 +56,21 @@ def test_gn_stats_plain_matches_xla_and_pallas(shape, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,groups", [((2, 8, 6, 4, 64), 8), ((3, 5, 4, 6, 24), 4)])
 def test_group_norm_moments_matches_jax_fold(shape, groups, dtype):
-    """mean_c and mul_c = rsqrt(var + eps) * gamma against the JAX package's
-    moments and group fold (``packed_group_norm_stats``, one z-slice)."""
+    """mean_c, rstd_c = rsqrt(var + eps) and mul_c = rstd_c * gamma against
+    the JAX package's moments and group fold (``packed_group_norm_stats``, one z-slice)."""
     rng = np.random.default_rng(5)
     x = rng.normal(0.5, 1.0, size=shape).astype(np.float32)
     gamma = rng.normal(1.0, 0.2, size=shape[-1]).astype(np.float32)
     mean, var = packed_group_norm_stats(jnp.asarray(x).astype(getattr(jnp, dtype)), 1, groups)
     cg = shape[-1] // groups
     mean_ref = np.repeat(np.asarray(mean), cg, axis=1)
-    mul_ref = np.repeat(np.asarray(jax.lax.rsqrt(jnp.maximum(var, 0.0) + 1e-5)), cg,
-                        axis=1) * gamma
-    mean_c, mul_c = gn.group_norm_moments(_to_port(x, getattr(torch, dtype)), groups,
-                                          torch.from_numpy(gamma), 1e-5)
-    assert mean_c.dtype == mul_c.dtype == torch.float32
+    rstd_ref = np.repeat(np.asarray(jax.lax.rsqrt(jnp.maximum(var, 0.0) + 1e-5)), cg, axis=1)
+    mean_c, mul_c, rstd_c = gn.group_norm_moments(_to_port(x, getattr(torch, dtype)), groups,
+                                                  torch.from_numpy(gamma), 1e-5)
+    assert mean_c.dtype == mul_c.dtype == rstd_c.dtype == torch.float32
     np.testing.assert_allclose(mean_c.numpy(), mean_ref, rtol=1e-5)
-    np.testing.assert_allclose(mul_c.numpy(), mul_ref, rtol=1e-5)
+    np.testing.assert_allclose(mul_c.numpy(), rstd_ref * gamma, rtol=1e-5)
+    np.testing.assert_allclose(rstd_c.numpy(), rstd_ref, rtol=1e-5)
 
 
 # the main path's five GroupNorm shapes, bf16, on a 132-SM card:
@@ -200,6 +200,42 @@ def test_extract_patches_validates_corners(corners, match):
     vol = torch.zeros((8, 8, 8, 1), dtype=torch.float16)
     with pytest.raises(ValueError, match=match):
         P.extract_patches(vol, corners, (4, 4, 4))
+
+
+def test_extract_patches_indexed_by_subject():
+    """With ``subjects``, window i comes from ``store[subjects[i]]``: the
+    same bytes as a gather from that one volume; uint8 stores are copied."""
+    rng = np.random.default_rng(5)
+    store = torch.from_numpy(rng.integers(0, 255, size=(3, 12, 10, 14, 2)).astype(np.uint8))
+    corners = np.array([[0, 1, 2], [4, 4, 4], [2, 0, 6], [4, 2, 0]], np.int32)
+    subjects = np.array([2, 0, 2, 1], np.int32)
+    got = P.extract_patches(store, corners, (8, 6, 8), subjects=subjects)
+    assert got.dtype == torch.uint8 and got.shape == (4, 8, 6, 8, 2)
+    for i, (c, s) in enumerate(zip(corners, subjects)):
+        assert torch.equal(got[i], P.extract_patches(store[s], c[None], (8, 6, 8))[0])
+
+
+@pytest.mark.parametrize("subjects,match", [
+    (np.array([0, 3], np.int32), "leave the store"),
+    (np.array([-1, 0], np.int32), "leave the store"),
+    (np.array([0], np.int32), r"subjects must be \(2,\)"),
+    (np.array([0.0, 1.0]), "integers"),
+])
+def test_extract_patches_validates_subjects(subjects, match):
+    store = torch.zeros((3, 8, 8, 8, 1), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=match):
+        P.extract_patches(store, np.zeros((2, 3), np.int32), (4, 4, 4), subjects=subjects)
+
+
+def test_extract_patches_refuses_uint8_casts_and_store_without_subjects():
+    vol = torch.zeros((8, 8, 8, 1), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="only copied"):
+        P.extract_patches(vol, np.zeros((1, 3), np.int32), (4, 4, 4), out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="only copied"):
+        P.extract_patches(vol.float(), np.zeros((1, 3), np.int32), (4, 4, 4),
+                          out_dtype=torch.uint8)
+    with pytest.raises(ValueError, match=r"\(X, Y, Z, C\)"):
+        P.extract_patches(vol[None], np.zeros((1, 3), np.int32), (4, 4, 4))
 
 
 # -- kernel build -------------------------------------------------------------

@@ -13,8 +13,9 @@
 
 namespace tmt {
 
-// Must match _DTYPE_CODES in tpu_mednet_torch/ops/_build.py.
-enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+// Must match DTYPE_CODES in tpu_mednet_torch/ops/_build.py.  kU8 (label
+// volumes) is only ever copied, never converted to or from a float type.
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2, kU8 = 3 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }

@@ -1,16 +1,21 @@
-// Batched window gather on Hopper: N patches cut from one channels-last
-// volume at int32 corners, with the output dtype cast fused in.
+// Batched window gather on Hopper: N patches cut from a channels-last
+// volume, or from one subject each of a stacked store of volumes, at int32
+// corners, with the output dtype cast fused in.
 //
 // Replaces tpu_mednet/ops/pallas/patches.py `extract_patches_pallas` (one
 // DMA per patch with scalar-prefetched corners; the same gather is inlined
-// in tpu_mednet/inference/device_sliding.py as a vmap'd dynamic_slice).
+// in tpu_mednet/inference/device_sliding.py as a vmap'd dynamic_slice, and
+// in tpu_mednet/data/device_sampler.py:171-190 as a dynamic_slice of
+// images[s] and labels[s] per window).
 //
 // Bound: pure data movement, N*px*py*pz*C elements read and written once
 // (8 x 96^3 f16 in, bf16 out is ~28 MB, ~8 us at 3.35 TB/s), so memory
 // bandwidth and the launch itself bound it.
 //
-// Design: scalar prefetch becomes each block loading its patch's corner
-// itself.  A patch is px*py rows of pz*C contiguous elements in both the
+// Design: scalar prefetch becomes each block loading its patch's window
+// (x, y, z, subject) itself; the subject selects a volume of the store,
+// subject_stride elements apart (0 for a single volume).  uint8 label
+// stores are copied byte for byte, never converted.  A patch is px*py rows of pz*C contiguous elements in both the
 // volume and the output.  A row (cut into pieces of at most kPieceBytes
 // where rows are long) is copied by one warp in three steps:
 //   1. 16-byte cp.async copies of the aligned span [floor16(start),
@@ -29,6 +34,7 @@
 // volume, so they never leave its allocation's pages.  Corners are
 // validated to be in bounds by the Python wrapper before the launch.
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -52,9 +58,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+template <typename Tin, typename Tout>
+__device__ __forceinline__ Tout convert(Tin v) {
+  if constexpr (std::is_same_v<Tin, Tout>) {
+    return v;
+  } else {
+    return from_float<Tout>(to_float(v));
+  }
+}
+
 struct GatherParams {
   const void* vol;
-  const int* corners;
+  const int* windows;   // (N, 4): x, y, z corner and subject
+  long long subject_stride;  // elements between subjects of the store
   void* out;
   int ye, ze, c, px, py, pz;
   int piece_len;        // elements
@@ -86,8 +102,9 @@ __global__ void __launch_bounds__(kGatherWarps * 32)
     const int j0 = (q - row * g.pieces_per_row) * g.piece_len;
     const int i = row / g.py;
     const int jy = row - i * g.py;
-    my_src = (((long long)(g.corners[3 * p] + i) * g.ye + (g.corners[3 * p + 1] + jy)) *
-                  g.ze + g.corners[3 * p + 2]) * g.c + j0;
+    const int* w = g.windows + 4 * p;
+    my_src = (long long)w[3] * g.subject_stride +
+             (((long long)(w[0] + i) * g.ye + (w[1] + jy)) * g.ze + w[2]) * g.c + j0;
     my_dst = ((long long)p * rows + row) * row_len + j0;
     my_len = min(g.piece_len, row_len - j0);
   }
@@ -123,7 +140,7 @@ __global__ void __launch_bounds__(kGatherWarps * 32)
         in_buf + k * g.in_slot + (reinterpret_cast<uintptr_t>(src[k]) & 15));
     Tout* out = reinterpret_cast<Tout*>(
         out_buf + k * g.out_slot + (reinterpret_cast<uintptr_t>(dst[k]) & 15));
-    for (int e = lane; e < len[k]; e += 32) out[e] = from_float<Tout>(to_float(in[e]));
+    for (int e = lane; e < len[k]; e += 32) out[e] = convert<Tin, Tout>(in[e]);
   }
   __syncwarp();
 
@@ -191,16 +208,22 @@ cudaError_t launch_gather_to(int out_dtype, const GatherParams& g, int n,
 
 extern "C" {
 
-// out (N, px, py, pz, C) = vol (X, Y, Z, C) windows at corners (N, 3) int32,
-// cast from in_dtype to out_dtype (dtype codes of common.cuh).  Every extent
-// is at least 1.
-int tmt_gather_patches(const void* vol, int in_dtype, const void* corners,
+// out (N, px, py, pz, C) = windows of the store vol (S, X, Y, Z, C) at
+// windows (N, 4) int32 = (x, y, z, subject), subjects subject_stride
+// = X*Y*Z*C elements apart (S = 1 and any stride for one volume), cast
+// from in_dtype to out_dtype (dtype codes of common.cuh; uint8 only to
+// uint8).  Every extent is at least 1.
+int tmt_gather_patches(const void* vol, int in_dtype, const void* windows,
                        int n, void* out, int out_dtype, int ye, int ze, int c,
-                       int px, int py, int pz, void* stream) {
+                       int px, int py, int pz, long long subject_stride,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n < 1 || c < 1 || px < 1 || py < 1 || pz < 1) return cudaErrorInvalidValue;
-  const GatherParams g{vol, static_cast<const int*>(corners), out, ye, ze, c,
-                       px, py, pz, 0, 0, 0, 0, 0};
+  const GatherParams g{vol, static_cast<const int*>(windows), subject_stride, out,
+                       ye, ze, c, px, py, pz, 0, 0, 0, 0, 0};
+  if (in_dtype == kU8 || out_dtype == kU8)
+    return in_dtype == out_dtype ? launch_gather<uint8_t, uint8_t>(g, n, st)
+                                 : cudaErrorInvalidValue;
   switch (in_dtype) {
     case kF32:
       return launch_gather_to<float>(out_dtype, g, n, st);

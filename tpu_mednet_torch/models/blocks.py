@@ -10,9 +10,10 @@ Module names equal the torch reference's (``conv``, ``groupnorm``,
 ``basic_module``, ``upsample``), so a reference state dict strict-loads
 (``tpu_mednet/utils/torch_import.py:28-37``).
 
-Every ``g`` runs through K1 (``ops/groupnorm.py``); a nonlinearity right
-after ``g`` fuses into K1's apply kernel, and in ``ExtResNetBlock`` conv3's
-GroupNorm also takes the residual add and the final nonlinearity.  Conv,
+Every ``g`` runs through K1 (``ops/groupnorm.py``), forward and backward;
+a nonlinearity right after ``g`` fuses into K1's apply kernel, and in
+``ExtResNetBlock`` conv3's GroupNorm also takes the residual add and the
+final nonlinearity.  Conv,
 transposed conv and pooling go to ``torch.nn.functional`` (cuDNN), as the
 JAX package left them to XLA.
 """
@@ -77,7 +78,8 @@ def _cast(b: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
 
 class GroupNorm(nn.Module):
     """GroupNorm parameters (``weight``/``bias`` like ``nn.GroupNorm``) whose
-    forward is K1, with an optional fused residual add and nonlinearity."""
+    forward is K1, with an optional fused residual add and nonlinearity, and
+    whose gradient is K1's backward (``gn.group_norm``'s autograd Function)."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  device=None):

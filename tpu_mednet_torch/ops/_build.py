@@ -32,8 +32,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# must match enum DType in csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# must match enum DType in csrc/common.cuh; uint8 is copied, never cast
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.uint8: 3}
 
 _LIB: Optional[ctypes.CDLL] = None
 _FUNCS: Dict[str, object] = {}
