@@ -20,7 +20,11 @@ drives the two main paths with launch counts:
   Adam at lr 1e-3, bf16, batch 32 of 96^3) fed by ``DevicePatchSampler``
   over four seeded subjects: patches/s, peak memory, idle share, device
   time by group, exact launches per step, finite losses, and a loss that
-  falls on one fixed batch.
+  falls on one fixed batch;
+- entry points: ``train_seg -c configs/seg_organ.yaml`` and ``predict -c
+  configs/predict.yaml`` through the CLIs' ``main(argv)`` on a seeded zarr
+  store, K1 and indexed K2 held at their 128^3 shapes, both stitches'
+  masks held to each other; then the non-finite guard's cost per step.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero without a result when CUDA is unavailable or the package is not
@@ -37,6 +41,7 @@ H100 SXM peaks (3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor cores).
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -77,6 +82,26 @@ PARITY_BATCH = 2
 # sums; bf16: that order moves bf16 roundings, as for the forward logits)
 PARITY_REL = {"fp32": 1e-3, "bf16": 5e-2}
 GN_ACT = "e"            # every GroupNorm of the model fuses its ELU
+# entry points: train_seg -c configs/seg_organ.yaml (128^3 patches, batch 4,
+# 5 classes, 10 patches per subject) and predict -c configs/predict.yaml on a
+# seeded zarr store of six subjects: four train (10 steps per epoch), one
+# val, and the val subject plus one more to predict
+ORGAN_SUBJECTS = (("o0", (192, 192, 160)), ("o1", (176, 192, 160)),
+                  ("o2", (192, 176, 168)), ("o3", (192, 192, 144)),
+                  ("o4", (184, 192, 160)), ("o5", (192, 184, 176)))
+ORGAN_SPLITS = dict(train=["o0", "o1", "o2", "o3"], val=["o4"], test=["o4", "o5"])
+ORGAN_BATCH, ORGAN_CLASSES, ORGAN_STEPS_PER_EPOCH = 4, 5, 10
+ORGAN_LEVELS = [(32 * 2**i, 128 // 2**i, 6 if i < 4 else 3) for i in range(5)]
+ORGAN_PATCH = (128, 128, 128)
+# profiled for the idle share: the host sampler's resumed epoch, the device
+# sampler's last
+PROFILED_EPOCHS = {("resume", 2), ("device_sampler", 2)}
+PREDICT_TURNS = 6      # predict CLI calls per stitch, in turns crop, device
+ORGAN_OPTIONS = ("--device_sampler", "--optimizer", "adamw", "--weight_decay", "1e-4",
+                 "--lr_schedule", "cosine", "--warmup_steps", "2", "--grad_clip_norm", "1.0",
+                 "--ema_decay", "0.99", "--nonfinite", "skip", "--track_grad_norm",
+                 "--accumulate_grad_batches", "2")
+GUARD_STEPS = 10       # steps per turn of the non-finite guard's cost, off/on/on/off
 
 
 def log(msg: str) -> None:
@@ -156,6 +181,24 @@ def kernel_ms(torch, fn, name, reps=20):
             sum(count for _, count, _ in rows))
 
 
+def log_clocks(tag: str) -> None:
+    """The card's SM clock, its maximum, power draw and temperature now."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    log(f"clocks {tag}: {out.stdout.strip()} (sm, max sm, power, temperature)")
+
+
+def probe_profiler(torch, dev):
+    """Raise unless ``torch.profiler`` still sees device activity."""
+    a = torch.randn((1024, 1024), device=dev)
+    rows = device_rows(torch, lambda: a @ a, 5)
+    if not rows:
+        raise AssertionError("torch.profiler recorded no device activity for a matmul")
+    log(f"profiler probe: {rows}")
+
+
 def bf16_ulp(ref):
     """One bf16 ulp at each value of ``ref`` (8 significant bits)."""
     import torch
@@ -164,7 +207,7 @@ def bf16_ulp(ref):
     return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - 8).clamp_min(2.0**-133)
 
 
-def check_gn(torch, gn, dev, gen):
+def check_gn(torch, gn, dev, gen, levels=LEVELS, batch=BATCH, dtypes=("bf16", "fp32")):
     """K1 against its plain version at the five level shapes, bf16 and fp32:
     moments to rtol 1e-5 and bitwise equal from call to call, apply within
     one ulp; times per call and per forward."""
@@ -173,11 +216,12 @@ def check_gn(torch, gn, dev, gen):
     keys = ("moments_ms", "moments_event_ms", "moments_plain_ms", "moments_bound",
             "moments_library_ms", "apply_ms", "apply_event_ms", "apply_plain_ms",
             "apply_bound", "library_ms", "moments_err", "apply_err")
-    totals = {dt: dict.fromkeys(keys, 0.0) for dt in ("bf16", "fp32")}
-    for dt_name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+    totals = {dt: dict.fromkeys(keys, 0.0) for dt in dtypes}
+    for dt_name in dtypes:
+        dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dt_name]
         tot = totals[dt_name]
-        for level, (c, e, n_gn) in enumerate(LEVELS):
-            shape = (BATCH, e, e, e, c)
+        for level, (c, e, n_gn) in enumerate(levels):
+            shape = (batch, e, e, e, c)
             x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
             x = x.permute(0, 4, 1, 2, 3)
             r = torch.randn(shape, generator=gen, device=dev).to(dtype).permute(0, 4, 1, 2, 3)
@@ -214,14 +258,15 @@ def check_gn(torch, gn, dev, gen):
 
             esz = x.element_size()
             n_el = x.numel()
-            plan = gn.plan_moments(BATCH, e**3, c, esz, x.data_ptr() % 16 == 0, sms)
+            plan = gn.plan_moments(batch, e**3, c, esz, x.data_ptr() % 16 == 0, sms)
             t_m, launches = kernel_ms(torch, moments, "gn_moments")
             if launches != 1:
+                rows = device_rows(torch, moments, 20)
                 raise AssertionError(f"the statistics side of one GroupNorm launched "
-                                     f"{launches} device activities, not 1")
+                                     f"{launches} device activities, not 1: {rows}")
             t_me = cuda_ms(moments)
             t_mp = cuda_ms(lambda: gn.group_norm_moments_plain(x, GROUPS, w, 1e-5), reps=5)
-            b_m = bound_ms(n_el * esz + 3 * BATCH * c * 4 + c * 4, 3 * n_el)
+            b_m = bound_ms(n_el * esz + 3 * batch * c * 4 + c * 4, 3 * n_el)
             # yardstick only: the same per-(n, c) moments up to a rescale
             t_sl = cuda_ms(lambda: torch.var_mean(x, dim=(2, 3, 4), correction=0))
             apply = lambda: gn.group_norm_apply(x, mean_c, mul_c, b, act="e")
@@ -231,7 +276,7 @@ def check_gn(torch, gn, dev, gen):
             t_ap = cuda_ms(lambda: gn.group_norm_apply_plain(x, mean_c, mul_c, b, act="e"), reps=5)
             t_arp = cuda_ms(lambda: gn.group_norm_apply_plain(
                 x, mean_c, mul_c, b, residual=r, act="e"), reps=5)
-            small = (2 * BATCH * c + c) * 4
+            small = (2 * batch * c + c) * 4
             b_a = bound_ms(2 * n_el * esz + small, 5 * n_el)
             b_ar = bound_ms(3 * n_el * esz + small, 6 * n_el)
             t_lib = cuda_ms(lambda: torch.nn.functional.elu(
@@ -416,7 +461,8 @@ def tie_band_margin(torch, gn, P, model, vol, grid_corners, dev):
         with plain_kernels(gn, P):
             y_p = model(tiles)
         err = max(err, float((y - y_p).abs().max()))
-        m = (y_p[:, 0] - y_p[:, 1]).abs()
+        top2 = y_p.float().topk(2, dim=1).values
+        m = top2[:, 0] - top2[:, 1]
         for (x0, y0, z0), tile in zip(batch.tolist(), m[(slice(None), *core)]):
             margin[x0 + ov[0]:x0 + PATCH[0] - ov[0], y0 + ov[1]:y0 + PATCH[1] - ov[1],
                    z0 + ov[2]:z0 + PATCH[2] - ov[2]] = tile
@@ -533,7 +579,8 @@ def backward_errors(torch, got, ref):
     return errs, ok
 
 
-def check_gn_backward(torch, gn, dev, gen):
+def check_gn_backward(torch, gn, dev, gen, levels=LEVELS,
+                      configs=(("bf16", TRAIN_BATCH), ("fp32", BATCH))):
     """K1's backward kernels against ``group_norm_backward_plain`` at the
     five level shapes, bf16 at the training batch and fp32 at batch 8, with
     and without the residual, ELU as in the model; bitwise equal from call
@@ -543,11 +590,11 @@ def check_gn_backward(torch, gn, dev, gen):
 
     cl3d = torch.channels_last_3d
     out = {}
-    for dt_name, dtype, batch in (("bf16", torch.bfloat16, TRAIN_BATCH),
-                                  ("fp32", torch.float32, BATCH)):
+    for dt_name, batch in configs:
+        dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dt_name]
         tot = dict(reduce_ms=0.0, apply_ms=0.0, reduce_bound=0.0, apply_bound=0.0,
                    plain_ms=0.0, library_ms=0.0, err=0.0)
-        for level, (c, e, n_gn) in enumerate(LEVELS):
+        for level, (c, e, n_gn) in enumerate(levels):
             shape = (batch, e, e, e, c)
             act = lambda: torch.randn(shape, generator=gen, device=dev).to(dtype).permute(
                 0, 4, 1, 2, 3)
@@ -617,20 +664,22 @@ def check_gn_backward(torch, gn, dev, gen):
     return out
 
 
-def check_gather_indexed(torch, P, sampler):
-    """Indexed K2 on the training sampler's device stores (bf16 images,
-    uint8 labels) at one batch of its own draws: byte-equal to plain."""
-    subj, corners = sampler.sample_indices(TRAIN_BATCH)
+def check_gather_indexed(torch, P, sampler, batch):
+    """Indexed K2 on a training sampler's device stores (bf16 images, uint8
+    labels) at one batch of its own draws at its patch size: byte-equal to
+    plain."""
+    subj, corners = sampler.sample_indices(batch)
+    patch = tuple(int(p) for p in sampler.patch_size)
     res = {}
     for name, store in (("image", sampler.images), ("label", sampler.labels)):
-        gather = lambda: P.extract_patches(store, corners, PATCH, subjects=subj)
+        gather = lambda: P.extract_patches(store, corners, patch, subjects=subj)
         got = gather()
-        ref = P.extract_patches_plain(store, corners, PATCH, subjects=subj)
+        ref = P.extract_patches_plain(store, corners, patch, subjects=subj)
         if got.shape != ref.shape or not torch.equal(got.view(-1).view(torch.uint8),
                                                      ref.view(-1).view(torch.uint8)):
             raise AssertionError(f"indexed gather {name}: not byte-equal to plain")
         t_dev = kernel_ms(torch, gather, "gather", reps=20)[0]
-        t_p = cuda_ms(lambda: P.extract_patches_plain(store, corners, PATCH, subjects=subj),
+        t_p = cuda_ms(lambda: P.extract_patches_plain(store, corners, patch, subjects=subj),
                       reps=3, warmup=1)
         n_bytes = 2 * got.numel() * got.element_size() + 16 * len(corners)
         res[name] = dict(ms=t_dev, plain_ms=t_p, bound=bound_ms(n_bytes, 0))
@@ -732,7 +781,7 @@ def run_training(torch, gn, P, dev):
     sampler = DevicePatchSampler(None, [k for k, _ in TRAIN_SUBJECTS], TRAIN_BATCH // 4,
                                  PATCH, reader=MemoryReader(store),
                                  class_probabilities=[0.5, 0.5], seed=0, device=dev)
-    k2 = check_gather_indexed(torch, P, sampler)
+    k2 = check_gather_indexed(torch, P, sampler, TRAIN_BATCH)
 
     def batches():
         while True:
@@ -765,6 +814,7 @@ def run_training(torch, gn, P, dev):
     wall = time.perf_counter() - t0
     counts = launch_counts(gn, P)
     peak = torch.cuda.max_memory_allocated(dev)
+    log_clocks("after the timed training steps")
     expected = {k: TRAIN_STEPS * v for k, v in dict(
         gn_moments=27, gn_apply=27, gn_bwd_reduce=27, gn_bwd_apply=27,
         gather_patches=2).items()}
@@ -817,6 +867,367 @@ def run_training(torch, gn, P, dev):
                             fixed_batch_losses=fixed_losses)
 
 
+@contextlib.contextmanager
+def wrapped(owner, name, wrap):
+    """Replace ``owner.name`` by ``wrap(original)`` for the block."""
+    orig = getattr(owner, name)
+    setattr(owner, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def write_organ_store(root: Path) -> None:
+    """Six seeded subjects in ``root/organs.zarr``: four ellipsoid organs
+    (classes 1-4, apart from one another) in noise, the image brighter by
+    class; images fp32 with an affine, labels uint8; and the key files."""
+    from tpu_mednet_torch.data import zarrlite
+
+    rng = np.random.default_rng(2)
+    z = zarrlite.open(str(root / "organs.zarr"), mode="w")
+    centres = ((0.3, 0.3, 0.3), (0.7, 0.3, 0.6), (0.3, 0.7, 0.6), (0.7, 0.7, 0.3))
+    for key, shape in ORGAN_SUBJECTS:
+        lbl = np.zeros(shape, np.uint8)
+        grid = np.ogrid[tuple(slice(0, s) for s in shape)]
+        for c, frac in enumerate(centres, start=1):
+            centre = np.asarray(frac) * shape + rng.uniform(-8, 8, size=3)
+            radii = rng.uniform(14, 26, size=3)
+            lbl[sum(((g - m) / r) ** 2 for g, m, r in zip(grid, centre, radii)) <= 1] = c
+        img = (rng.normal(0.0, 0.5, size=shape) + 0.75 * lbl).astype(np.float32)
+        arr = z.require_group("images").create_dataset(key, data=img[None], compressor=None)
+        arr.attrs["affine"] = np.diag([0.8, 0.8, 1.5, 1.0])
+        z.require_group("labels").create_dataset(key, data=lbl[None], compressor=None)
+    for split, keys in ORGAN_SPLITS.items():
+        (root / f"organs_{split}.txt").write_text("\n".join(keys) + "\n")
+
+
+def organ_train_argv(root: Path, name: str, *extra):
+    return ["-c", str(HERE / "configs" / "seg_organ.yaml"),
+            "--data_path", str(root / "organs.zarr"),
+            "--train_set", str(root / "organs_train.txt"),
+            "--val_set", str(root / "organs_val.txt"),
+            "--model_dir", str(root / name), "--log_dir", str(root / name / "logs"), *extra]
+
+
+def organ_predict_argv(root: Path, stitch: str):
+    return ["-c", str(HERE / "configs" / "predict.yaml"),
+            f"base.data={root / 'organs.zarr'}",
+            f"prediction.test_set={root / 'organs_test.txt'}",
+            f"prediction.checkpoint={root / 'seg_organ' / 'best'}",
+            f"prediction.data={root / f'prediction_{stitch}.zarr'}",
+            f"prediction.stitch={stitch}"]
+
+
+def read_metrics(path: Path):
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def run_entry_points(torch, gn, P, grid_corners, dev):
+    """The entry points as a user runs them, in this process so the launch
+    counters see them: ``train_seg -c configs/seg_organ.yaml`` for 2 epochs
+    with the host sampler, ``--resume`` to 3, 3 epochs with
+    ``--device_sampler``, 1 epoch with the device sampler and the optimizer
+    options; then ``predict -c configs/predict.yaml`` on ``best/`` with the
+    ``crop`` and ``device`` stitches, ``PREDICT_TURNS`` calls of each in
+    turns.  Patches/s per epoch are the Trainer's own (``metrics.jsonl``);
+    the epochs in ``PROFILED_EPOCHS`` are profiled for the device's idle
+    share, and checkpoint saves and stitches are timed, by wrapping the
+    Trainer's, the checkpoint manager's and the stitches' own functions.
+    After the runs, indexed K2 is held against its plain version on the
+    device-sampler run's own training sampler (128^3 windows, batch 4)."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from tpu_mednet_torch.cli import predict, train_seg
+    from tpu_mednet_torch.data import DevicePatchSampler, ZarrReader
+    from tpu_mednet_torch.inference import device_sliding, sliding_window
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.train import CheckpointManager, Trainer, load_for_inference
+
+    run = {"tag": None}
+    profiles, saves, stitches, snapshots, walls, samplers = {}, [], [], {}, {}, []
+
+    def profiled_epoch(orig):
+        def train_epoch(self, epoch):
+            if (run["tag"], epoch) not in PROFILED_EPOCHS:
+                return orig(self, epoch)
+            box = {}
+
+            def go():
+                t = time.perf_counter()
+                box["out"] = orig(self, epoch)  # ends in a synchronize
+                box["wall"] = time.perf_counter() - t
+
+            busy = sum(ms for ms, _, _ in device_rows(torch, go, 1)) / 1e3
+            if not busy:
+                raise AssertionError(f"{run['tag']}: the profiler saw no device time")
+            profiles[run["tag"]] = dict(epoch=epoch, seconds=box["wall"], device_busy_s=busy,
+                                        idle_share=1 - busy / box["wall"])
+            return box["out"]
+        return train_epoch
+
+    def captured(orig):
+        def __init__(self, *args, **kw):
+            orig(self, *args, **kw)
+            if run["tag"] == "device_sampler" and list(self.subject_keys) == ORGAN_SPLITS["train"]:
+                samplers.append(self)
+        return __init__
+
+    def timed_save(orig):
+        def save(self, step, state, hparams=None):
+            t = time.perf_counter()
+            orig(self, step, state, hparams)
+            seconds = time.perf_counter() - t
+            files = (self.directory / str(int(step))).iterdir()
+            saves.append(dict(run=run["tag"], best=self.directory.name == "best",
+                              step=int(step), seconds=seconds,
+                              bytes=sum(f.stat().st_size for f in files)))
+        return save
+
+    def timed_stitch(orig):
+        def stitch(task, data_path, keys, *args, **kw):
+            t = time.perf_counter()
+            out = orig(task, data_path, keys, *args, **kw)  # host masks: synchronous
+            stitches.append(dict(run=run["tag"], volumes=len(keys),
+                                 seconds=time.perf_counter() - t))
+            return out
+        return stitch
+
+    def cli(tag, main, argv):
+        run["tag"] = tag
+        t = time.perf_counter()
+        rc = main(argv)
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t
+        snapshots[tag] = launch_counts(gn, P)
+        log(f"entry points: {tag}: exit code {rc} in {walls[tag]:.2f} s")
+        if rc != 0:
+            raise AssertionError(f"entry points: {tag} exited with {rc}")
+
+    spe = ORGAN_STEPS_PER_EPOCH
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_organ_store(root)
+        log(f"entry points: seeded zarr store of {len(ORGAN_SUBJECTS)} subjects "
+            f"({', '.join(f'{k} {s}' for k, s in ORGAN_SUBJECTS)}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        organ = root / "seg_organ"
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(wrapped(Trainer, "train_epoch", profiled_epoch))
+            stack.enter_context(wrapped(DevicePatchSampler, "__init__", captured))
+            stack.enter_context(wrapped(CheckpointManager, "save", timed_save))
+            stack.enter_context(wrapped(sliding_window, "predict_volumes", timed_stitch))
+            stack.enter_context(wrapped(device_sliding, "predict_volumes_on_device",
+                                        timed_stitch))
+            torch.cuda.empty_cache()
+            base_memory = torch.cuda.memory_allocated(dev)
+            reset_counts(gn, P)
+            torch.cuda.reset_peak_memory_stats(dev)
+            cli("train", train_seg.main, organ_train_argv(root, "seg_organ", "--max_epochs", "2"))
+            peak_host = torch.cuda.max_memory_allocated(dev)
+            steps_after_train = CheckpointManager(organ).available_steps
+            cli("resume", train_seg.main, organ_train_argv(
+                root, "seg_organ", "--max_epochs", "3", "--resume", str(organ)))
+            torch.cuda.reset_peak_memory_stats(dev)
+            cli("device_sampler", train_seg.main, organ_train_argv(
+                root, "seg_organ_device", "--max_epochs", "3", "--device_sampler"))
+            peak_device = torch.cuda.max_memory_allocated(dev)
+            cli("options", train_seg.main, organ_train_argv(
+                root, "seg_organ_options", "--max_epochs", "1", *ORGAN_OPTIONS))
+            predict_tags = []
+            for turn in range(1, PREDICT_TURNS + 1):
+                for stitch in ("crop", "device"):
+                    predict_tags.append(f"predict_{stitch}_{turn}")
+                    cli(predict_tags[-1], predict.main, organ_predict_argv(root, stitch))
+            counts = launch_counts(gn, P)
+
+        # launches: every kernel of the path ran, K1's backward once per step
+        # of the four training runs, K2 indexed only under the device sampler
+        # and plain only in the device stitch
+        per_run, prev = {}, dict.fromkeys(counts, 0)
+        for tag, snap in snapshots.items():
+            per_run[tag] = {k: snap[k] - prev[k] for k in snap}
+            prev = snap
+        train_steps = spe * (2 + 1 + 3 + 1)
+        gather = {tag: c["gather_patches"] for tag, c in per_run.items()}
+        indexed = gather["device_sampler"] + gather["options"]
+        plain = sum(gather[t] for t in predict_tags if "device" in t)
+        log(f"entry points: launches {counts}; by run {per_run}")
+        if (counts["gn_bwd_reduce"] != 27 * train_steps
+                or counts["gn_bwd_apply"] != 27 * train_steps):
+            raise AssertionError(f"entry points: K1 backward launches {counts}, expected "
+                                 f"27 x {train_steps} training steps")
+        if counts["gn_moments"] != counts["gn_apply"] or not counts["gn_moments"]:
+            raise AssertionError(f"entry points: K1 forward launches {counts}")
+        if not indexed or not plain or indexed + plain != counts["gather_patches"]:
+            raise AssertionError(f"entry points: K2 launches {gather}")
+        if any(per_run[t]["gn_moments"] == 0 for t in predict_tags):
+            raise AssertionError(f"entry points: a predict run launched no K1: {per_run}")
+
+        # indexed K2 at the path's own shapes: the device-sampler run's
+        # training sampler (after the counted runs, so these launches are not
+        # counted)
+        if len(samplers) != 1 or tuple(int(p) for p in samplers[0].patch_size) != ORGAN_PATCH:
+            raise AssertionError("entry points: the device-sampler run built no training "
+                                 f"sampler at {ORGAN_PATCH}")
+        k2_128 = check_gather_indexed(torch, P, samplers.pop(), ORGAN_BATCH)
+
+        # checkpoints and metrics
+        steps_final = CheckpointManager(organ).available_steps
+        best = CheckpointManager(organ / "best").available_steps
+        log(f"entry points: checkpoints after 2 epochs {steps_after_train}, after the "
+            f"resume {steps_final}; best/ {best}")
+        if (steps_after_train != [spe, 2 * spe] or steps_final != [spe, 2 * spe, 3 * spe]
+                or len(best) != 1 or best[0] not in steps_final):
+            raise AssertionError("entry points: wrong checkpoint steps")
+        records = read_metrics(organ / "logs" / "metrics.jsonl")
+        names = set().union(*(r.keys() for r in records)) - {"step", "time"}
+        want = {"train_loss", "lr", "patches_per_sec", "val_loss",
+                *(f"val_dice{c}" for c in range(ORGAN_CLASSES))}
+        losses = [r["train_loss"] for r in records if "train_loss" in r]
+        val = [(r["step"], r["val_loss"]) for r in records if "val_loss" in r]
+        log(f"entry points: metrics.jsonl scalars {sorted(names)}; train_loss {losses}; "
+            f"val_loss by step {val}")
+        if not want <= names or not all(np.isfinite(losses + [v for _, v in val])):
+            raise AssertionError("entry points: missing or non-finite scalars")
+        options = read_metrics(root / "seg_organ_options" / "logs" / "metrics.jsonl")[0]
+        log(f"entry points: first scalars of the options run {options}")
+        if not (options["lr"] == 0.0 and options["nonfinite"] == 0.0
+                and 0 < options["grad_norm"] < np.inf):
+            raise AssertionError("entry points: the options run's first step is wrong")
+        if CheckpointManager(root / "seg_organ_options").restore_weights()["ema"] is None:
+            raise AssertionError("entry points: the options run saved no EMA weights")
+        # patches/s by epoch as the Trainer logs them
+        pps = {name: [r["patches_per_sec"] for r in read_metrics(
+                   root / name / "logs" / "metrics.jsonl") if "patches_per_sec" in r]
+               for name in ("seg_organ", "seg_organ_device", "seg_organ_options")}
+        if [len(v) for v in pps.values()] != [3, 3, 1]:
+            raise AssertionError(f"entry points: patches_per_sec by epoch {pps}")
+
+        # predictions: both stitches' masks agree outside the tie band of
+        # the plain path's top-2 logit margin (over the device tiles)
+        weights, hp = load_for_inference(organ / "best")
+        task = SegmentationTask.from_hparams(
+            SimpleNamespace(**{k: predict._coerce(v) for k, v in hp.items()}), device=dev)
+        task.model.load_state_dict(weights)
+        test = ORGAN_SPLITS["test"]
+        masks = {}
+        for stitch in ("crop", "device"):
+            with ZarrReader(root / f"prediction_{stitch}.zarr") as r:
+                masks[stitch] = dict(zip(test, r.read(test, "prediction", np.uint8)))
+        with ZarrReader(root / "organs.zarr") as r:
+            vols = dict(zip(test, r.read(test, "images", np.float16)))
+            labels = dict(zip(test, r.read(test, "labels", np.uint8)))
+        shapes, agreement, dice = dict(ORGAN_SUBJECTS), {}, {}
+        for key in test:
+            a, b = masks["crop"][key], masks["device"][key]
+            for m in (a, b):
+                if m.shape != (1, *shapes[key]) or m.dtype != np.uint8 or m.max() >= ORGAN_CLASSES:
+                    raise AssertionError(f"entry points: bad mask {key} {m.shape} {m.dtype}")
+            with torch.inference_mode():
+                margin, err = tie_band_margin(torch, gn, P, task.model, vols[key],
+                                              grid_corners, dev)
+            flips = a[0] != b[0]
+            outside = int((flips & (margin > 2 * err)).sum())
+            agreement[key] = float(1 - flips.mean())
+            dice[key] = [float(2 * ((a[0] == c) & (labels[key][0] == c)).sum()
+                               / max(1, (a[0] == c).sum() + (labels[key][0] == c).sum()))
+                         for c in range(1, ORGAN_CLASSES)]
+            log(f"entry points: {key} {shapes[key]}: crop and device masks differ on "
+                f"{flips.mean():.6f} of voxels, outside the tie band on {outside} (max "
+                f"|kernel - plain| logit {err:.3g}); crop mask Dice against the label by "
+                f"class {' '.join(f'{d:.3f}' for d in dice[key])}")
+            if outside:
+                raise AssertionError(f"entry points: {key}: the stitches disagree outside "
+                                     "the tie band")
+        del task, weights
+
+    for name, values in pps.items():
+        log(f"entry points: {name} patches/s by epoch (the Trainer's metrics.jsonl): "
+            + " ".join(f"{v:.2f}" for v in values))
+    for tag, p in profiles.items():
+        log(f"entry points: profiled epoch {tag}/{p['epoch']}: {p['seconds']:.3f} s, device "
+            f"busy {p['device_busy_s']:.3f} s, idle share {p['idle_share']:.4f}")
+    for s in saves:
+        log(f"entry points: save {s['run']} {'best ' if s['best'] else ''}step {s['step']}: "
+            f"{s['bytes'] / 1e9:.3f} GB in {s['seconds']:.3f} s")
+    for s in stitches:
+        log(f"entry points: {s['run']}: {s['volumes']} volumes stitched in "
+            f"{s['seconds']:.3f} s = {s['volumes'] / s['seconds'] * 60:.2f} volumes/min; "
+            f"the whole CLI call {walls[s['run']]:.3f} s")
+    vpm = {}
+    for st in ("crop", "device"):
+        calls = [s["volumes"] / s["seconds"] * 60 for s in stitches
+                 if s["run"].startswith(f"predict_{st}_")]
+        vpm[st] = dict(median=float(np.median(calls)), min=min(calls), max=max(calls),
+                       calls=calls)
+    main_saves = [s["seconds"] for s in saves if s["run"] == "train" and not s["best"]]
+    summary = dict(
+        host_sampler_patches_per_s=pps["seg_organ"][1],
+        host_sampler_idle_share=profiles["resume"]["idle_share"],
+        device_sampler_patches_per_s=pps["seg_organ_device"][1],
+        device_sampler_idle_share=profiles["device_sampler"]["idle_share"],
+        peak_memory_bytes=dict(host_sampler=peak_host, device_sampler=peak_device,
+                               allocated_before=base_memory),
+        save_seconds=float(np.median(main_saves)), save_bytes=saves[0]["bytes"],
+        predict_volumes_per_min=vpm)
+    log(f"entry points: seg_organ training {summary['host_sampler_patches_per_s']:.2f} "
+        f"patches/s with the host sampler (idle share {summary['host_sampler_idle_share']:.4f}),"
+        f" {summary['device_sampler_patches_per_s']:.2f} with the device sampler (idle share "
+        f"{summary['device_sampler_idle_share']:.4f}); peak memory {peak_host / 2**30:.2f} / "
+        f"{peak_device / 2**30:.2f} GiB ({base_memory / 2**30:.2f} GiB held before); one "
+        f"checkpoint save {summary['save_seconds']:.3f} s for {summary['save_bytes'] / 1e9:.3f}"
+        f" GB; predict volumes/min over {PREDICT_TURNS} calls of {len(ORGAN_SPLITS['test'])} "
+        f"volumes: " + ", ".join(
+            f"{st} median {v['median']:.2f} (min {v['min']:.2f}, max {v['max']:.2f})"
+            for st, v in vpm.items()))
+    return counts, dict(per_run=per_run, indexed=indexed, plain=plain, check_128=k2_128), dict(
+        summary=summary, patches_per_s_by_epoch=pps, profiled_epochs=profiles, saves=saves,
+        stitches=stitches, cli_seconds=walls, agreement=agreement, dice=dice,
+        gather_indexed_128=k2_128["per_store"])
+
+
+def guard_cost(torch, dev):
+    """The non-finite guard's host read, per seg_organ train step: steps on
+    one fixed batch with the guard off and on, in turns off, on, on, off."""
+    from types import SimpleNamespace
+
+    from tpu_mednet_torch.ops.augment import AugmentConfig
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.train import create_train_state, make_train_step
+
+    hp = SimpleNamespace(in_channels=1, out_channels=ORGAN_CLASSES, fmaps=32, bf16=True,
+                         loss="DICE", loss_weight=None)
+    task = SegmentationTask.from_hparams(hp, device=dev,
+                                         generator=torch.Generator().manual_seed(0))
+    state = create_train_state(task.model, learning_rate=1e-3, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shape = (ORGAN_BATCH, 128, 128, 128, 1)
+    label = torch.randint(0, ORGAN_CLASSES, shape, generator=gen, device=dev,
+                          dtype=torch.uint8)
+    data = torch.randn(shape, generator=gen, device=dev) + label
+    batch = {"data": data.permute(0, 4, 1, 2, 3), "label": label.permute(0, 4, 1, 2, 3)}
+    steps = {g: make_train_step(task, augment=AugmentConfig(mirror_axes=(1, 2, 3)),
+                                guard_nonfinite=g) for g in (False, True)}
+    for g in (False, True):
+        steps[g](state, batch)
+    times = {False: [], True: []}
+    for g in (False, True, True, False):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(GUARD_STEPS):
+            steps[g](state, batch)
+        torch.cuda.synchronize()
+        times[g].append((time.perf_counter() - t) / GUARD_STEPS * 1e3)
+    off, on = float(np.mean(times[False])), float(np.mean(times[True]))
+    log(f"non-finite guard: seg_organ train step {off:.3f} ms off "
+        f"({' '.join(f'{t:.3f}' for t in times[False])}), {on:.3f} ms on "
+        f"({' '.join(f'{t:.3f}' for t in times[True])}): {on - off:.3f} ms per step")
+    return dict(off_ms=times[False], on_ms=times[True], cost_ms=on - off)
+
+
 def main() -> int:
     import torch
 
@@ -848,6 +1259,9 @@ def main() -> int:
     log(smi.stdout.strip())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} python {sys.version.split()[0]}")
+    log("optional packages: " + ", ".join(
+        f"{name} {'present' if importlib.util.find_spec(name) else 'absent'}"
+        for name in ("yaml", "h5py", "zarr", "tensorboardX")))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -855,6 +1269,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    log_clocks("after the build")
     for line in _build.BUILD_LOG.splitlines():
         if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
             log(f"ptxas: {line.strip()}")
@@ -862,6 +1277,12 @@ def main() -> int:
     # 3-5. kernels against their plain versions, then the full-width forward
     k1 = check_gn(torch, gn, dev, gen)
     k1b = check_gn_backward(torch, gn, dev, gen)
+    # K1 at the entry points' seg_organ shapes: batch 4 of 128^3, bf16
+    k1_organ = check_gn(torch, gn, dev, gen, levels=ORGAN_LEVELS, batch=ORGAN_BATCH,
+                        dtypes=("bf16",))
+    k1b_organ = check_gn_backward(torch, gn, dev, gen, levels=ORGAN_LEVELS,
+                                  configs=(("bf16", ORGAN_BATCH),))
+    torch.cuda.empty_cache()
     k2 = check_gather(torch, P, _grid_corners, dev, gen)
     models, fwd = check_forward(torch, gn, P, ResidualUNet3D, dev, gen)
 
@@ -875,10 +1296,25 @@ def main() -> int:
     del models
     torch.cuda.empty_cache()
     train_counts, k2i, train = run_training(torch, gn, P, dev)
+    torch.cuda.empty_cache()
+
+    # 8. the entry points at the seg_organ width, then the guard's cost
+    probe_profiler(torch, dev)
+    log_clocks("entry points")
+    entry_counts, entry_k2, entry = run_entry_points(torch, gn, P, _grid_corners, dev)
+    torch.cuda.empty_cache()
+    guard = guard_cost(torch, dev)
 
     def launches(name):
-        return dict(launches=counts[name] + train_counts[name],
-                    launches_by_path=dict(serving=counts[name], training=train_counts[name]))
+        by_path = dict(serving=counts[name], training=train_counts[name],
+                       entry_points=entry_counts[name])
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
+
+    def gather_launches(path, entry):
+        by_path = dict(serving=0, training=0, entry_points=entry)
+        by_path[path] = counts["gather_patches"] if path == "serving" \
+            else train_counts["gather_patches"]
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     b16, bwd = k1["bf16"], k1b["bf16"]
     common = dict(route="cuda", bound_by="bytes", ok=True)
@@ -901,7 +1337,7 @@ def main() -> int:
              per="full-width bf16 forward, 27 calls", **common),
         dict(name="gather_patches", source="tpu_mednet_torch/csrc/patches.cu",
              replaces="tpu_mednet/ops/pallas/patches.py:95",
-             launches=counts["gather_patches"], max_abs_err=k2["err"],
+             **gather_launches("serving", entry_k2["plain"]), max_abs_err=k2["err"],
              ms=k2["ms"], event_ms=k2["wrapper_ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound"], library_ms=None,
              library_call="none: no one PyTorch call gathers N windows at host "
@@ -910,7 +1346,7 @@ def main() -> int:
         dict(name="gn_bwd_reduce", source="tpu_mednet_torch/csrc/groupnorm.cu",
              replaces="tpu_mednet/ops/pallas/groupnorm.py:149-175 (custom VJP of the "
                       "kernel at :94) with the normalize chain's autodiff",
-             launches=train_counts["gn_bwd_reduce"], max_abs_err=bwd["err"],
+             **launches("gn_bwd_reduce"), max_abs_err=bwd["err"],
              ms=bwd["reduce_ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["reduce_bound"],
              library_ms=bwd["library_ms"],
              library_call="torch autograd of F.group_norm + F.elu (both backward passes "
@@ -919,7 +1355,7 @@ def main() -> int:
         dict(name="gn_bwd_apply", source="tpu_mednet_torch/csrc/groupnorm.cu",
              replaces="tpu_mednet/ops/pallas/groupnorm.py:149-175 (custom VJP of the "
                       "kernel at :94) with the normalize chain's autodiff",
-             launches=train_counts["gn_bwd_apply"], max_abs_err=bwd["err"],
+             **launches("gn_bwd_apply"), max_abs_err=bwd["err"],
              ms=bwd["apply_ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["apply_bound"],
              library_ms=bwd["library_ms"],
              library_call="torch autograd of F.group_norm + F.elu (both backward passes "
@@ -928,17 +1364,24 @@ def main() -> int:
         dict(name="gather_patches_indexed", source="tpu_mednet_torch/csrc/patches.cu",
              replaces="tpu_mednet/ops/pallas/patches.py:95 (and the sampler's gather, "
                       "tpu_mednet/data/device_sampler.py:171-190)",
-             launches=train_counts["gather_patches"], max_abs_err=k2i["err"],
+             **gather_launches("training", entry_k2["indexed"]), max_abs_err=k2i["err"],
              ms=k2i["ms"], plain_ms=k2i["plain_ms"], bound_ms=k2i["bound"],
              library_ms=None,
              library_call="none: no one PyTorch call gathers N windows of N subjects at "
                           "host corners",
              per=f"train step: images bf16 + labels uint8, {TRAIN_BATCH} windows of 96^3",
+             entry_points_check=dict(
+                 ms=entry_k2["check_128"]["ms"], plain_ms=entry_k2["check_128"]["plain_ms"],
+                 bound_ms=entry_k2["check_128"]["bound"], max_abs_err=0.0,
+                 per=f"seg_organ device sampler: images bf16 + labels uint8, {ORGAN_BATCH} "
+                     "windows of 128^3"),
              **common),
     ]
     log(json.dumps({"slice": slice_, **fwd}))
     log(json.dumps({"training": train, "parity": parity,
                     "gn_backward": k1b, "gather_indexed": k2i["per_store"]}))
+    log(json.dumps({"entry_points": entry, "launches_by_run": entry_k2["per_run"],
+                    "nonfinite_guard": guard, "gn_128": k1_organ, "gn_backward_128": k1b_organ}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

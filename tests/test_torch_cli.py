@@ -1,0 +1,252 @@
+"""The port's two CLIs end to end on the CPU (``--device cpu``), on a zarr store.
+
+``train_seg -c configs/seg_organ.yaml`` with path and size overrides
+(f_maps 4, 3 classes, 16³ patches, fp32) trains 2 epochs, resumes to 3,
+and runs one epoch with the device sampler and the optimizer options;
+``predict -c configs/predict.yaml`` writes both stitches of ``best/`` to
+zarr stores that the JAX package's ``ZarrReader`` reads.  Their masks
+equal the JAX package's ``predict_volumes`` on the carried weights on
+every voxel where the JAX logits' top-2 margin exceeds 1e-4 (the tolerance
+on record).  A reference-style ``.ckpt`` from the JAX package's
+``save_reference_checkpoint`` predicts through the port.  The modes that
+wait are refused, and both CLIs exit non-zero without CUDA unless
+``--device cpu`` is given.
+"""
+
+import json
+import shutil
+from pathlib import Path
+from types import SimpleNamespace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_mednet.data import MemoryReader as JaxMemoryReader
+from tpu_mednet.data.readers import ZarrReader as JaxZarrReader
+from tpu_mednet.inference.device_sliding import _grid_corners as jax_grid_corners
+from tpu_mednet.inference.sliding_window import predict_volumes as jax_predict_volumes
+from tpu_mednet.tasks import SegmentationTask as JaxSegmentationTask
+from tpu_mednet.utils.torch_export import flax_to_state_dict, save_reference_checkpoint
+from tpu_mednet.utils.torch_import import convert_state_dict
+from tpu_mednet_torch.cli import predict, train_seg
+from tpu_mednet_torch.data import zarrlite
+from tpu_mednet_torch.train import CheckpointManager, load_for_inference
+
+REPO = Path(__file__).resolve().parent.parent
+SHAPES = {"s0": (24, 20, 22), "s1": (20, 24, 18), "s2": (22, 18, 24), "s3": (20, 20, 20),
+          "s4": (18, 22, 26)}
+TIE_BAND = 1e-4
+HP = SimpleNamespace(in_channels=1, out_channels=3, fmaps=4, bf16=False, loss="DICE",
+                     loss_weight=None)
+
+
+def _write_store(root: Path, nan: bool = False) -> None:
+    rng = np.random.default_rng(0)
+    z = zarrlite.open(str(root / "data.zarr"), mode="w")
+    for key, shape in SHAPES.items():
+        lbl = np.zeros((1, *shape), np.uint8)
+        lbl[0, 3:11, 4:12, 2:10] = 1
+        lbl[0, 12:17, 10:16, 11:17] = 2
+        img = (rng.normal(0, 0.5, size=(1, *shape)) + lbl).astype(np.float32)
+        if nan:
+            img[:] = np.nan
+        arr = z.require_group("images").create_dataset(key, data=img)
+        arr.attrs["affine"] = np.diag([1.5, 1.5, 2.0, 1.0])
+        z.require_group("labels").create_dataset(key, data=lbl)
+    (root / "train.txt").write_text("s0\ns1\ns2\n")
+    (root / "val.txt").write_text("s3\n")
+    (root / "test.txt").write_text("s3\ns4\n")
+
+
+def _train_argv(root: Path, *extra):
+    return ["--device", "cpu", "-c", str(REPO / "configs" / "seg_organ.yaml"),
+            "--data_path", str(root / "data.zarr"), "--train_set", str(root / "train.txt"),
+            "--val_set", str(root / "val.txt"), "--model_dir", str(root / "model"),
+            "--log_dir", str(root / "logs"), "--patch_size", "16", "16", "16",
+            "--fmaps", "4", "--out_channels", "3", "--class_probabilities", "0.4", "0.3",
+            "0.3", "--patches_per_subject", "2", "--batch_size", "2", "--no_bf16", *extra]
+
+
+def _predict_argv(root: Path, stitch: str, checkpoint=None, *extra):
+    return ["--device", "cpu", "-c", str(REPO / "configs" / "predict.yaml"),
+            f"base.data={root / 'data.zarr'}", f"prediction.test_set={root / 'test.txt'}",
+            f"prediction.checkpoint={checkpoint or root / 'model' / 'best'}",
+            f"prediction.data={root / f'pred_{stitch}.zarr'}",
+            "prediction.patch_size=[16, 16, 16]", "prediction.patch_overlap=[4, 4, 4]",
+            "prediction.batch_size=4", f"prediction.stitch={stitch}", *extra]
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cli")
+    _write_store(root)
+    assert train_seg.main(_train_argv(root, "--max_epochs", "2")) == 0
+    assert train_seg.main(_train_argv(root, "--max_epochs", "3", "--resume",
+                                      str(root / "model"))) == 0
+    for stitch in ("crop", "device"):
+        assert predict.main(_predict_argv(root, stitch)) == 0
+    return root
+
+
+def test_train_writes_checkpoints_and_metrics(run):
+    assert CheckpointManager(run / "model").available_steps == [3, 6, 9]
+    best = CheckpointManager(run / "model" / "best")
+    assert len(best.available_steps) == 1
+    hp = best.restore_hparams()
+    assert hp["ckpt_format"] == 2 and hp["fmaps"] == 4 and hp["device"] == "cpu"
+    assert hp["_best_monitor"]["metric"] == "val_loss"
+    records = [json.loads(line) for line in (run / "logs" / "metrics.jsonl").read_text()
+               .splitlines()]
+    names = set().union(*(r.keys() for r in records)) - {"step", "time"}
+    assert names == {"train_loss", "lr", "patches_per_sec", "val_loss", "val_dice0",
+                     "val_dice1", "val_dice2"}
+    assert sorted(r["step"] for r in records if "val_loss" in r) == [3, 6, 9]
+    assert list((run / "logs").glob("events.out.tfevents*"))  # tensorboardX is here
+
+
+def test_device_sampler_run_with_the_optimizer_options(run, tmp_path):
+    argv = _train_argv(run, "--max_epochs", "1", "--device_sampler", "--optimizer", "adamw",
+                       "--weight_decay", "1e-4", "--lr_schedule", "cosine", "--warmup_steps",
+                       "2", "--grad_clip_norm", "1.0", "--ema_decay", "0.99", "--nonfinite",
+                       "skip", "--track_grad_norm", "--accumulate_grad_batches", "2",
+                       "--model_dir", str(tmp_path / "m"), "--log_dir", str(tmp_path / "l"))
+    assert train_seg.main(argv) == 0
+    first = json.loads((tmp_path / "l" / "metrics.jsonl").read_text().splitlines()[0])
+    assert first["lr"] == 0.0 and first["nonfinite"] == 0.0 and first["grad_norm"] > 0
+    weights = CheckpointManager(tmp_path / "m").restore_weights()
+    assert weights["ema"] is not None and sorted(weights["ema"]) == sorted(weights["params"])
+
+
+def _jax_margin(model, variables, vol_f16, patch, overlap):
+    """Top-2 logit margin of the JAX model, stitched with the grid's cores."""
+    img = np.asarray(vol_f16.shape[1:])
+    corners, padded = jax_grid_corners(img, patch, overlap)
+    ov = np.asarray(overlap)
+    pads = [(int(o), int(p - s - o)) for o, p, s in zip(ov, padded, img)]
+    vol = np.pad(np.moveaxis(vol_f16, 0, -1), pads + [(0, 0)])
+    tiles = np.stack([vol[x:x + patch[0], y:y + patch[1], z:z + patch[2]]
+                      for x, y, z in corners]).astype(np.float32)
+    logits = np.asarray(model.apply(variables, jnp.asarray(tiles), train=False))
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    out = np.zeros(tuple(padded), np.float32)
+    core = tuple(slice(o, p - o) for o, p in zip(ov, patch))
+    for (x, y, z), m in zip(corners, margin):
+        out[x + ov[0]:x + patch[0] - ov[0], y + ov[1]:y + patch[1] - ov[1],
+            z + ov[2]:z + patch[2] - ov[2]] = m[core]
+    return out[ov[0]:ov[0] + img[0], ov[1]:ov[1] + img[1], ov[2]:ov[2] + img[2]]
+
+
+def test_predict_masks_match_jax_predict_volumes(run):
+    weights, _ = load_for_inference(run / "model" / "best")
+    variables = convert_state_dict({k: v.numpy() for k, v in weights.items()})
+    jtask = JaxSegmentationTask.from_hparams(HP)
+    with JaxZarrReader(run / "data.zarr") as r:
+        store = {"images": {k: np.asarray(v) for k, v in
+                            zip(["s3", "s4"], r.read(["s3", "s4"], "images", np.float32))}}
+    ref = jax_predict_volumes(jtask, variables, None, ["s3", "s4"], patch_size=[16] * 3,
+                              patch_overlap=[4] * 3, batch_size=4,
+                              reader=JaxMemoryReader(store), pad_mode="constant")
+    for stitch in ("crop", "device"):
+        with JaxZarrReader(run / f"pred_{stitch}.zarr") as r:
+            assert r.list_groups() == ["prediction"]
+            got = dict(zip(["s3", "s4"], r.read(["s3", "s4"], "prediction", np.uint8)))
+            affine = r.get_data_attribute(["s3"], "prediction", "affine")["s3"]
+        np.testing.assert_array_equal(np.asarray(affine), np.diag([1.5, 1.5, 2.0, 1.0]))
+        for key in ("s3", "s4"):
+            want = np.asarray(ref[key])
+            assert got[key].shape == want.shape == (1, *SHAPES[key])
+            margin = _jax_margin(jtask.model, variables,
+                                 store["images"][key].astype(np.float16), [16] * 3, [4] * 3)
+            clear = margin > TIE_BAND
+            assert clear.mean() > 0.99
+            np.testing.assert_array_equal(got[key][0][clear], want[0][clear],
+                                          err_msg=f"{stitch} {key}")
+
+
+def test_predict_from_a_reference_ckpt(run, tmp_path):
+    import jax
+
+    # the reference's hparams carry no dtype, so the port predicts in bf16,
+    # which is slow on the CPU: a narrower model, one subject, 8 tiles
+    hp_ref = {**vars(HP), "fmaps": 2}
+    jtask = JaxSegmentationTask.from_hparams(SimpleNamespace(**hp_ref))
+    variables = jtask.model.init(jax.random.PRNGKey(3), jnp.zeros((1, 16, 16, 16, 1)))
+    ckpt = tmp_path / "model.ckpt"
+    save_reference_checkpoint(ckpt, variables, hparams=hp_ref, step=12)
+    weights, hp = load_for_inference(ckpt)
+    assert hp == {k: v for k, v in hp_ref.items() if k != "bf16"}
+    want = flax_to_state_dict(variables)
+    assert sorted(weights) == sorted(want)
+    assert all(np.array_equal(weights[k].numpy(), want[k]) for k in want)
+
+    out = tmp_path / "out"
+    shutil.copytree(run, out, ignore=shutil.ignore_patterns("model", "logs", "pred_*"))
+    (out / "test.txt").write_text("s3\n")
+    assert predict.main(_predict_argv(out, "device", ckpt,
+                                      "prediction.patch_overlap=[0, 0, 0]")) == 0
+    with JaxZarrReader(out / "pred_device.zarr") as r:
+        (mask,) = r.read(["s3"], "prediction", np.uint8)
+    assert mask.shape == (1, *SHAPES["s3"]) and set(np.unique(mask)) <= {0, 1, 2}
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["prediction.stitch=gaussian"], "Gaussian"),
+    (["prediction.tta=true"], "TTA"),
+    (["prediction.gpus=2"], "Multi-GPU"),
+    (["prediction.landmarks=/tmp/l.json"], "landmarks"),
+])
+def test_predict_refuses_what_waits(run, extra, match):
+    with pytest.raises(NotImplementedError, match=match):
+        predict.main(_predict_argv(run, "crop", None, *extra))
+
+
+def test_predict_refuses_the_wrong_task(run, tmp_path):
+    with pytest.raises(ValueError, match="trained as 'SegmentationNet'"):
+        predict.main(_predict_argv(run, "crop", None, "prediction.model=LandmarkNet"))
+    ldmk = tmp_path / "ldmk"
+    shutil.copytree(run / "model" / "best", ldmk)
+    side_car = next(ldmk.glob("*/hparams.json"))
+    hp = json.loads(side_car.read_text())
+    side_car.write_text(json.dumps({**hp, "loss_regression_weight": [0.1]}))
+    with pytest.raises(NotImplementedError, match="LandmarkNet"):
+        predict.main(_predict_argv(run, "crop", ldmk, "prediction.model=null"))
+    with pytest.raises(ValueError, match="integer step"):
+        predict.main(_predict_argv(run, "crop", None, "prediction.checkpoint_step=best"))
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--gpus", "2"], "Multi-GPU"),
+    (["--spatial_shards", "2"], "Multi-GPU"),
+    (["--native_loader"], "native loader"),
+    (["--neptune_project", "p"], "Neptune"),
+    (["--aug_elastic_sigma", "2"], "spatial_3d"),
+])
+def test_train_refuses_what_waits(run, tmp_path, extra, match):
+    argv = _train_argv(run, "--max_epochs", "1", "--model_dir", str(tmp_path / "m"), *extra)
+    with pytest.raises(NotImplementedError, match=match):
+        train_seg.main(argv)
+
+
+def test_train_exits_3_when_it_stops_on_non_finite_values(tmp_path):
+    _write_store(tmp_path, nan=True)
+    argv = _train_argv(tmp_path, "--max_epochs", "1", "--nonfinite", "terminate")
+    assert train_seg.main(argv) == 3
+    assert CheckpointManager(tmp_path / "model").available_steps == [0]
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable here")
+
+
+def test_both_clis_refuse_to_run_without_cuda_unless_told(run, no_cuda, capsys):
+    train = [a for a in _train_argv(run, "--max_epochs", "1") if a not in ("--device", "cpu")]
+    assert train_seg.main(train) == 2
+    assert "CUDA is not available" in capsys.readouterr().err
+    pred = [a for a in _predict_argv(run, "crop") if a not in ("--device", "cpu")]
+    assert predict.main(pred) == 2
+    assert "CUDA is not available" in capsys.readouterr().err

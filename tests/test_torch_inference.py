@@ -105,7 +105,7 @@ def test_grid_corners_is_the_jax_geometry():
     assert len(corners) == 27  # 4 batches of 8 with a tail, on the chip slice
 
 
-def test_predict_rejects_model_on_other_device_and_other_pad_modes():
+def test_predict_rejects_model_on_other_device_and_other_pad_modes(tmp_path):
     port = ResidualUNet3D(1, 2, f_maps=4, num_levels=2, device="cpu")
     task = SegmentationTask(model=port)
     with pytest.raises(ValueError, match="live on"):
@@ -116,9 +116,12 @@ def test_predict_rejects_model_on_other_device_and_other_pad_modes():
         device_sliding.predict_volumes_on_device(
             task, None, ["s0"], reader=MemoryReader(*_store()), device="cpu",
             pad_mode="reflect", **KW)
+    # HDF5 and zarr files are read now; a directory of NIfTI volumes is not
+    (tmp_path / "images").mkdir()
+    (tmp_path / "images" / "s0.nii").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         device_sliding.predict_volumes_on_device(
-            task, "data.h5", ["s0"], device="cpu", **KW)
+            task, tmp_path, ["s0"], device="cpu", **KW)
 
 
 def test_run_pipelined_keeps_one_item_in_flight():

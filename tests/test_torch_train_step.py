@@ -140,9 +140,29 @@ def test_train_state_and_unported_options():
                                      for p in jax.tree.leaves(jstate.params))
     assert isinstance(state.optimizer, torch.optim.Adam)
     assert state.generator.device == torch.device("cpu")
-    for kw in (dict(ema_decay=0.99), dict(guard_nonfinite=True), dict(track_grad_norm=True)):
-        with pytest.raises(NotImplementedError):
-            make_train_step(task, **kw)
+    # EMA, the non-finite guard and the gradient norm are ported: grad_norm
+    # and nonfinite equal JAX's (the gradients' own 1e-4 bound), and a NaN
+    # batch leaves the parameters and the step count as they were
+    with pytest.raises(ValueError, match="ema_decay"):
+        make_train_step(task, ema_decay=1.5)
+    with pytest.raises(ValueError, match="no EMA"):
+        make_train_step(task, ema_decay=0.99)(state, _port_batch(*_batch()))
+    jtask, jstate = _setup()[:2]
+    jstep = jax_make_train_step(jtask, donate=False, guard_nonfinite=True, track_grad_norm=True)
+    step = make_train_step(task, guard_nonfinite=True, track_grad_norm=True)
+    for poison in (False, True):
+        data, label = _batch()
+        if poison:
+            data[0, 0, 0, 0, 0] = np.nan
+        before = [p.detach().clone() for p in task.model.parameters()]
+        jstate, jm = jstep(jstate, {"data": jnp.asarray(data), "label": jnp.asarray(label)})
+        state, m = step(state, _port_batch(data, label))
+        assert float(m["nonfinite"]) == float(jm["nonfinite"]) == float(poison)
+        assert state.step == int(jstate.step) == 1
+        if poison:
+            assert all(torch.equal(p, b) for p, b in zip(task.model.parameters(), before))
+        else:
+            assert float(m["grad_norm"]) == pytest.approx(float(jm["grad_norm"]), rel=1e-4)
     # the step trains the state's model; the task only gives the loss
     other = create_train_state(ResidualUNet3D(1, 2, f_maps=4, num_levels=2,
                                               dtype=torch.float32, device="cpu"), 1e-3)

@@ -1,0 +1,179 @@
+"""Sliding-window prediction CLI: ``python -m tpu_mednet_torch.cli.predict``.
+
+The port's counterpart of ``tpu_mednet/cli/predict.py`` (the reference's
+hydra entry point, ``examples/predict.py:20-115``): a YAML config with
+``base.*`` / ``prediction.*`` groups plus dotted ``key=value`` overrides;
+checkpoint -> model -> stitch -> an HDF5 or zarr store.  Subjects go in
+chunks of ``prediction.chunk_size`` to bound host memory.
+``prediction.stitch`` is ``crop`` (the reference's host stitch, the
+default) or ``device`` (tiles cut by K2 and stitched on the card).  The
+checkpoint is a training directory of the port (EMA weights unless
+``prediction.use_ema=false``; ``prediction.checkpoint_step`` pins a step)
+or a reference-style ``.ckpt`` file.  It runs on CUDA unless ``--device
+cpu`` is given.
+
+Not ported (refused): ``stitch: gaussian``, ``tta``, landmark models and
+``prediction.landmarks``, ``gpus`` above 1; the HBM guard
+(``hbm_guard``) is not ported and is ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import types
+from typing import Optional, Sequence
+
+import numpy as np
+
+from tpu_mednet_torch.config import (
+    add_device_arg,
+    load_dotenv,
+    load_yaml_config,
+    read_keyfile,
+    replace_env,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("-c", "--config", required=True,
+                        help="YAML config with base.* / prediction.* groups")
+    parser.add_argument("overrides", nargs="*",
+                        help="dotted overrides, e.g. prediction.batch_size=16")
+    parser.add_argument("--log_level", type=str, default="INFO")
+    add_device_arg(parser)
+    return parser
+
+
+def _refuse(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to tpu_mednet_torch yet "
+                               f"(ROADMAP §1, {item!r})")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    load_dotenv()
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=args.log_level)
+    logger = logging.getLogger("predict")
+
+    from tpu_mednet_torch._device import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as exc:
+        print(f"predict: {exc}", file=sys.stderr)
+        return 2
+
+    cfg = load_yaml_config(args.config, args.overrides)
+    base = cfg.get("base", {})
+    pred = cfg.get("prediction", {})
+    data_path = replace_env(base["data"])
+    image_group = base.get("image_group", "images")
+    num_heatmaps = len(base.get("sigma") or [])
+    test_set = replace_env(pred["test_set"])
+    patch_size = pred.get("patch_size", [96, 96, 96])
+    patch_overlap = pred.get("patch_overlap", [16, 16, 16])
+    channel_selection = pred.get("channel_selection")
+    batch_size = pred.get("batch_size", 8)
+    prediction_path = pred.get("data")
+    prediction_group = pred.get("group", "prediction")
+    checkpoint_path = replace_env(pred["checkpoint"])
+    checkpoint_step = pred.get("checkpoint_step")
+    chunk_size = pred.get("chunk_size", 16)
+    model_name = pred.get("model")  # default: detected from the hparams
+    stitch = pred.get("stitch", "crop")
+    use_ema = bool(pred.get("use_ema", True))
+    if stitch == "gaussian":
+        raise _refuse("prediction.stitch=gaussian", "TTA and the Gaussian stitch")
+    if stitch not in ("crop", "device"):
+        raise ValueError(f"prediction.stitch must be crop, device or gaussian, got {stitch!r}")
+    if pred.get("tta", False):
+        raise _refuse("prediction.tta", "TTA and the Gaussian stitch")
+    if (pred.get("gpus", 1) or 1) > 1:
+        raise _refuse("prediction.gpus above 1", "Multi-GPU")
+    if pred.get("landmarks"):
+        raise _refuse("prediction.landmarks", "landmarks and multitask")
+    if checkpoint_step is not None:
+        try:
+            checkpoint_step = int(checkpoint_step)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"prediction.checkpoint_step must be an integer step, got "
+                f"{checkpoint_step!r} (for the best-val checkpoint point "
+                f"prediction.checkpoint at <model_dir>/best)") from None
+
+    from tpu_mednet_torch.inference.device_sliding import predict_volumes_on_device
+    from tpu_mednet_torch.inference.serving import detect_task_name
+    from tpu_mednet_torch.inference.sliding_window import predict_volumes
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.train.checkpoint import load_for_inference
+
+    test_keys = read_keyfile(test_set)
+    logger.info("total number of keys %d", len(test_keys))
+    chunk_num = max(len(test_keys) // chunk_size, 1)
+    chunks = np.array_split(np.asarray(test_keys), chunk_num)
+
+    logger.info("loading model from %s ...", checkpoint_path)
+    state_dict, hp_restored = load_for_inference(checkpoint_path, step=checkpoint_step,
+                                                 use_ema=use_ema)
+    if hp_restored is None:
+        raise ValueError(
+            f"checkpoint at {checkpoint_path} has no hparams side-car; "
+            "predict needs the training hparams to rebuild the model")
+    detected = detect_task_name(hp_restored)
+    if model_name is None:
+        model_name = detected
+        logger.info("prediction.model not set; detected %s from the checkpoint "
+                    "hparams", model_name)
+    elif model_name != detected:
+        raise ValueError(
+            f"prediction.model={model_name!r} but the checkpoint hparams "
+            f"say it was trained as {detected!r} (loss_regression_weight "
+            f"{'present' if detected == 'LandmarkNet' else 'absent'}); "
+            f"restoring into the wrong task silently bakes the wrong "
+            f"postprocess — fix prediction.model or the checkpoint path")
+    if model_name == "LandmarkNet":
+        raise _refuse("prediction of a LandmarkNet checkpoint", "landmarks and multitask")
+    hparams = types.SimpleNamespace(**{k: _coerce(v) for k, v in hp_restored.items()})
+    task = SegmentationTask.from_hparams(hparams, device=device)
+    task.model.load_state_dict(state_dict, strict=True)
+
+    for c, chunk in enumerate(chunks):
+        logger.info("chunk %d/%d", c, chunk_num)
+        kw = dict(patch_size=patch_size, patch_overlap=patch_overlap,
+                  batch_size=batch_size, image_group=image_group, device=device)
+        if stitch == "device":
+            results = predict_volumes_on_device(task, data_path, list(chunk), **kw)
+        else:
+            results = predict_volumes(task, data_path, list(chunk),
+                                      out_channels=num_heatmaps + 1,
+                                      channel_selection=channel_selection, **kw)
+        if prediction_path:
+            results.save(replace_env(prediction_path), group=prediction_group)
+            logger.info("saved %d volumes to %s", len(results), prediction_path)
+    return 0
+
+
+def _coerce(v):
+    """JSON round-trips turn tuples into lists and, at times, numbers into
+    strings; best-effort numeric coercion of hparams values (recursing into
+    lists)."""
+    if isinstance(v, list):
+        return [_coerce(x) for x in v]
+    if isinstance(v, str):
+        for cast in (int, float):
+            try:
+                return cast(v)
+            except ValueError:
+                pass
+        if v in ("True", "False"):
+            return v == "True"
+        if v == "None":
+            return None
+    return v
+
+
+if __name__ == "__main__":
+    sys.exit(main())

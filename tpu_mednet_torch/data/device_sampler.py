@@ -142,17 +142,19 @@ class DevicePatchSampler:
         label = patches.extract_patches(self.labels, corners, self.patch_size, subjects=subj)
         return {"data": data.permute(0, 4, 1, 2, 3), "label": label.permute(0, 4, 1, 2, 3)}
 
-    def batches(self, batch_size: int) -> Iterator[Dict[str, torch.Tensor]]:
+    def batches(self, batch_size: int, shuffle: bool = True) -> Iterator[Dict[str, torch.Tensor]]:
         """One epoch = a permutation of (subject, sample) pairs, exactly
         ``samples_per_subject`` draws per subject (reference epoch semantics,
         dataset.py:282-283), in full batches: a trailing partial batch is
-        dropped, and an epoch shorter than one batch raises."""
+        dropped, and an epoch shorter than one batch raises.
+        ``shuffle=False`` keeps the subject order."""
         items = np.repeat(np.arange(len(self.subject_keys), dtype=np.int64),
                           self.samples_per_subject)
         if len(items) < batch_size:
             raise ValueError(f"an epoch of {len(items)} patches is shorter than one "
                              f"batch of {batch_size}")
-        items = self.rng.permutation(items)
+        if shuffle:
+            items = self.rng.permutation(items)
         for start in range(0, len(items) - batch_size + 1, batch_size):
             subj = items[start:start + batch_size]
             yield self.gather(*self.sample_indices(batch_size, subj=subj))

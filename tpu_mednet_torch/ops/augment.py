@@ -132,7 +132,7 @@ class AugmentConfig:
         """False; raises where the spatial transform is asked for."""
         if self.elastic_sigma or self.rotate_deg or self.scale_range is not None:
             raise NotImplementedError("spatial_3d (elastic, rotation, scaling) is "
-                                      "not ported yet")
+                                      "not ported yet (ROADMAP §1, 'spatial_3d')")
         return False
 
 

@@ -1,13 +1,18 @@
-"""Train and eval steps: augment, forward, loss, backward, optimizer update.
+"""Train, eval and predict steps.
 
-Counterpart of ``tpu_mednet/train/step.py:26-166``.  Where the JAX package
-traces one jitted function and donates the state, the port runs the same
-sequence eagerly and updates the state in place: cast to the compute
-dtype, augment on the device (mirror flips move the label), forward,
-loss, ``backward`` (through K1's backward kernels), optimizer step.  The
-metrics stay device tensors: nothing here waits for the card.
+Counterpart of ``tpu_mednet/train/step.py``.  Where the JAX package traces
+one jitted function and donates the state, the port runs the same sequence
+eagerly and updates the state in place: cast to the compute dtype, augment
+on the device (mirror flips move the label), forward, loss, ``backward``
+(through K1's backward kernels), then the update of ``train/optim.py``:
+accumulation, clipping, the schedule's LR, the ``torch.optim`` step and
+the EMA.  The metrics stay device tensors, so the default step waits for
+nothing.
 
-EMA, the non-finite guard and the gradient norm are not ported yet.
+``guard_nonfinite`` is the one exception: JAX gates the update inside the
+jit with ``lax.cond``; the port computes the same finite flag on the
+device and reads it on the host once per step, which only this option
+pays for.
 """
 
 from __future__ import annotations
@@ -17,9 +22,53 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from tpu_mednet_torch.ops.augment import AugmentConfig, apply_augmentations
+from tpu_mednet_torch.train.optim import clip_by_global_norm_, global_norm
 from tpu_mednet_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
+
+
+def all_finite(loss: torch.Tensor, grads) -> torch.Tensor:
+    """Device bool: the loss and every gradient element are finite (a max
+    |g| is finite exactly when every element is)."""
+    peaks = torch.stack(torch._foreach_norm(grads, float("inf")))
+    return torch.isfinite(loss) & torch.isfinite(peaks).all()
+
+
+def apply_gradients(state: TrainState, ema_decay: float = 0.0,
+                    grad_norm: Optional[torch.Tensor] = None) -> bool:
+    """One micro-step of the optimizer chain on the parameters' ``.grad``,
+    in optax's order: accumulate (``MultiSteps``: the running mean, applied
+    on the k-th micro-step), clip by global norm, the LR of the schedule at
+    the update count, the optimizer step, then the EMA, which advances
+    only when the parameters did.  Returns whether they did."""
+    cfg = state.config
+    grads = [p.grad for p in state.params]
+    state.step += 1
+    if state.acc_grads is not None:
+        n = state.mini_step
+        delta = torch._foreach_sub(grads, state.acc_grads)
+        torch._foreach_div_(delta, float(n + 1))
+        torch._foreach_add_(state.acc_grads, delta)
+        state.mini_step = (n + 1) % cfg.accumulate_grad_batches
+        if state.mini_step:
+            return False
+        torch._foreach_copy_(grads, state.acc_grads)
+        torch._foreach_zero_(state.acc_grads)
+        grad_norm = None  # the norm of the mean, not of this micro-batch
+    if cfg.grad_clip_norm > 0:
+        clip_by_global_norm_(grads, cfg.grad_clip_norm, grad_norm)
+    if cfg.schedule != "plateau":
+        lr = state.schedule(state.updates)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+    state.optimizer.step()
+    state.updates += 1
+    if ema_decay:
+        ema = list(state.ema.values())
+        torch._foreach_mul_(ema, ema_decay)
+        torch._foreach_add_(ema, [p.detach() for p in state.params], alpha=1.0 - ema_decay)
+    return True
 
 
 def make_train_step(task, augment: Optional[AugmentConfig] = None,
@@ -27,14 +76,26 @@ def make_train_step(task, augment: Optional[AugmentConfig] = None,
                     track_grad_norm: bool = False
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The train step for ``task``: ``step(state, batch) -> (state, metrics)``
-    with ``metrics["train_loss"]`` (the reference's scalar, segmentation.py:64)
-    as a device tensor.  The step trains ``state.model``; ``task`` gives the
-    loss."""
-    if ema_decay or guard_nonfinite or track_grad_norm:
-        raise NotImplementedError("ema_decay, guard_nonfinite and track_grad_norm "
-                                  "are not ported yet")
+    with ``metrics["train_loss"]`` (the reference's scalar,
+    segmentation.py:64) as a device tensor.  The step trains
+    ``state.model``; ``task`` gives the loss.
+
+    ``ema_decay`` > 0 keeps ``state.ema`` as ``decay * ema + (1 - decay) *
+    params`` after every real optimizer update (the state must come from a
+    config with EMA on).  ``track_grad_norm`` adds ``grad_norm``, the
+    pre-clip global L2 norm of this micro-batch's gradients.
+    ``guard_nonfinite`` adds ``nonfinite`` (0/1) and, where the loss or any
+    gradient is non-finite, skips the optimizer, the EMA, accumulation and
+    the step count; the augmentation draws have advanced the generator
+    either way.
+    """
+    if ema_decay and not (0.0 < ema_decay < 1.0):
+        raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
 
     def step(state: TrainState, batch: Batch):
+        if ema_decay and state.ema is None:
+            raise ValueError("ema_decay is set but the train state holds no EMA: "
+                             "create it from an OptimizerConfig with ema_decay")
         model = state.model
         model.train()
         data = batch["data"].to(model.config.dtype)
@@ -45,24 +106,56 @@ def make_train_step(task, augment: Optional[AugmentConfig] = None,
         loss, aux = task.loss_fn(outputs, {"data": data, "label": label})
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return state, {"train_loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        loss = loss.detach()
+        metrics = {"train_loss": loss, **{k: v.detach() for k, v in aux.items()}}
+        norm = None
+        if track_grad_norm:
+            norm = metrics["grad_norm"] = global_norm([p.grad for p in state.params])
+        if guard_nonfinite:
+            finite = all_finite(loss, [p.grad for p in state.params])
+            metrics["nonfinite"] = (~finite).float()
+            if not bool(finite):  # the guard's host read
+                return state, metrics
+        apply_gradients(state, ema_decay, norm)
+        return state, metrics
 
     return step
 
 
-def make_eval_step(task) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
-    """The validation step: ``state.model``'s forward without gradients, then
-    the task's ``val_metrics`` (``val_loss``, ``val_dice{c}``) as device
+def _forward(model, data: torch.Tensor, weights: Optional[Dict[str, torch.Tensor]]):
+    if weights is None:
+        return model(data)
+    return torch.func.functional_call(model, weights, (data,))
+
+
+def make_eval_step(task, use_ema: bool = False
+                   ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
+    """The validation step: ``state.model``'s forward without gradients
+    (on ``state.ema`` with ``use_ema`` where the state has one), then the
+    task's ``val_metrics`` (``val_loss``, ``val_dice{c}``) as device
     tensors."""
 
     def step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         model = state.model
         model.eval()
+        weights = state.ema if use_ema else None
         with torch.inference_mode():
             data = batch["data"].to(model.config.dtype)
-            outputs = model(data)
+            outputs = _forward(model, data, weights)
             return task.val_metrics(outputs, {"data": data, "label": batch["label"]})
+
+    return step
+
+
+def make_predict_step(task) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Inference step: the task model's forward in eval mode, then the
+    task's postprocess (``tpu_mednet/train/step.py:169-192`` without TTA).
+    Takes (N, C, X, Y, Z) data on the model's device."""
+    model = task.model
+
+    def step(data: torch.Tensor) -> torch.Tensor:
+        model.eval()
+        with torch.inference_mode():
+            return task.predict_postprocess(model(data.to(model.config.dtype)))
 
     return step
