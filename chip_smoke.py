@@ -24,7 +24,16 @@ drives the two main paths with launch counts:
 - entry points: ``train_seg -c configs/seg_organ.yaml`` and ``predict -c
   configs/predict.yaml`` through the CLIs' ``main(argv)`` on a seeded zarr
   store, K1 and indexed K2 held at their 128^3 shapes, both stitches'
-  masks held to each other; then the non-finite guard's cost per step.
+  masks held to each other; then the non-finite guard's cost per step;
+- landmarks: K1 forward and backward at the f_maps-64 level shapes (batch
+  4, bf16 and fp32, up to 1024 channels), the LandmarkNet model of
+  ``configs/landmarks.yaml`` (141,246,661 parameters) kernel path against
+  plain path (forward heatmaps and class logits, one bf16 train step's
+  gradients, ten steps on one batch at lr 1e-3 and 1e-4), then ``train_ldmks -c configs/landmarks.yaml`` (host sampler
+  with ``--resume``, ``--device_sampler``, ``--device_sampler
+  --landmark_group``) and a LandmarkNet ``predict`` with both stitches and
+  ``prediction.landmarks``, with indexed K2 held on the 4-channel label
+  store.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero without a result when CUDA is unavailable or the package is not
@@ -33,9 +42,17 @@ beside it.
 Output: the card's ``nvidia-smi`` name and power limit, one line per
 check, a ``{"kernels": [...]}`` JSON line, and, last,
 ``{"ok": true, "device": {...}}``.  A kernel's time is its device time
-from ``torch.profiler``; CUDA-event times around the wrapper calls, which
-at small shapes measure the host, are printed beside it.  Bounds use the
-H100 SXM peaks (3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor cores).
+from ``torch.profiler``, the mean over the launch records it kept (at
+least ``MIN_KEPT`` of them; the share is ``profiler_kept``).  Where the
+profiler keeps fewer, on every try, the time is the mean over CUDA events
+recorded around each launch of the kernel behind a queue of device work
+(``launch_event_ms``), and ``profiler_kept`` below ``MIN_KEPT`` says so.
+CUDA-event times around the wrapper calls, which at small shapes measure
+the host, are printed beside it.  Device busy times and idle shares come
+from the profiler too, beside the share of K1's counted launches it kept;
+an idle share is NaN (not measured) where that share is below
+``MIN_KEPT``.  Bounds use the H100 SXM peaks (3.35 TB/s HBM, 67 TFLOP/s
+fp32 without tensor cores).
 """
 
 from __future__ import annotations
@@ -53,6 +70,8 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+MIN_KEPT = 0.5         # a kernel time rests on at least half of its launches' profiler records
+QUEUE_CYCLES = 100_000_000  # device sleep ahead of launch_event_ms's calls: ~50 ms at 1.98 GHz
 FULL_WIDTH_PARAMS = 35_316_738
 BATCH, PATCH, OVERLAP = 8, (96, 96, 96), (16, 16, 16)
 GROUPS = 8
@@ -102,6 +121,33 @@ ORGAN_OPTIONS = ("--device_sampler", "--optimizer", "adamw", "--weight_decay", "
                  "--ema_decay", "0.99", "--nonfinite", "skip", "--track_grad_norm",
                  "--accumulate_grad_batches", "2")
 GUARD_STEPS = 10       # steps per turn of the non-finite guard's cost, off/on/on/off
+# landmarks: train_ldmks -c configs/landmarks.yaml (f_maps 64, 3 heatmaps + 2
+# classes, 96^3 patches, batch 4, Dice + L2, 10 patches per subject) and a
+# LandmarkNet predict -c configs/predict.yaml on a seeded zarr store of six
+# subjects with 3 landmarks each: four train (10 steps per epoch), one val,
+# and the val subject plus one more to predict
+LDMK_PARAMS = 141_246_661
+FIXED_BATCH_LRS = (1e-3, 1e-4)  # the config's lr and a tenth (check_landmark_parity)
+LDMK_BATCH, LDMK_HEATMAPS, LDMK_SIGMA = 4, 3, 4.0
+LDMK_LEVELS = [(64 * 2**i, 96 // 2**i, 6 if i < 4 else 3) for i in range(5)]
+LDMK_SUBJECTS = (("l0", (192, 192, 160)), ("l1", (176, 192, 160)),
+                 ("l2", (192, 176, 168)), ("l3", (192, 192, 144)),
+                 ("l4", (184, 192, 160)), ("l5", (192, 184, 176)))
+LDMK_SPLITS = dict(train=["l0", "l1", "l2", "l3"], val=["l4"], test=["l4", "l5"])
+LDMK_STEPS_PER_EPOCH = 10
+# (tag, epochs, extra flags) of the train_ldmks runs: the host sampler on the
+# stored heatmaps, resumed; the device sampler on them; the device sampler
+# rendering them from the stored coordinates
+LDMK_RUNS = (("ldmk_train", "ldmk", 2, ()),
+             ("ldmk_resume", "ldmk", 3, ("--resume",)),
+             ("ldmk_device", "ldmk_device", 2, ("--device_sampler",)),
+             ("ldmk_landmarks", "ldmk_landmarks", 2,
+              ("--device_sampler", "--landmark_group", "landmarks")))
+LDMK_PROFILED = {("ldmk_resume", 2), ("ldmk_device", 1), ("ldmk_landmarks", 1)}
+LDMK_PREDICT_TURNS = 3
+LDMK_METRICS = {"train_loss", "class_loss", "regression_loss", "lr", "patches_per_sec",
+                "val_loss", "val_class_loss", "val_regression_loss", "val_landmark_error",
+                "val_dice0", "val_dice1"}
 
 
 def log(msg: str) -> None:
@@ -155,7 +201,12 @@ def reset_counts(gn, P):
 
 def device_rows(torch, fn, reps):
     """(ms per call, launches per call, name) of every device activity that
-    ``torch.profiler`` records over ``reps`` calls of ``fn``."""
+    ``torch.profiler`` records over ``reps`` calls of ``fn``.  Launches per
+    call are a fraction where the profiler dropped records: on one H100
+    it kept 19 of 20 now and then, and late in the process, after the
+    training and entry-point profiles, ``probe_profiler`` saw 4 of 5 and
+    then 1 of 5 matmuls; on another it kept 1 of 20 ``gn_apply`` launches
+    three times over in the first K1 check."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -169,16 +220,90 @@ def device_rows(torch, fn, reps):
         if us is None:
             us = getattr(evt, "cuda_time_total", 0.0)
         if us > 0 and not evt.key.startswith("cuda"):
-            rows.append((us / reps / 1e3, evt.count // reps, evt.key))
+            rows.append((us / reps / 1e3, evt.count / reps, evt.key))
     return rows
 
 
-def kernel_ms(torch, fn, name, reps=20):
-    """(device ms per call of the kernels whose name holds ``name``, device
-    activities launched per call) over ``reps`` calls of ``fn``."""
+def launch_ms(rows, name):
+    """Device ms per launch of the activities of ``device_rows`` whose name
+    holds ``name``: the mean over the records the profiler kept."""
+    ms = sum(m for m, _, key in rows if name in key)
+    n = sum(c for _, c, key in rows if name in key)
+    return ms / n if n else 0.0
+
+
+def launch_event_ms(torch, fn, name, reps):
+    """Mean ms per launch of the C entries whose name holds ``name`` over
+    ``reps`` calls of ``fn``: CUDA events recorded just before and after
+    each such launch on the current stream.  The calls are queued behind
+    ``QUEUE_CYCLES`` of device sleep, so each start event runs as the work
+    before it ends, not when the host reaches the launch."""
+    from tpu_mednet_torch.ops import _build
+
+    pairs = []
+
+    def timing(orig):
+        def kernel(entry, argtypes):
+            launch = orig(entry, argtypes)
+            if name not in entry:
+                return launch
+
+            def timed(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                err = launch(*args)
+                end.record()
+                pairs.append((start, end))
+                return err
+            return timed
+        return kernel
+
+    fn()
+    torch.cuda.synchronize()
+    with wrapped(_build, "kernel", timing):
+        torch.cuda._sleep(QUEUE_CYCLES)
+        for _ in range(reps):
+            fn()
+    torch.cuda.synchronize()
+    if not pairs:
+        raise AssertionError(f"{name}: no launch over {reps} calls")
+    return sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+
+
+def kernel_ms(torch, fn, name, reps=20, tries=3):
+    """(device ms per launch of the kernel named ``name``, which ``fn``
+    launches once a call; the share of those launches the profiler kept;
+    the profile's rows) over ``reps`` calls.  Profiles again while it kept
+    fewer than ``MIN_KEPT`` of them; after ``tries`` the time is
+    ``launch_event_ms``'s."""
+    kept, rows = 0.0, []
+    for _ in range(tries):
+        rows = device_rows(torch, fn, reps)
+        kept = sum(count for _, count, key in rows if name in key)
+        if kept >= MIN_KEPT:
+            return launch_ms(rows, name), kept, rows
+    ms = launch_event_ms(torch, fn, name, reps)
+    log(f"torch.profiler kept {kept:g} of {name}'s launches per call over {reps} calls, "
+        f"{tries} times: {ms:.4f} ms per launch from launch events instead")
+    return ms, kept, rows
+
+
+def profile_kept(torch, gn, fn, reps):
+    """``device_rows`` of ``fn`` and the share of its K1 statistics launches
+    (counted by ``gn.STATS_LAUNCHES``) whose records the profiler kept:
+    below 1, busy times summed from the rows miss what it dropped."""
+    before = gn.STATS_LAUNCHES
     rows = device_rows(torch, fn, reps)
-    return (sum(ms for ms, _, key in rows if name in key),
-            sum(count for _, count, _ in rows))
+    launched = (gn.STATS_LAUNCHES - before) / reps
+    seen = sum(count for _, count, key in rows if "gn_moments" in key)
+    return rows, seen / launched if launched else 1.0
+
+
+def idle_share(busy, wall, kept):
+    """1 - busy / wall, or NaN (not measured) where the profiler kept fewer
+    than ``MIN_KEPT`` of the counted launches."""
+    return 1 - busy / wall if kept >= MIN_KEPT else float("nan")
 
 
 def log_clocks(tag: str) -> None:
@@ -191,12 +316,9 @@ def log_clocks(tag: str) -> None:
 
 
 def probe_profiler(torch, dev):
-    """Raise unless ``torch.profiler`` still sees device activity."""
+    """Log what ``torch.profiler`` records of five matmuls."""
     a = torch.randn((1024, 1024), device=dev)
-    rows = device_rows(torch, lambda: a @ a, 5)
-    if not rows:
-        raise AssertionError("torch.profiler recorded no device activity for a matmul")
-    log(f"profiler probe: {rows}")
+    log(f"profiler probe: {device_rows(torch, lambda: a @ a, 5)}")
 
 
 def bf16_ulp(ref):
@@ -216,7 +338,9 @@ def check_gn(torch, gn, dev, gen, levels=LEVELS, batch=BATCH, dtypes=("bf16", "f
     keys = ("moments_ms", "moments_event_ms", "moments_plain_ms", "moments_bound",
             "moments_library_ms", "apply_ms", "apply_event_ms", "apply_plain_ms",
             "apply_bound", "library_ms", "moments_err", "apply_err")
-    totals = {dt: dict.fromkeys(keys, 0.0) for dt in dtypes}
+    # the least share of launches the profiler kept for any time in the sum
+    totals = {dt: dict(dict.fromkeys(keys, 0.0), moments_kept=1.0, apply_kept=1.0)
+              for dt in dtypes}
     for dt_name in dtypes:
         dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dt_name]
         tot = totals[dt_name]
@@ -259,9 +383,11 @@ def check_gn(torch, gn, dev, gen, levels=LEVELS, batch=BATCH, dtypes=("bf16", "f
             esz = x.element_size()
             n_el = x.numel()
             plan = gn.plan_moments(batch, e**3, c, esz, x.data_ptr() % 16 == 0, sms)
-            t_m, launches = kernel_ms(torch, moments, "gn_moments")
-            if launches != 1:
-                rows = device_rows(torch, moments, 20)
+            # one gn_moments launch a call and nothing else (the first design of
+            # the statistics side launched 14); a record the profiler dropped reads below 1
+            t_m, kept_m, rows = kernel_ms(torch, moments, "gn_moments")
+            launches = sum(count for _, count, _ in rows)
+            if any("gn_moments" not in key for *_, key in rows) or launches > 1:
                 raise AssertionError(f"the statistics side of one GroupNorm launched "
                                      f"{launches} device activities, not 1: {rows}")
             t_me = cuda_ms(moments)
@@ -271,7 +397,8 @@ def check_gn(torch, gn, dev, gen, levels=LEVELS, batch=BATCH, dtypes=("bf16", "f
             t_sl = cuda_ms(lambda: torch.var_mean(x, dim=(2, 3, 4), correction=0))
             apply = lambda: gn.group_norm_apply(x, mean_c, mul_c, b, act="e")
             apply_r = lambda: gn.group_norm_apply(x, mean_c, mul_c, b, residual=r, act="e")
-            t_a, t_ar = kernel_ms(torch, apply, "gn_apply")[0], kernel_ms(torch, apply_r, "gn_apply")[0]
+            t_a, kept_a, _ = kernel_ms(torch, apply, "gn_apply")
+            t_ar, kept_ar, _ = kernel_ms(torch, apply_r, "gn_apply")
             t_ae, t_are = cuda_ms(apply), cuda_ms(apply_r)
             t_ap = cuda_ms(lambda: gn.group_norm_apply_plain(x, mean_c, mul_c, b, act="e"), reps=5)
             t_arp = cuda_ms(lambda: gn.group_norm_apply_plain(
@@ -282,8 +409,9 @@ def check_gn(torch, gn, dev, gen, levels=LEVELS, batch=BATCH, dtypes=("bf16", "f
             t_lib = cuda_ms(lambda: torch.nn.functional.elu(
                 torch.nn.functional.group_norm(x, GROUPS, w.to(dtype), b.to(dtype), 1e-5)))
             log(f"K1 {dt_name} level {level} {tuple(x.shape)}: moments {t_m:.4f} ms device "
-                f"(event {t_me:.4f}; plain {t_mp:.4f}, bound {b_m:.4f}, torch.var_mean "
-                f"{t_sl:.4f}), {launches} launch per GroupNorm, bulk={plan.bulk} "
+                f"(profiler kept {kept_m:g}, apply {min(kept_a, kept_ar):g} of the launches; "
+                f"event {t_me:.4f}; plain {t_mp:.4f}, bound {b_m:.4f}, torch.var_mean "
+                f"{t_sl:.4f}), {launches:g} launch per GroupNorm, bulk={plan.bulk} "
                 f"{plan.blocks} blocks/sample, max|err| {m_err:.3g}, two calls bitwise "
                 f"equal; apply+elu {t_a:.4f} ms device (event {t_ae:.4f}; plain {t_ap:.4f}, "
                 f"bound {b_a:.4f}), apply+res+elu {t_ar:.4f} (event {t_are:.4f}; plain "
@@ -303,6 +431,8 @@ def check_gn(torch, gn, dev, gen, levels=LEVELS, batch=BATCH, dtypes=("bf16", "f
             tot["library_ms"] += n_gn * t_lib
             tot["moments_err"] = max(tot["moments_err"], m_err)
             tot["apply_err"] = max(tot["apply_err"], max(errs))
+            tot["moments_kept"] = min(tot["moments_kept"], kept_m)
+            tot["apply_kept"] = min(tot["apply_kept"], kept_a, kept_ar)
             del x, r
         log(f"K1 {dt_name} per full-width forward (27 GroupNorms): moments "
             f"{tot['moments_ms']:.4f} ms device (event {tot['moments_event_ms']:.4f}; "
@@ -332,20 +462,18 @@ def check_gather(torch, P, grid_corners, dev, gen):
                                                   out_dtype=torch.bfloat16), reps=5)
     # the kernel's own device time, apart from the wrapper's host work
     reps = 20
-    rows = device_rows(torch, gather, reps)
-    t_dev = sum(ms for ms, _, name in rows if "gather" in name.lower())
+    t_dev, kept, rows = kernel_ms(torch, gather, "gather", reps)
     n_el = BATCH * int(np.prod(PATCH))
     b = bound_ms(n_el * (2 + 2), 0)
     # no one PyTorch call gathers N windows at host corners with the cast
     # fused in, so K2 has no library time
     log(f"K2 {tuple(vol.shape)} f16 -> {BATCH}x{PATCH} bf16: kernel device time "
-        f"{t_dev:.4f} ms (profiler, {reps} calls; bound {b:.4f}); {t:.4f} ms per wrapper "
-        f"call (event; plain {t_p:.4f}); byte-equal in bf16/fp32/f16, max|err| {err}")
+        f"{t_dev:.4f} ms (profiler, {reps} calls, kept {kept:g} of the launches; bound "
+        f"{b:.4f}); {t:.4f} ms per wrapper call (event; plain {t_p:.4f}); byte-equal in "
+        f"bf16/fp32/f16, max|err| {err}")
     for ms, count, name in sorted(rows, reverse=True):
-        log(f"K2 profile: {ms:8.4f} ms  x{count:<3d} {name[:100]}")
-    if t_dev == 0:
-        raise AssertionError("the profiler saw no gather kernel")
-    return dict(ms=t_dev, wrapper_ms=t, plain_ms=t_p, bound=b, err=err)
+        log(f"K2 profile: {ms:8.4f} ms  x{count:<4g} {name[:100]}")
+    return dict(ms=t_dev, wrapper_ms=t, plain_ms=t_p, bound=b, err=err, kept=kept)
 
 
 def check_forward(torch, gn, P, ResidualUNet3D, dev, gen):
@@ -399,25 +527,31 @@ def check_forward(torch, gn, P, ResidualUNet3D, dev, gen):
     return {"fp32": fp32, "bf16": bf16}, dict(fwd_ms=t_fwd, fwd_plain_ms=t_plain)
 
 
-def profile_forward(torch, model, dev, gen, reps=3):
+def profile_forward(torch, gn, model, dev, gen, reps=3):
     """Device time of one bf16 forward by kernel, from torch.profiler."""
     x = torch.randn((BATCH, 1, *PATCH), generator=gen, device=dev)
+    n_gn = sum(n for _, _, n in LEVELS)
     with torch.inference_mode():
         model(x)
-        rows = [r for r in device_rows(torch, lambda: model(x), reps)
-                if not r[2].startswith(("Memcpy", "Memset"))]
+        before = gn.STATS_LAUNCHES
+        rows, kept = profile_kept(torch, gn, lambda: model(x), reps)
+        rows = [r for r in rows if not r[2].startswith(("Memcpy", "Memset"))]
+    # one statistics launch per GroupNorm, by the counter
+    if gn.STATS_LAUNCHES - before != reps * n_gn:
+        raise AssertionError(f"forward: {(gn.STATS_LAUNCHES - before) / reps:g} gn_moments "
+                             f"launches per forward, not one per GroupNorm ({n_gn})")
+    stale = [name for _, _, name in rows if "gn_stats" in name or "gn_combine" in name]
+    if stale:
+        raise AssertionError(f"forward: the first design's statistics kernels ran: {stale}")
     total = sum(r[0] for r in rows)
     if total == 0:
         log("profile: the profiler saw no device time")
         return
     moments = [(ms, count) for ms, count, name in rows if "gn_moments" in name]
-    stale = [name for _, _, name in rows if "gn_stats" in name or "gn_combine" in name]
-    if stale or sum(count for _, count in moments) != sum(n for _, _, n in LEVELS):
-        raise AssertionError(f"forward: expected one gn_moments launch per GroupNorm, "
-                             f"got {moments} and {stale}")
     log(f"profile: statistics side per bf16 forward {sum(ms for ms, _ in moments):.4f} ms "
-        f"device in {sum(count for _, count in moments)} gn_moments launches; "
-        f"{sum(count for _, count, _ in rows)} device launches per forward")
+        f"device in {sum(count for _, count in moments):g} gn_moments launch records of "
+        f"{n_gn} launches (profiler kept {kept:g}); "
+        f"{sum(count for _, count, _ in rows):g} device launch records per forward")
     groups = {}
     for ms, _, name in rows:
         low = name.lower()
@@ -430,12 +564,14 @@ def profile_forward(torch, model, dev, gen, reps=3):
         f"{g} {ms:.3f} ms ({100 * ms / total:.1f}%)" for g, ms in
         sorted(groups.items(), key=lambda kv: -kv[1])))
     for ms, count, name in sorted(rows, reverse=True)[:12]:
-        log(f"profile:   {ms:8.3f} ms  x{count:<4d} {name[:110]}")
+        log(f"profile:   {ms:8.3f} ms  x{count:<4g} {name[:110]}")
 
 
-def tie_band_margin(torch, gn, P, model, vol, grid_corners, dev):
+def tie_band_margin(torch, gn, P, model, vol, grid_corners, dev, classes=slice(None)):
     """The plain path's top-2 logit margin at every voxel of ``vol``'s mask,
-    and max |kernel - plain| over its tiles' logits.
+    and max |kernel - plain| over its tiles' logits, both over the output
+    channels ``classes`` (a landmark model's class logits follow its
+    heatmaps).
 
     Tiles, batches (the tail repeats the last corner) and cores are those of
     ``predict_volumes_on_device``, so each voxel's margin is that of the
@@ -457,9 +593,9 @@ def tie_band_margin(torch, gn, P, model, vol, grid_corners, dev):
         batch = corners[i:i + BATCH]
         tiles = P.extract_patches_plain(v, batch, PATCH, out_dtype=model.config.dtype)
         tiles = tiles.permute(0, 4, 1, 2, 3)
-        y = model(tiles)
+        y = model(tiles)[:, classes]
         with plain_kernels(gn, P):
-            y_p = model(tiles)
+            y_p = model(tiles)[:, classes]
         err = max(err, float((y - y_p).abs().max()))
         top2 = y_p.float().topk(2, dim=1).values
         m = top2[:, 0] - top2[:, 1]
@@ -519,10 +655,11 @@ def run_slice(torch, gn, P, models, grid_corners, dev):
     log(f"slice bf16: {len(keys)} volumes per call, {len(walls)} calls: "
         f"{' '.join(f'{w:.4f}' for w in walls)} s; median {wall:.4f} s = "
         f"{len(keys) / wall * 60.0:.2f} volumes/min (min {min(vpm):.2f}, max {max(vpm):.2f})")
-    rows = device_rows(torch, lambda: predict(tasks["bf16"]), 1)
+    rows, kept = profile_kept(torch, gn, lambda: predict(tasks["bf16"]), 1)
     busy = sum(ms for ms, _, _ in rows) / 1e3
-    log(f"slice bf16: device busy {busy:.4f} s per call (profiler, kernels and copies); "
-        f"idle share {1 - busy / wall:.4f} of the median call")
+    idle = idle_share(busy, wall, kept)
+    log(f"slice bf16: device busy {busy:.4f} s per call (profiler, kernels and copies; it "
+        f"kept {kept:g} of the gn_moments launches); idle share {idle:.4f} of the median call")
 
     got["fp32"] = predict(tasks["fp32"])
     agreement = {}
@@ -553,7 +690,8 @@ def run_slice(torch, gn, P, models, grid_corners, dev):
         agreement[dt] = agree / total
         log(f"slice {dt}: voxel agreement with the plain path {agreement[dt]:.6f}")
     return counts, dict(volumes_per_min=len(keys) / wall * 60.0, seconds=walls,
-                        device_busy_s=busy, n_batches=n_batches, agreement=agreement)
+                        device_busy_s=busy, idle_share=idle, profiler_kept=kept,
+                        n_batches=n_batches, agreement=agreement)
 
 
 def backward_errors(torch, got, ref):
@@ -593,7 +731,7 @@ def check_gn_backward(torch, gn, dev, gen, levels=LEVELS,
     for dt_name, batch in configs:
         dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dt_name]
         tot = dict(reduce_ms=0.0, apply_ms=0.0, reduce_bound=0.0, apply_bound=0.0,
-                   plain_ms=0.0, library_ms=0.0, err=0.0)
+                   plain_ms=0.0, library_ms=0.0, err=0.0, reduce_kept=1.0, apply_kept=1.0)
         for level, (c, e, n_gn) in enumerate(levels):
             shape = (batch, e, e, e, c)
             act = lambda: torch.randn(shape, generator=gen, device=dev).to(dtype).permute(
@@ -620,8 +758,10 @@ def check_gn_backward(torch, gn, dev, gen, levels=LEVELS,
                 if not all(u is None or torch.equal(u, v) for u, v in zip(got, again)):
                     raise AssertionError(f"gn_bwd {dt_name} level {level}: two calls differ")
                 del got, again, ref
-                t_r = kernel_ms(torch, bwd, "gn_bwd_reduce", reps=10)[0]
-                t_a = kernel_ms(torch, bwd, "gn_bwd_apply", reps=10)[0]
+                t_r, kept_r, _ = kernel_ms(torch, bwd, "gn_bwd_reduce", reps=10)
+                t_a, kept_a, _ = kernel_ms(torch, bwd, "gn_bwd_apply", reps=10)
+                tot["reduce_kept"] = min(tot["reduce_kept"], kept_r)
+                tot["apply_kept"] = min(tot["apply_kept"], kept_a)
                 t_p = cuda_ms(lambda: gn.group_norm_backward_plain(
                     x, dy, stats.mean, stats.rstd, w, b, GROUPS, res, GN_ACT),
                     reps=3, warmup=1)
@@ -644,7 +784,8 @@ def check_gn_backward(torch, gn, dev, gen, levels=LEVELS,
                                 lib=t_lib, err=max(errs.values()))
                 log(f"K1 backward {dt_name} level {level} {tuple(x.shape)} residual="
                     f"{res is not None}: reduce {t_r:.4f} ms device (bound {b_r:.4f}), "
-                    f"apply {t_a:.4f} ms (bound {b_a:.4f}); plain {t_p:.4f} ms; "
+                    f"apply {t_a:.4f} ms (bound {b_a:.4f}); profiler kept {kept_r:g} and "
+                    f"{kept_a:g} of the launches; plain {t_p:.4f} ms; "
                     f"F.group_norm+F.elu autograd {t_lib:.4f} ms; max|err| {errs}; "
                     "two calls bitwise equal")
             # one train step: n_gn GroupNorms, a third of them with the residual
@@ -678,18 +819,18 @@ def check_gather_indexed(torch, P, sampler, batch):
         if got.shape != ref.shape or not torch.equal(got.view(-1).view(torch.uint8),
                                                      ref.view(-1).view(torch.uint8)):
             raise AssertionError(f"indexed gather {name}: not byte-equal to plain")
-        t_dev = kernel_ms(torch, gather, "gather", reps=20)[0]
+        t_dev, kept, _ = kernel_ms(torch, gather, "gather", reps=20)
         t_p = cuda_ms(lambda: P.extract_patches_plain(store, corners, patch, subjects=subj),
                       reps=3, warmup=1)
         n_bytes = 2 * got.numel() * got.element_size() + 16 * len(corners)
-        res[name] = dict(ms=t_dev, plain_ms=t_p, bound=bound_ms(n_bytes, 0))
+        res[name] = dict(ms=t_dev, plain_ms=t_p, bound=bound_ms(n_bytes, 0), kept=kept)
         log(f"K2 indexed {name} store {tuple(store.shape)} {store.dtype} -> "
-            f"{tuple(got.shape)}: {t_dev:.4f} ms device (bound {res[name]['bound']:.4f}); "
-            f"plain {t_p:.4f} ms; byte-equal")
+            f"{tuple(got.shape)}: {t_dev:.4f} ms device (profiler kept {kept:g} of the "
+            f"launches; bound {res[name]['bound']:.4f}); plain {t_p:.4f} ms; byte-equal")
     return dict(ms=res["image"]["ms"] + res["label"]["ms"],
                 plain_ms=res["image"]["plain_ms"] + res["label"]["plain_ms"],
                 bound=res["image"]["bound"] + res["label"]["bound"], err=0.0,
-                per_store=res)
+                kept=min(r["kept"] for r in res.values()), per_store=res)
 
 
 def check_train_parity(torch, gn, P, models, dev, gen):
@@ -833,8 +974,9 @@ def run_training(torch, gn, P, dev):
         f"{peak / 2**30:.2f} GiB; losses {' '.join(f'{v:.4f}' for v in losses)}")
 
     reps = 2
-    rows = device_rows(torch, lambda: step(state, next(feed)), reps)
+    rows, kept = profile_kept(torch, gn, lambda: step(state, next(feed)), reps)
     busy = sum(ms for ms, _, _ in rows)
+    idle = idle_share(busy, median, kept)
     groups = step_groups(rows)
     logits = torch.randn((TRAIN_BATCH, 2, *PATCH), device=dev, requires_grad=True)
     label = next(feed)["label"]
@@ -844,13 +986,13 @@ def run_training(torch, gn, P, dev):
         loss.backward()
 
     loss_ms = sum(ms for ms, _, _ in device_rows(torch, loss_pass, reps))
-    log(f"training profile: device time per step {busy:.3f} ms; idle share "
-        f"{1 - busy / median:.4f} of the median step; " + ", ".join(
-            f"{g} {ms:.3f} ms ({100 * ms / busy:.1f}%)"
+    log(f"training profile: device time per step {busy:.3f} ms (profiler kept {kept:g} of "
+        f"the gn_moments launches); idle share {idle:.4f} of the median step; " + ", ".join(
+            f"{g} {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)"
             for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
         + f"; the Dice loss forward+backward alone {loss_ms:.3f} ms (inside 'other')")
     for ms, count, name in sorted(rows, reverse=True)[:12]:
-        log(f"training profile:   {ms:8.3f} ms  x{count:<4d} {name[:110]}")
+        log(f"training profile:   {ms:8.3f} ms  x{count:<4g} {name[:110]}")
 
     fixed = next(feed)
     plain_step = make_train_step(task)
@@ -862,7 +1004,7 @@ def run_training(torch, gn, P, dev):
         raise AssertionError("training: the loss on a fixed batch did not fall")
     return counts, k2, dict(patches_per_s=TRAIN_BATCH / median * 1e3, step_ms=step_ms,
                             median_step_ms=median, peak_memory_bytes=peak,
-                            device_ms_per_step=busy, idle_share=1 - busy / median,
+                            device_ms_per_step=busy, idle_share=idle, profiler_kept=kept,
                             groups=groups, loss_ms=loss_ms, losses=losses,
                             fixed_batch_losses=fixed_losses)
 
@@ -923,6 +1065,112 @@ def read_metrics(path: Path):
     return [json.loads(line) for line in path.read_text().splitlines()]
 
 
+class CliRecorder:
+    """Runs the CLIs' ``main(argv)`` in this process, so the launch counters
+    see them, and records by run tag: the wall seconds and the launch counts
+    after each run, the device's idle share over the epochs in ``profiled``
+    ({(tag, epoch)}), every checkpoint save and stitch call, and the
+    training samplers for which ``capture(tag, sampler)`` holds; by wrapping
+    the Trainer's, the samplers', the checkpoint manager's and the
+    stitches' own functions inside ``wrappers()``."""
+
+    def __init__(self, torch, gn, P, profiled, capture, label):
+        self.torch, self.gn, self.P = torch, gn, P
+        self.profiled, self.capture, self.label = profiled, capture, label
+        self.tag = None
+        self.profiles, self.saves, self.stitches = {}, [], []
+        self.snapshots, self.walls, self.samplers = {}, {}, []
+
+    def wrappers(self) -> contextlib.ExitStack:
+        from tpu_mednet_torch.data import DevicePatchSampler
+        from tpu_mednet_torch.inference import device_sliding, sliding_window
+        from tpu_mednet_torch.train import CheckpointManager, Trainer
+
+        rec, torch = self, self.torch
+
+        def profiled_epoch(orig):
+            def train_epoch(self, epoch):
+                if (rec.tag, epoch) not in rec.profiled:
+                    return orig(self, epoch)
+                box = {}
+
+                def go():
+                    t = time.perf_counter()
+                    box["out"] = orig(self, epoch)  # ends in a synchronize
+                    box["wall"] = time.perf_counter() - t
+
+                rows, kept = profile_kept(torch, rec.gn, go, 1)
+                busy = sum(ms for ms, _, _ in rows) / 1e3
+                rec.profiles[rec.tag] = dict(epoch=epoch, seconds=box["wall"],
+                                             device_busy_s=busy, profiler_kept=kept,
+                                             idle_share=idle_share(busy, box["wall"], kept))
+                return box["out"]
+            return train_epoch
+
+        def captured(orig):
+            def __init__(self, *args, **kw):
+                orig(self, *args, **kw)
+                if rec.capture(rec.tag, self):
+                    rec.samplers.append(self)
+            return __init__
+
+        def timed_save(orig):
+            def save(self, step, state, hparams=None):
+                t = time.perf_counter()
+                orig(self, step, state, hparams)
+                seconds = time.perf_counter() - t
+                files = (self.directory / str(int(step))).iterdir()
+                rec.saves.append(dict(run=rec.tag, best=self.directory.name == "best",
+                                      step=int(step), seconds=seconds,
+                                      bytes=sum(f.stat().st_size for f in files)))
+            return save
+
+        def timed_stitch(orig):
+            def stitch(task, data_path, keys, *args, **kw):
+                t = time.perf_counter()
+                out = orig(task, data_path, keys, *args, **kw)  # host masks: synchronous
+                rec.stitches.append(dict(run=rec.tag, volumes=len(keys),
+                                         seconds=time.perf_counter() - t))
+                return out
+            return stitch
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(wrapped(Trainer, "train_epoch", profiled_epoch))
+        stack.enter_context(wrapped(DevicePatchSampler, "__init__", captured))
+        stack.enter_context(wrapped(CheckpointManager, "save", timed_save))
+        stack.enter_context(wrapped(sliding_window, "predict_volumes", timed_stitch))
+        stack.enter_context(wrapped(device_sliding, "predict_volumes_on_device",
+                                    timed_stitch))
+        return stack
+
+    def cli(self, tag, main, argv):
+        self.tag = tag
+        t = time.perf_counter()
+        rc = main(argv)
+        self.torch.cuda.synchronize()
+        self.walls[tag] = time.perf_counter() - t
+        self.snapshots[tag] = launch_counts(self.gn, self.P)
+        log(f"{self.label}: {tag}: exit code {rc} in {self.walls[tag]:.2f} s")
+        if rc != 0:
+            raise AssertionError(f"{self.label}: {tag} exited with {rc}")
+
+    def per_run(self, counts):
+        """Launches by run: each snapshot less the one before, from 0."""
+        out, prev = {}, dict.fromkeys(counts, 0)
+        for tag, snap in self.snapshots.items():
+            out[tag] = {k: snap[k] - prev[k] for k in snap}
+            prev = snap
+        return out
+
+    def vpm(self, prefix):
+        """Volumes/min of each stitch call of the runs whose tag starts with
+        ``prefix``: median, min, max and the calls."""
+        calls = [s["volumes"] / s["seconds"] * 60 for s in self.stitches
+                 if s["run"].startswith(prefix)]
+        return dict(median=float(np.median(calls)), min=min(calls), max=max(calls),
+                    calls=calls)
+
+
 def run_entry_points(torch, gn, P, grid_corners, dev):
     """The entry points as a user runs them, in this process so the launch
     counters see them: ``train_seg -c configs/seg_organ.yaml`` for 2 epochs
@@ -932,78 +1180,22 @@ def run_entry_points(torch, gn, P, grid_corners, dev):
     ``crop`` and ``device`` stitches, ``PREDICT_TURNS`` calls of each in
     turns.  Patches/s per epoch are the Trainer's own (``metrics.jsonl``);
     the epochs in ``PROFILED_EPOCHS`` are profiled for the device's idle
-    share, and checkpoint saves and stitches are timed, by wrapping the
-    Trainer's, the checkpoint manager's and the stitches' own functions.
+    share, and checkpoint saves and stitches are timed (``CliRecorder``).
     After the runs, indexed K2 is held against its plain version on the
     device-sampler run's own training sampler (128^3 windows, batch 4)."""
     import tempfile
     from types import SimpleNamespace
 
     from tpu_mednet_torch.cli import predict, train_seg
-    from tpu_mednet_torch.data import DevicePatchSampler, ZarrReader
-    from tpu_mednet_torch.inference import device_sliding, sliding_window
+    from tpu_mednet_torch.data import ZarrReader
     from tpu_mednet_torch.tasks import SegmentationTask
-    from tpu_mednet_torch.train import CheckpointManager, Trainer, load_for_inference
+    from tpu_mednet_torch.train import CheckpointManager, load_for_inference
 
-    run = {"tag": None}
-    profiles, saves, stitches, snapshots, walls, samplers = {}, [], [], {}, {}, []
-
-    def profiled_epoch(orig):
-        def train_epoch(self, epoch):
-            if (run["tag"], epoch) not in PROFILED_EPOCHS:
-                return orig(self, epoch)
-            box = {}
-
-            def go():
-                t = time.perf_counter()
-                box["out"] = orig(self, epoch)  # ends in a synchronize
-                box["wall"] = time.perf_counter() - t
-
-            busy = sum(ms for ms, _, _ in device_rows(torch, go, 1)) / 1e3
-            if not busy:
-                raise AssertionError(f"{run['tag']}: the profiler saw no device time")
-            profiles[run["tag"]] = dict(epoch=epoch, seconds=box["wall"], device_busy_s=busy,
-                                        idle_share=1 - busy / box["wall"])
-            return box["out"]
-        return train_epoch
-
-    def captured(orig):
-        def __init__(self, *args, **kw):
-            orig(self, *args, **kw)
-            if run["tag"] == "device_sampler" and list(self.subject_keys) == ORGAN_SPLITS["train"]:
-                samplers.append(self)
-        return __init__
-
-    def timed_save(orig):
-        def save(self, step, state, hparams=None):
-            t = time.perf_counter()
-            orig(self, step, state, hparams)
-            seconds = time.perf_counter() - t
-            files = (self.directory / str(int(step))).iterdir()
-            saves.append(dict(run=run["tag"], best=self.directory.name == "best",
-                              step=int(step), seconds=seconds,
-                              bytes=sum(f.stat().st_size for f in files)))
-        return save
-
-    def timed_stitch(orig):
-        def stitch(task, data_path, keys, *args, **kw):
-            t = time.perf_counter()
-            out = orig(task, data_path, keys, *args, **kw)  # host masks: synchronous
-            stitches.append(dict(run=run["tag"], volumes=len(keys),
-                                 seconds=time.perf_counter() - t))
-            return out
-        return stitch
-
-    def cli(tag, main, argv):
-        run["tag"] = tag
-        t = time.perf_counter()
-        rc = main(argv)
-        torch.cuda.synchronize()
-        walls[tag] = time.perf_counter() - t
-        snapshots[tag] = launch_counts(gn, P)
-        log(f"entry points: {tag}: exit code {rc} in {walls[tag]:.2f} s")
-        if rc != 0:
-            raise AssertionError(f"entry points: {tag} exited with {rc}")
+    rec = CliRecorder(torch, gn, P, PROFILED_EPOCHS, lambda tag, sampler: (
+        tag == "device_sampler" and list(sampler.subject_keys) == ORGAN_SPLITS["train"]),
+        "entry points")
+    cli, profiles, saves, walls, samplers = (rec.cli, rec.profiles, rec.saves, rec.walls,
+                                             rec.samplers)
 
     spe = ORGAN_STEPS_PER_EPOCH
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1014,13 +1206,7 @@ def run_entry_points(torch, gn, P, grid_corners, dev):
             f"({', '.join(f'{k} {s}' for k, s in ORGAN_SUBJECTS)}) in "
             f"{time.perf_counter() - t0:.1f} s")
         organ = root / "seg_organ"
-        with contextlib.ExitStack() as stack:
-            stack.enter_context(wrapped(Trainer, "train_epoch", profiled_epoch))
-            stack.enter_context(wrapped(DevicePatchSampler, "__init__", captured))
-            stack.enter_context(wrapped(CheckpointManager, "save", timed_save))
-            stack.enter_context(wrapped(sliding_window, "predict_volumes", timed_stitch))
-            stack.enter_context(wrapped(device_sliding, "predict_volumes_on_device",
-                                        timed_stitch))
+        with rec.wrappers():
             torch.cuda.empty_cache()
             base_memory = torch.cuda.memory_allocated(dev)
             reset_counts(gn, P)
@@ -1046,10 +1232,7 @@ def run_entry_points(torch, gn, P, grid_corners, dev):
         # launches: every kernel of the path ran, K1's backward once per step
         # of the four training runs, K2 indexed only under the device sampler
         # and plain only in the device stitch
-        per_run, prev = {}, dict.fromkeys(counts, 0)
-        for tag, snap in snapshots.items():
-            per_run[tag] = {k: snap[k] - prev[k] for k in snap}
-            prev = snap
+        per_run = rec.per_run(counts)
         train_steps = spe * (2 + 1 + 3 + 1)
         gather = {tag: c["gather_patches"] for tag, c in per_run.items()}
         indexed = gather["device_sampler"] + gather["options"]
@@ -1149,20 +1332,16 @@ def run_entry_points(torch, gn, P, grid_corners, dev):
             + " ".join(f"{v:.2f}" for v in values))
     for tag, p in profiles.items():
         log(f"entry points: profiled epoch {tag}/{p['epoch']}: {p['seconds']:.3f} s, device "
-            f"busy {p['device_busy_s']:.3f} s, idle share {p['idle_share']:.4f}")
+            f"busy {p['device_busy_s']:.3f} s (profiler kept {p['profiler_kept']:g} of the "
+            f"gn_moments launches), idle share {p['idle_share']:.4f}")
     for s in saves:
         log(f"entry points: save {s['run']} {'best ' if s['best'] else ''}step {s['step']}: "
             f"{s['bytes'] / 1e9:.3f} GB in {s['seconds']:.3f} s")
-    for s in stitches:
+    for s in rec.stitches:
         log(f"entry points: {s['run']}: {s['volumes']} volumes stitched in "
             f"{s['seconds']:.3f} s = {s['volumes'] / s['seconds'] * 60:.2f} volumes/min; "
             f"the whole CLI call {walls[s['run']]:.3f} s")
-    vpm = {}
-    for st in ("crop", "device"):
-        calls = [s["volumes"] / s["seconds"] * 60 for s in stitches
-                 if s["run"].startswith(f"predict_{st}_")]
-        vpm[st] = dict(median=float(np.median(calls)), min=min(calls), max=max(calls),
-                       calls=calls)
+    vpm = {st: rec.vpm(f"predict_{st}_") for st in ("crop", "device")}
     main_saves = [s["seconds"] for s in saves if s["run"] == "train" and not s["best"]]
     summary = dict(
         host_sampler_patches_per_s=pps["seg_organ"][1],
@@ -1185,7 +1364,7 @@ def run_entry_points(torch, gn, P, grid_corners, dev):
             for st, v in vpm.items()))
     return counts, dict(per_run=per_run, indexed=indexed, plain=plain, check_128=k2_128), dict(
         summary=summary, patches_per_s_by_epoch=pps, profiled_epochs=profiles, saves=saves,
-        stitches=stitches, cli_seconds=walls, agreement=agreement, dice=dice,
+        stitches=rec.stitches, cli_seconds=walls, agreement=agreement, dice=dice,
         gather_indexed_128=k2_128["per_store"])
 
 
@@ -1228,7 +1407,422 @@ def guard_cost(torch, dev):
     return dict(off_ms=times[False], on_ms=times[True], cost_ms=on - off)
 
 
-def main() -> int:
+def check_landmark_parity(torch, gn, P, dev, gen):
+    """The landmark model at configs/landmarks.yaml width (f_maps 64, 3
+    heatmaps + 2 classes, 141,246,661 parameters), kernel path against
+    plain path at batch 4 of 96^3: the forward's heatmap channels and class
+    logits in fp32 (TF32 off) and bf16, under the forward's limits, class
+    flips only inside the tie band; one bf16 train step through
+    ``LandmarkTask.loss_fn``: every parameter's gradient non-zero, and
+    per parameter max |dg| / max |g| and the loss's relative difference
+    within the bf16 train-step bound; then ``FIXED_BATCH_STEPS`` train steps
+    on that batch at each lr of ``FIXED_BATCH_LRS`` on both paths, whose
+    losses must agree step by step within that bound and fall at the lowest
+    lr."""
+    from types import SimpleNamespace
+
+    from tpu_mednet_torch.ops.heatmap import batched_gaussian_heatmaps
+    from tpu_mednet_torch.tasks import LandmarkTask
+    from tpu_mednet_torch.train import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False  # the fp32 forward limit holds without TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    hp = SimpleNamespace(in_channels=1, out_channels=LDMK_HEATMAPS + 2, fmaps=64, bf16=False,
+                         loss_regression_weight=[0.015] * LDMK_HEATMAPS, loss_class="DICE",
+                         loss_class_weight=[0.05, 1.0], loss_regression="L2")
+    tasks = {"fp32": LandmarkTask.from_hparams(hp, device=dev,
+                                               generator=torch.Generator().manual_seed(0))}
+    n_params = sum(p.numel() for p in tasks["fp32"].model.parameters())
+    log(f"landmarks: ResidualUNet3D(1, 5, f_maps=64) parameters: {n_params}")
+    if n_params != LDMK_PARAMS:
+        raise AssertionError(f"expected {LDMK_PARAMS} parameters")
+    hp.bf16 = True
+    tasks["bf16"] = LandmarkTask.from_hparams(hp, device=dev)
+    tasks["bf16"].model.load_state_dict(tasks["fp32"].model.state_dict())
+
+    coords = torch.rand((LDMK_BATCH, LDMK_HEATMAPS, 3), generator=gen, device=dev) * 80 + 8
+    hm = batched_gaussian_heatmaps(coords, PATCH, LDMK_SIGMA).to(torch.uint8)
+    cls = torch.zeros((LDMK_BATCH, 1, *PATCH), dtype=torch.uint8, device=dev)
+    cls[:, :, 20:70, 30:80, 10:60] = 1
+    x = torch.randn((LDMK_BATCH, 1, *PATCH), generator=gen, device=dev)
+    x = x + cls + hm.amax(dim=1, keepdim=True) / 255.0
+    batch = {"data": x, "label": torch.cat([hm, cls], dim=1)}
+    out = {}
+    h = LDMK_HEATMAPS
+    with torch.inference_mode():
+        for dt, task in tasks.items():
+            y = task.model(x).float()
+            with plain_kernels(gn, P):
+                y_p = task.model(x).float()
+            errs = {}
+            for part, sl in (("heatmaps", slice(0, h)), ("class logits", slice(h, None))):
+                err = float((y[:, sl] - y_p[:, sl]).abs().max())
+                scale = float(y_p[:, sl].abs().max())
+                bound = FWD_FP32_ATOL if dt == "fp32" else FWD_BF16_REL * scale
+                errs[part] = dict(err=err, max_abs=scale, bound=bound)
+                if not (torch.isfinite(y[:, sl]).all() and err <= bound):
+                    raise AssertionError(f"landmarks forward {dt} {part}: max|kernel - plain| "
+                                         f"{err} above {bound}")
+            err_c = errs["class logits"]["err"]
+            margin = (y_p[:, h] - y_p[:, h + 1]).abs()
+            flips = y[:, h:].argmax(dim=1) != y_p[:, h:].argmax(dim=1)
+            if bool((flips & (margin > 2 * err_c)).any()):
+                raise AssertionError(f"landmarks forward {dt}: a class flipped outside the "
+                                     "tie band")
+            out[f"forward_{dt}"] = dict(errs, class_flips=float(flips.float().mean()))
+            log(f"landmarks forward {dt} {tuple(y.shape)}: " + "; ".join(
+                f"{k} max|kernel - plain| {v['err']:.3g} (bound {v['bound']:.3g}, max|plain| "
+                f"{v['max_abs']:.3g})" for k, v in errs.items())
+                + f"; class flips {float(flips.float().mean()):.6f}, all within the tie band")
+            del y, y_p
+    del tasks["fp32"]
+    torch.cuda.empty_cache()
+
+    task = tasks["bf16"]
+    model = task.model
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, aux = task.loss_fn(model(x), batch)
+        loss.backward()
+        return float(loss.detach()), {k: p.grad for k, p in model.named_parameters()}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss, g = grads()
+    peak = torch.cuda.max_memory_allocated(dev)
+    with plain_kernels(gn, P):
+        loss_p, g_p = grads()
+    zero = [k for k, v in g.items() if v is None or not bool(v.abs().max() > 0)]
+    if zero:
+        raise AssertionError(f"landmarks train parity: no gradient on the kernel path for {zero}")
+    rel = {k: float((g[k] - g_p[k]).abs().max()) / float(g_p[k].abs().max()) for k in g}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss - loss_p) / abs(loss_p)
+    out["train_bf16"] = dict(loss=loss, loss_plain=loss_p, loss_rel=loss_rel,
+                             worst_param=worst, worst_rel=rel[worst], params=len(rel),
+                             peak_memory_bytes=peak)
+    log(f"landmarks train parity bf16 batch {LDMK_BATCH}: loss kernel {loss:.6f} plain "
+        f"{loss_p:.6f} (relative {loss_rel:.3g}); every one of {len(rel)} parameters has a "
+        f"non-zero gradient; max over parameters of max|dg|/max|g| {rel[worst]:.3g} "
+        f"({worst}; bound {PARITY_REL['bf16']}); kernel-path step peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    if loss_rel > PARITY_REL["bf16"] or rel[worst] > PARITY_REL["bf16"]:
+        raise AssertionError("landmarks train parity: kernel path disagrees with plain path")
+    model.zero_grad(set_to_none=True)
+    del g, g_p
+
+    # FIXED_BATCH_STEPS train steps on this batch at each lr of
+    # FIXED_BATCH_LRS, on the kernel path and on the plain path from the same
+    # weights and a fresh Adam: the kernel path's loss stays within the bf16
+    # train-step bound of the plain path's at every step (a fault in K1's
+    # backward that builds up over Adam steps would part them), and at the
+    # lowest lr both fall (a CLI run logs one batch's loss an epoch, and
+    # whether a patch holds a landmark moves it more than ten steps do)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step = make_train_step(task)
+    curves = {}
+    for lr in FIXED_BATCH_LRS:
+        for path in ("kernel", "plain"):
+            model.load_state_dict(init)
+            state = create_train_state(model, learning_rate=lr, seed=0)
+            with plain_kernels(gn, P) if path == "plain" else contextlib.nullcontext():
+                curves[(lr, path)] = [float(step(state, batch)[1]["train_loss"])
+                                      for _ in range(FIXED_BATCH_STEPS)]
+            log(f"landmarks: loss on one fixed batch over {FIXED_BATCH_STEPS} train steps, "
+                f"{path} path, lr {lr:g}: {' '.join(f'{v:.4f}' for v in curves[(lr, path)])}")
+        got, ref = curves[(lr, "kernel")], curves[(lr, "plain")]
+        rel = max(abs(u - v) / abs(v) for u, v in zip(got, ref))
+        log(f"landmarks: lr {lr:g}, max over steps of |kernel - plain| / |plain| {rel:.3g} "
+            f"(bound {PARITY_REL['bf16']})")
+        if not (all(np.isfinite(got)) and rel <= PARITY_REL["bf16"]):
+            raise AssertionError(f"landmarks: at lr {lr:g} the kernel path's fixed-batch "
+                                 "losses part from the plain path's")
+    del init, state
+    lo = min(FIXED_BATCH_LRS)
+    if not all(curves[(lo, p)][-1] < curves[(lo, p)][0] for p in ("kernel", "plain")):
+        raise AssertionError(f"landmarks: the loss on a fixed batch did not fall at lr {lo:g}")
+    out["fixed_batch_losses"] = {f"{path}_lr{lr:g}": v for (lr, path), v in curves.items()}
+    return out
+
+
+def write_landmark_store(root: Path) -> None:
+    """Six seeded subjects in ``root/landmarks.zarr``: a class-1 ellipsoid in
+    noise, three fractional landmarks per subject (``landmarks``, (3, 3)
+    fp32), their Gaussians at sigma 4 (``gaussian_heatmap`` on the host) as
+    a uint8 ``heatmaps`` group (0..255), the image brighter inside the ellipsoid and at the landmarks;
+    images fp32 with an affine; and the key files."""
+    import torch
+
+    from tpu_mednet_torch.data import zarrlite
+    from tpu_mednet_torch.ops.heatmap import gaussian_heatmap
+
+    rng = np.random.default_rng(3)
+    z = zarrlite.open(str(root / "landmarks.zarr"), mode="w")
+    for key, shape in LDMK_SUBJECTS:
+        grid = np.ogrid[tuple(slice(0, s) for s in shape)]
+        centre = np.asarray(shape) / 2 + rng.uniform(-10, 10, size=3)
+        radii = rng.uniform(20, 32, size=3)
+        lbl = (sum(((g - m) / r) ** 2 for g, m, r in zip(grid, centre, radii)) <= 1)
+        coords = (rng.uniform(0.15, 0.85, size=(LDMK_HEATMAPS, 3)) * shape).astype(np.float32)
+        hm = gaussian_heatmap(torch.from_numpy(coords), shape, LDMK_SIGMA).to(torch.uint8).numpy()
+        img = rng.normal(0.0, 0.5, size=shape) + 0.75 * lbl + 1.5 * hm.max(axis=0) / 255.0
+        arr = z.require_group("images").create_dataset(
+            key, data=img[None].astype(np.float32), compressor=None)
+        arr.attrs["affine"] = np.diag([0.8, 0.8, 1.5, 1.0])
+        z.require_group("labels").create_dataset(key, data=lbl[None].astype(np.uint8),
+                                                 compressor=None)
+        z.require_group("heatmaps").create_dataset(key, data=hm, compressor=None)
+        z.require_group("landmarks").create_dataset(key, data=coords, compressor=None)
+    for split, keys in LDMK_SPLITS.items():
+        (root / f"ldmk_{split}.txt").write_text("\n".join(keys) + "\n")
+
+
+def ldmk_train_argv(root: Path, name: str, epochs: int, *extra):
+    if "--resume" in extra:
+        extra = (*extra, str(root / name))
+    return ["-c", str(HERE / "configs" / "landmarks.yaml"),
+            "--data_path", str(root / "landmarks.zarr"),
+            "--train_set", str(root / "ldmk_train.txt"), "--val_set", str(root / "ldmk_val.txt"),
+            "--model_dir", str(root / name), "--log_dir", str(root / name / "logs"),
+            "--max_epochs", str(epochs), *extra]
+
+
+def ldmk_predict_argv(root: Path, stitch: str):
+    return ["-c", str(HERE / "configs" / "predict.yaml"),
+            f"base.data={root / 'landmarks.zarr'}",
+            f"base.sigma={[LDMK_SIGMA] * LDMK_HEATMAPS}",
+            f"prediction.test_set={root / 'ldmk_test.txt'}",
+            f"prediction.checkpoint={root / 'ldmk' / 'best'}",
+            f"prediction.data={root / f'ldmk_prediction_{stitch}.zarr'}",
+            f"prediction.landmarks={root / f'ldmk_landmarks_{stitch}.json'}",
+            "prediction.model=LandmarkNet", f"prediction.stitch={stitch}"]
+
+
+def run_landmarks(torch, gn, P, grid_corners, dev):
+    """The landmark workload as a user runs it, launches counted from 0:
+    ``train_ldmks -c configs/landmarks.yaml`` (``LDMK_RUNS``: the host
+    sampler on the stored heatmaps for 2 epochs, ``--resume`` to 3; 2 epochs
+    with ``--device_sampler``; 2 with ``--device_sampler --landmark_group``),
+    then LandmarkNet ``predict`` on ``best/`` with both stitches in turns,
+    writing ``prediction.landmarks`` as JSON.  Checks: finite losses, a
+    later epoch's logged loss below the first (each is one batch's; a fixed
+    batch's descent is held in ``check_landmark_parity``), the metric
+    names, checkpoint steps and ``best/``; heatmap
+    channels of the two stitches within 1 of each other and class maps
+    apart only inside the tie band; 3 landmarks per subject inside the
+    volume; then indexed K2 byte-equal to plain on the device-sampler run's
+    own 4-channel label store."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from tpu_mednet_torch.cli import predict, train_ldmks
+    from tpu_mednet_torch.data import ZarrReader
+    from tpu_mednet_torch.inference.serving import detect_task_name
+    from tpu_mednet_torch.tasks import LandmarkTask
+    from tpu_mednet_torch.train import CheckpointManager, load_for_inference
+
+    rec = CliRecorder(torch, gn, P, LDMK_PROFILED, lambda tag, sampler: (
+        tag == "ldmk_device" and list(sampler.subject_keys) == LDMK_SPLITS["train"]),
+        "landmarks")
+    spe = LDMK_STEPS_PER_EPOCH
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ldmk_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_landmark_store(root)
+        log(f"landmarks: seeded zarr store of {len(LDMK_SUBJECTS)} subjects "
+            f"({', '.join(f'{k} {s}' for k, s in LDMK_SUBJECTS)}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        peaks, predict_tags = {}, []
+        with rec.wrappers():
+            torch.cuda.empty_cache()
+            base_memory = torch.cuda.memory_allocated(dev)
+            reset_counts(gn, P)
+            for tag, name, epochs, extra in LDMK_RUNS:
+                torch.cuda.reset_peak_memory_stats(dev)
+                rec.cli(tag, train_ldmks.main, ldmk_train_argv(root, name, epochs, *extra))
+                peaks[tag] = torch.cuda.max_memory_allocated(dev)
+                if tag == "ldmk_train":
+                    steps_after_train = CheckpointManager(root / name).available_steps
+            for turn in range(1, LDMK_PREDICT_TURNS + 1):
+                for stitch in ("crop", "device"):
+                    predict_tags.append(f"ldmk_predict_{stitch}_{turn}")
+                    rec.cli(predict_tags[-1], predict.main, ldmk_predict_argv(root, stitch))
+            counts = launch_counts(gn, P)
+
+        # launches: K1's backward once per step of the four runs, K2 indexed
+        # only under the device sampler and plain only in the device stitch
+        per_run = rec.per_run(counts)
+        train_steps = spe * sum(e - (2 if "--resume" in x else 0) for _, _, e, x in LDMK_RUNS)
+        gather = {tag: c["gather_patches"] for tag, c in per_run.items()}
+        indexed = gather["ldmk_device"] + gather["ldmk_landmarks"]
+        plain = sum(gather[t] for t in predict_tags if "device" in t)
+        log(f"landmarks: launches {counts}; by run {per_run}")
+        if (counts["gn_bwd_reduce"] != 27 * train_steps
+                or counts["gn_bwd_apply"] != 27 * train_steps):
+            raise AssertionError(f"landmarks: K1 backward launches {counts}, expected 27 x "
+                                 f"{train_steps} training steps")
+        if counts["gn_moments"] != counts["gn_apply"] or not counts["gn_moments"]:
+            raise AssertionError(f"landmarks: K1 forward launches {counts}")
+        if not indexed or not plain or indexed + plain != counts["gather_patches"]:
+            raise AssertionError(f"landmarks: K2 launches {gather}")
+        if any(per_run[t]["gn_moments"] == 0 for t in predict_tags):
+            raise AssertionError(f"landmarks: a predict run launched no K1: {per_run}")
+
+        # indexed K2 on the device-sampler run's 4-channel uint8 label store
+        # (after the counted runs: not counted)
+        if len(rec.samplers) != 1 or rec.samplers[0].labels.shape[-1] != LDMK_HEATMAPS + 1:
+            raise AssertionError("landmarks: the device-sampler run built no training "
+                                 "sampler with a 4-channel label store")
+        k2 = check_gather_indexed(torch, P, rec.samplers.pop(), LDMK_BATCH)
+
+        # checkpoints, metrics, falling losses
+        ldmk = root / "ldmk"
+        steps_final = CheckpointManager(ldmk).available_steps
+        best = CheckpointManager(ldmk / "best")
+        log(f"landmarks: checkpoints after 2 epochs {steps_after_train}, after the resume "
+            f"{steps_final}; best/ {best.available_steps}")
+        if (steps_after_train != [spe, 2 * spe] or steps_final != [spe, 2 * spe, 3 * spe]
+                or len(best.available_steps) != 1
+                or best.available_steps[0] not in steps_final):
+            raise AssertionError("landmarks: wrong checkpoint steps")
+        if detect_task_name(best.restore_hparams()) != "LandmarkNet":
+            raise AssertionError("landmarks: best/ hparams do not say LandmarkNet")
+        pps, losses = {}, {}
+        for name in dict.fromkeys(name for _, name, _, _ in LDMK_RUNS):
+            records = read_metrics(root / name / "logs" / "metrics.jsonl")
+            names = set().union(*(r.keys() for r in records)) - {"step", "time"}
+            losses[name] = [r["train_loss"] for r in records if "train_loss" in r]
+            val = [(r["step"], r["val_loss"], r["val_landmark_error"]) for r in records
+                   if "val_loss" in r]
+            pps[name] = [r["patches_per_sec"] for r in records if "patches_per_sec" in r]
+            log(f"landmarks: {name} metrics.jsonl scalars {sorted(names)}; train_loss "
+                f"{losses[name]}; (step, val_loss, val_landmark_error) {val}")
+            if not LDMK_METRICS <= names:
+                raise AssertionError(f"landmarks: {name} lacks {LDMK_METRICS - names}")
+            if not all(np.isfinite(losses[name] + [v for _, v, _ in val])):
+                raise AssertionError(f"landmarks: {name}: non-finite losses")
+            # the first logged loss is the initial model's, whose heatmap
+            # outputs are far from the mostly-zero targets
+            if not min(losses[name][1:]) < losses[name][0]:
+                raise AssertionError(f"landmarks: {name}: the training loss did not fall")
+        if [len(v) for v in pps.values()] != [3, 2, 2]:
+            raise AssertionError(f"landmarks: patches_per_sec by epoch {pps}")
+
+        # predictions: heatmaps within 1, class maps inside the tie band of
+        # the plain path's class-logit margin, 3 landmarks per subject
+        weights, hp = load_for_inference(ldmk / "best")
+        task = LandmarkTask.from_hparams(
+            SimpleNamespace(**{k: predict._coerce(v) for k, v in hp.items()}), device=dev)
+        task.model.load_state_dict(weights)
+        test, shapes = LDMK_SPLITS["test"], dict(LDMK_SUBJECTS)
+        preds, readouts = {}, {}
+        for stitch in ("crop", "device"):
+            with ZarrReader(root / f"ldmk_prediction_{stitch}.zarr") as r:
+                preds[stitch] = dict(zip(test, r.read(test, "prediction", np.uint8)))
+            readouts[stitch] = json.loads((root / f"ldmk_landmarks_{stitch}.json").read_text())
+        with ZarrReader(root / "landmarks.zarr") as r:
+            vols = dict(zip(test, r.read(test, "images", np.float16)))
+            truth = dict(zip(test, r.read(test, "landmarks", np.float32)))
+        agreement, errors = {}, {}
+        for key in test:
+            a, b = preds["crop"][key], preds["device"][key]
+            for m in (a, b):
+                if m.shape != (LDMK_HEATMAPS + 1, *shapes[key]) or m[-1].max() > 1:
+                    raise AssertionError(f"landmarks: bad prediction {key} {m.shape}")
+            hm_diff = int(np.abs(a[:-1].astype(np.int16) - b[:-1].astype(np.int16)).max())
+            with torch.inference_mode():
+                margin, err = tie_band_margin(torch, gn, P, task.model, vols[key], grid_corners,
+                                              dev, classes=slice(LDMK_HEATMAPS, None))
+            flips = a[-1] != b[-1]
+            outside = int((flips & (margin > 2 * err)).sum())
+            agreement[key] = dict(heatmap_max_diff=hm_diff, class_flips=float(flips.mean()),
+                                  heatmap_equal=float((a[:-1] == b[:-1]).mean()))
+            for stitch, lms in readouts.items():
+                if len(lms[key]) != LDMK_HEATMAPS or not all(
+                        0 <= v < s for lm in lms[key] for v, s in zip(lm["voxel"], shapes[key])):
+                    raise AssertionError(f"landmarks: {stitch} readout of {key}: {lms[key]}")
+            errors[key] = [float(np.linalg.norm(np.asarray(lm["voxel"]) - t))
+                           for lm, t in zip(readouts["device"][key], truth[key])]
+            log(f"landmarks: {key} {shapes[key]}: crop vs device heatmaps max |diff| {hm_diff} "
+                f"(equal on {agreement[key]['heatmap_equal']:.6f}); class maps differ on "
+                f"{flips.mean():.6f}, outside the tie band on {outside} (max|kernel - plain| "
+                f"class logit {err:.3g}); readout peaks "
+                f"{[lm['peak'] for lm in readouts['device'][key]]}, distance to the true "
+                f"landmarks {' '.join(f'{e:.1f}' for e in errors[key])} voxels")
+            if hm_diff > 1 or outside:
+                raise AssertionError(f"landmarks: {key}: the stitches disagree")
+        del task, weights
+
+    for tag, p in rec.profiles.items():
+        log(f"landmarks: profiled epoch {tag}/{p['epoch']}: {p['seconds']:.3f} s, device busy "
+            f"{p['device_busy_s']:.3f} s (profiler kept {p['profiler_kept']:g} of the "
+            f"gn_moments launches), idle share {p['idle_share']:.4f}")
+    for sv in rec.saves:
+        log(f"landmarks: save {sv['run']} {'best ' if sv['best'] else ''}step {sv['step']}: "
+            f"{sv['bytes'] / 1e9:.3f} GB in {sv['seconds']:.3f} s")
+    vpm = {st: rec.vpm(f"ldmk_predict_{st}_") for st in ("crop", "device")}
+    # by run directory: the tags that trained it, the last one profiled
+    runs = {"ldmk": ("ldmk_train", "ldmk_resume"), "ldmk_device": ("ldmk_device",),
+            "ldmk_landmarks": ("ldmk_landmarks",)}
+    by_run = {name: dict(patches_per_s=pps[name],
+                         step_ms=[1e3 * LDMK_BATCH / v for v in pps[name]],
+                         idle_share=rec.profiles[tags[-1]]["idle_share"],
+                         peak_memory_bytes=max(peaks[t] for t in tags))
+              for name, tags in runs.items()}
+    main_saves = [sv for sv in rec.saves if sv["run"] == "ldmk_train" and not sv["best"]]
+    summary = dict(by_run=by_run,
+                   save_seconds=float(np.median([sv["seconds"] for sv in main_saves])),
+                   save_bytes=main_saves[0]["bytes"], predict_volumes_per_min=vpm,
+                   allocated_before=base_memory)
+    for name, v in by_run.items():
+        log(f"landmarks: {name} patches/s by epoch (the Trainer's metrics.jsonl) "
+            f"{' '.join(f'{x:.2f}' for x in v['patches_per_s'])} = step "
+            f"{' '.join(f'{x:.2f}' for x in v['step_ms'])} ms (host clock over the epoch); "
+            f"idle share {v['idle_share']:.4f}; peak memory {v['peak_memory_bytes'] / 2**30:.2f} GiB")
+    log(f"landmarks: one checkpoint save {summary['save_seconds']:.3f} s for "
+        f"{summary['save_bytes'] / 1e9:.3f} GB; predict volumes/min over {LDMK_PREDICT_TURNS} "
+        f"calls of {len(LDMK_SPLITS['test'])} volumes: " + ", ".join(
+            f"{st} median {v['median']:.2f} (min {v['min']:.2f}, max {v['max']:.2f})"
+            for st, v in vpm.items()))
+    return counts, dict(per_run=per_run, indexed=indexed, plain=plain, check=k2), dict(
+        summary=summary, cli_seconds=rec.walls, saves=rec.saves, stitches=rec.stitches,
+        profiled_epochs=rec.profiles, agreement=agreement, landmark_errors=errors,
+        losses=losses, gather_indexed=k2["per_store"])
+
+
+def landmarks_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
+    """The landmark workload at configs/landmarks.yaml width (f_maps 64): K1
+    at its level shapes, the full-width parity, then the entry points."""
+    probe_profiler(torch, dev)
+    log_clocks("landmarks")
+    k1 = check_gn(torch, gn, dev, gen, levels=LDMK_LEVELS, batch=LDMK_BATCH)
+    k1b = check_gn_backward(torch, gn, dev, gen, levels=LDMK_LEVELS,
+                            configs=(("bf16", LDMK_BATCH), ("fp32", LDMK_BATCH)))
+    torch.cuda.empty_cache()
+    parity = check_landmark_parity(torch, gn, P, dev, gen)
+    torch.cuda.empty_cache()
+    counts, k2, ldmk = run_landmarks(torch, gn, P, grid_corners, dev)
+    return dict(gn_f64=k1, gn_backward_f64=k1b, parity=parity, counts=counts, k2=k2,
+                landmarks=ldmk)
+
+
+def run_landmarks_child() -> dict:
+    """``landmarks_phase`` in a child process on the same card (it reuses
+    the built library), which writes its results as JSON; it fails the run
+    if the child does."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ldmk_") as tmp:
+        out = Path(tmp) / "landmarks.json"
+        rc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--landmarks",
+                             str(out)], timeout=900).returncode
+        if rc != 0:
+            raise AssertionError(f"landmarks phase: the child process exited with {rc}")
+        return json.loads(out.read_text())
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1264,6 +1858,11 @@ def main() -> int:
         for name in ("yaml", "h5py", "zarr", "tensorboardX")))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    if argv[:1] == ["--landmarks"]:  # the child of run_landmarks_child
+        _build.build()
+        out = landmarks_phase(torch, gn, P, _grid_corners, dev, gen)
+        Path(argv[1]).write_text(json.dumps(out))
+        return 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -1286,7 +1885,7 @@ def main() -> int:
     k2 = check_gather(torch, P, _grid_corners, dev, gen)
     models, fwd = check_forward(torch, gn, P, ResidualUNet3D, dev, gen)
 
-    profile_forward(torch, models["bf16"], dev, gen)
+    profile_forward(torch, gn, models["bf16"], dev, gen)
 
     # 6. the serving path
     counts, slice_ = run_slice(torch, gn, P, models, _grid_corners, dev)
@@ -1304,19 +1903,28 @@ def main() -> int:
     entry_counts, entry_k2, entry = run_entry_points(torch, gn, P, _grid_corners, dev)
     torch.cuda.empty_cache()
     guard = guard_cost(torch, dev)
+    torch.cuda.empty_cache()
+
+    # 9. the landmark workload, in a fresh process: late in this one the
+    # profiler drops records (device_rows)
+    ldmk_all = run_landmarks_child()
+    ldmk_counts, ldmk_k2, ldmk = ldmk_all["counts"], ldmk_all["k2"], ldmk_all["landmarks"]
+    k1_ldmk, k1b_ldmk = ldmk_all["gn_f64"], ldmk_all["gn_backward_f64"]
+    ldmk_parity = ldmk_all["parity"]
 
     def launches(name):
         by_path = dict(serving=counts[name], training=train_counts[name],
-                       entry_points=entry_counts[name])
+                       entry_points=entry_counts[name], landmarks=ldmk_counts[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
-    def gather_launches(path, entry):
-        by_path = dict(serving=0, training=0, entry_points=entry)
+    def gather_launches(path, entry, landmarks):
+        by_path = dict(serving=0, training=0, entry_points=entry, landmarks=landmarks)
         by_path[path] = counts["gather_patches"] if path == "serving" \
             else train_counts["gather_patches"]
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     b16, bwd = k1["bf16"], k1b["bf16"]
+    l16, lbwd = k1_ldmk["bf16"], k1b_ldmk["bf16"]
     common = dict(route="cuda", bound_by="bytes", ok=True)
     kernels = [
         dict(name="gn_moments", source="tpu_mednet_torch/csrc/groupnorm.cu",
@@ -1324,22 +1932,36 @@ def main() -> int:
              **launches("gn_moments"), max_abs_err=b16["moments_err"],
              ms=b16["moments_ms"], event_ms=b16["moments_event_ms"],
              plain_ms=b16["moments_plain_ms"], bound_ms=b16["moments_bound"],
-             library_ms=b16["moments_library_ms"],
+             library_ms=b16["moments_library_ms"], profiler_kept=b16["moments_kept"],
              library_call="torch.var_mean (the same moments up to a rescale)",
-             per="full-width bf16 forward, 27 calls", **common),
+             per="full-width bf16 forward, 27 calls",
+             landmarks_check=dict(ms=l16["moments_ms"], plain_ms=l16["moments_plain_ms"],
+                                  bound_ms=l16["moments_bound"],
+                                  library_ms=l16["moments_library_ms"],
+                                  max_abs_err=l16["moments_err"],
+                                  profiler_kept=l16["moments_kept"],
+                                  per=f"f_maps-64 bf16 forward of batch {LDMK_BATCH}, 27 calls"),
+             **common),
         dict(name="gn_apply", source="tpu_mednet_torch/csrc/groupnorm.cu",
              replaces="tpu_mednet/ops/pallas/groupnorm.py:94",
              **launches("gn_apply"), max_abs_err=b16["apply_err"],
              ms=b16["apply_ms"], event_ms=b16["apply_event_ms"],
              plain_ms=b16["apply_plain_ms"], bound_ms=b16["apply_bound"],
-             library_ms=b16["library_ms"],
+             library_ms=b16["library_ms"], profiler_kept=b16["apply_kept"],
              library_call="F.group_norm + F.elu (statistics and apply together)",
-             per="full-width bf16 forward, 27 calls", **common),
+             per="full-width bf16 forward, 27 calls",
+             landmarks_check=dict(ms=l16["apply_ms"], plain_ms=l16["apply_plain_ms"],
+                                  bound_ms=l16["apply_bound"], library_ms=l16["library_ms"],
+                                  max_abs_err=l16["apply_err"],
+                                  profiler_kept=l16["apply_kept"],
+                                  per=f"f_maps-64 bf16 forward of batch {LDMK_BATCH}, 27 calls"),
+             **common),
         dict(name="gather_patches", source="tpu_mednet_torch/csrc/patches.cu",
              replaces="tpu_mednet/ops/pallas/patches.py:95",
-             **gather_launches("serving", entry_k2["plain"]), max_abs_err=k2["err"],
+             **gather_launches("serving", entry_k2["plain"], ldmk_k2["plain"]),
+             max_abs_err=k2["err"],
              ms=k2["ms"], event_ms=k2["wrapper_ms"], plain_ms=k2["plain_ms"],
-             bound_ms=k2["bound"], library_ms=None,
+             bound_ms=k2["bound"], library_ms=None, profiler_kept=k2["kept"],
              library_call="none: no one PyTorch call gathers N windows at host "
                           "corners with the cast fused in",
              per="one batch of 8 tiles of 96^3, f16 -> bf16", **common),
@@ -1348,24 +1970,42 @@ def main() -> int:
                       "kernel at :94) with the normalize chain's autodiff",
              **launches("gn_bwd_reduce"), max_abs_err=bwd["err"],
              ms=bwd["reduce_ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["reduce_bound"],
+             profiler_kept=bwd["reduce_kept"],
              library_ms=bwd["library_ms"],
              library_call="torch autograd of F.group_norm + F.elu (both backward passes "
                           "together; plain_ms likewise)",
-             per=f"train step of batch {TRAIN_BATCH}, bf16, 27 calls", **common),
+             per=f"train step of batch {TRAIN_BATCH}, bf16, 27 calls",
+             landmarks_check=dict(ms=lbwd["reduce_ms"], plain_ms=lbwd["plain_ms"],
+                                  bound_ms=lbwd["reduce_bound"], library_ms=lbwd["library_ms"],
+                                  max_abs_err=lbwd["err"],
+                                  profiler_kept=lbwd["reduce_kept"],
+                                  per=f"f_maps-64 bf16 train step of batch {LDMK_BATCH}, "
+                                      "27 calls"),
+             **common),
         dict(name="gn_bwd_apply", source="tpu_mednet_torch/csrc/groupnorm.cu",
              replaces="tpu_mednet/ops/pallas/groupnorm.py:149-175 (custom VJP of the "
                       "kernel at :94) with the normalize chain's autodiff",
              **launches("gn_bwd_apply"), max_abs_err=bwd["err"],
              ms=bwd["apply_ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["apply_bound"],
+             profiler_kept=bwd["apply_kept"],
              library_ms=bwd["library_ms"],
              library_call="torch autograd of F.group_norm + F.elu (both backward passes "
                           "together; plain_ms likewise)",
-             per=f"train step of batch {TRAIN_BATCH}, bf16, 27 calls", **common),
+             per=f"train step of batch {TRAIN_BATCH}, bf16, 27 calls",
+             landmarks_check=dict(ms=lbwd["apply_ms"], plain_ms=lbwd["plain_ms"],
+                                  bound_ms=lbwd["apply_bound"], library_ms=lbwd["library_ms"],
+                                  max_abs_err=lbwd["err"],
+                                  profiler_kept=lbwd["apply_kept"],
+                                  per=f"f_maps-64 bf16 train step of batch {LDMK_BATCH}, "
+                                      "27 calls"),
+             **common),
         dict(name="gather_patches_indexed", source="tpu_mednet_torch/csrc/patches.cu",
              replaces="tpu_mednet/ops/pallas/patches.py:95 (and the sampler's gather, "
                       "tpu_mednet/data/device_sampler.py:171-190)",
-             **gather_launches("training", entry_k2["indexed"]), max_abs_err=k2i["err"],
+             **gather_launches("training", entry_k2["indexed"], ldmk_k2["indexed"]),
+             max_abs_err=k2i["err"],
              ms=k2i["ms"], plain_ms=k2i["plain_ms"], bound_ms=k2i["bound"],
+             profiler_kept=k2i["kept"],
              library_ms=None,
              library_call="none: no one PyTorch call gathers N windows of N subjects at "
                           "host corners",
@@ -1373,15 +2013,26 @@ def main() -> int:
              entry_points_check=dict(
                  ms=entry_k2["check_128"]["ms"], plain_ms=entry_k2["check_128"]["plain_ms"],
                  bound_ms=entry_k2["check_128"]["bound"], max_abs_err=0.0,
+                 profiler_kept=entry_k2["check_128"]["kept"],
                  per=f"seg_organ device sampler: images bf16 + labels uint8, {ORGAN_BATCH} "
                      "windows of 128^3"),
+             landmarks_check=dict(
+                 ms=ldmk_k2["check"]["ms"], plain_ms=ldmk_k2["check"]["plain_ms"],
+                 bound_ms=ldmk_k2["check"]["bound"], max_abs_err=0.0,
+                 profiler_kept=ldmk_k2["check"]["kept"],
+                 per_store=ldmk_k2["check"]["per_store"],
+                 per=f"landmark device sampler: images bf16 + 4-channel uint8 labels "
+                     f"(3 heatmaps + class map), {LDMK_BATCH} windows of 96^3"),
              **common),
     ]
+    log(smi.stdout.strip())  # again, so that the tail of a long log holds it
     log(json.dumps({"slice": slice_, **fwd}))
     log(json.dumps({"training": train, "parity": parity,
                     "gn_backward": k1b, "gather_indexed": k2i["per_store"]}))
     log(json.dumps({"entry_points": entry, "launches_by_run": entry_k2["per_run"],
                     "nonfinite_guard": guard, "gn_128": k1_organ, "gn_backward_128": k1b_organ}))
+    log(json.dumps({"landmarks": ldmk, "launches_by_run": ldmk_k2["per_run"],
+                    "parity": ldmk_parity, "gn_f64": k1_ldmk, "gn_backward_f64": k1b_ldmk}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1390,4 +2041,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

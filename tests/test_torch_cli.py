@@ -199,7 +199,10 @@ def test_predict_from_a_reference_ckpt(run, tmp_path):
     (["prediction.landmarks=/tmp/l.json"], "landmarks"),
 ])
 def test_predict_refuses_what_waits(run, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    # landmarks are ported: a segmentation checkpoint has no heatmaps to
+    # read them from, which is a configuration error
+    error = ValueError if match == "landmarks" else NotImplementedError
+    with pytest.raises(error, match="no heatmap channels" if error is ValueError else match):
         predict.main(_predict_argv(run, "crop", None, *extra))
 
 
@@ -211,8 +214,16 @@ def test_predict_refuses_the_wrong_task(run, tmp_path):
     side_car = next(ldmk.glob("*/hparams.json"))
     hp = json.loads(side_car.read_text())
     side_car.write_text(json.dumps({**hp, "loss_regression_weight": [0.1]}))
-    with pytest.raises(NotImplementedError, match="LandmarkNet"):
-        predict.main(_predict_argv(run, "crop", ldmk, "prediction.model=null"))
+    with pytest.raises(ValueError, match="trained as 'LandmarkNet'"):
+        predict.main(_predict_argv(run, "crop", ldmk, "prediction.model=SegmentationNet"))
+    # detected from the side-car, the same weights predict as a LandmarkNet
+    # of one heatmap and two classes: the heatmap channel, then the class map
+    out = tmp_path / "ldmk_pred.zarr"
+    assert predict.main(_predict_argv(run, "crop", ldmk, "prediction.model=null",
+                                      "base.sigma=[4.0]", f"prediction.data={out}")) == 0
+    with JaxZarrReader(out) as r:
+        (pred,) = r.read(["s3"], "prediction", np.uint8)
+    assert pred.shape == (2, *SHAPES["s3"]) and set(np.unique(pred[1])) <= {0, 1}
     with pytest.raises(ValueError, match="integer step"):
         predict.main(_predict_argv(run, "crop", None, "prediction.checkpoint_step=best"))
 

@@ -89,8 +89,8 @@ def test_sample_indices_match_jax():
 
 def test_unported_groups_and_bad_stores_raise():
     store = _store()
-    with pytest.raises(NotImplementedError, match="heatmap"):
-        DevicePatchSampler(None, ["s0"], 1, PATCH, heatmap_group="hm",
+    with pytest.raises(ValueError, match="either heatmap_group or landmark_group"):
+        DevicePatchSampler(None, ["s0"], 1, PATCH, heatmap_group="hm", landmark_group="lm",
                            reader=MemoryReader(store), device="cpu")
     store["labels"]["s0"] = store["labels"]["s0"][:, :-1]
     with pytest.raises(ValueError, match="does not match image extent"):

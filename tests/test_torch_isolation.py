@@ -82,6 +82,18 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DevicePatchSampler(None, ["s0"], 1, [4, 4, 4],
                            reader=MemoryReader({**reader.store, **labels}))
+    from tpu_mednet_torch.tasks import LandmarkTask
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LandmarkTask.from_hparams(SimpleNamespace(
+            in_channels=1, out_channels=5, fmaps=4, loss_regression_weight=[0.1] * 3))
+    heatmaps = {"heatmaps": {"s0": np.zeros((3, 8, 8, 8), np.uint8)}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DevicePatchSampler(None, ["s0"], 1, [4, 4, 4], heatmap_group="heatmaps",
+                           reader=MemoryReader({**reader.store, **labels, **heatmaps}))
+    from tpu_mednet_torch.cli import train_ldmks
+
+    assert train_ldmks.main(["-c", str(REPO / "configs" / "landmarks.yaml")]) == 2
 
 
 def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():

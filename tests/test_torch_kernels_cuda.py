@@ -75,6 +75,10 @@ _MOMENT_CASES = {
     "rows-below-one-block": ((3, 32, 1, 2, 3), torch.float32, 0, 8, True),
     "one-sample": ((1, 128, 12, 12, 12), torch.bfloat16, 0, 8, True),
     "many-blocks": ((2, 32, 40, 40, 40), torch.bfloat16, 0, 8, True),
+    # the landmark model's deepest level (f_maps 64): 1024 channels, 128 a
+    # group; fp32 rows of 4096 B fill all 256 consumers, 4 rows a stage
+    "c1024-fp32": ((4, 1024, 6, 6, 6), torch.float32, 0, 8, True),
+    "c1024-bf16": ((4, 1024, 6, 6, 6), torch.bfloat16, 0, 8, True),
 }
 
 
@@ -177,6 +181,8 @@ _BWD_CASES = {
     "bf16-c12-scalar": ((2, 12, 5, 6, 7), torch.bfloat16, 0, 4),
     "bf16-unaligned": ((2, 32, 4, 5, 6), torch.bfloat16, 1, 8),
     "many-blocks": ((2, 32, 40, 40, 40), torch.bfloat16, 0, 8),
+    "c1024-fp32": ((4, 1024, 6, 6, 6), torch.float32, 0, 8),
+    "c1024-bf16": ((4, 1024, 6, 6, 6), torch.bfloat16, 0, 8),
 }
 
 
@@ -240,3 +246,21 @@ def test_indexed_gather_byte_equal_at_misaligned_corners(cuda_device, dtype):
     ref = P.extract_patches_plain(store, corners, (16, 16, 16), subjects=subjects)
     assert got.dtype == dtype
     assert torch.equal(got.view(-1).view(torch.uint8), ref.view(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_indexed_gather_of_four_channel_uint8_rows(cuda_device):
+    """The landmark label store: 3 heatmaps + the class map per voxel, so a
+    row of a 96-wide window is 384 B; z corners whose byte offset (4 z) is
+    not a multiple of 16 put every row at another 16-byte phase."""
+    g = torch.Generator().manual_seed(19)
+    store = (torch.rand((3, 100, 98, 110, 4), generator=g) * 255).to(torch.uint8)
+    store = store.to(cuda_device)
+    corners = np.asarray([[0, 0, z] for z in range(1, 8)] + [[3, 1, 13], [4, 2, 14]],
+                         np.int32)
+    subjects = np.asarray([2, 0, 1, 2, 1, 0, 2, 1, 0], np.int32)
+    launched = P.LAUNCHES
+    got = P.extract_patches(store, corners, (96, 96, 96), subjects=subjects)
+    assert P.LAUNCHES == launched + 1
+    assert torch.equal(got, P.extract_patches_plain(store, corners, (96, 96, 96),
+                                                    subjects=subjects))

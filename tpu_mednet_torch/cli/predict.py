@@ -6,15 +6,17 @@ hydra entry point, ``examples/predict.py:20-115``): a YAML config with
 checkpoint -> model -> stitch -> an HDF5 or zarr store.  Subjects go in
 chunks of ``prediction.chunk_size`` to bound host memory.
 ``prediction.stitch`` is ``crop`` (the reference's host stitch, the
-default) or ``device`` (tiles cut by K2 and stitched on the card).  The
+default) or ``device`` (tiles cut by K2 and stitched on the card).  A
+LandmarkNet checkpoint writes its heatmap channels (clipped to uint8)
+before the class map, and ``prediction.landmarks`` (a ``.json`` or
+``.csv`` path) gets one argmax readout per subject and landmark.  The
 checkpoint is a training directory of the port (EMA weights unless
 ``prediction.use_ema=false``; ``prediction.checkpoint_step`` pins a step)
 or a reference-style ``.ckpt`` file.  It runs on CUDA unless ``--device
 cpu`` is given.
 
-Not ported (refused): ``stitch: gaussian``, ``tta``, landmark models and
-``prediction.landmarks``, ``gpus`` above 1; the HBM guard
-(``hbm_guard``) is not ported and is ignored.
+Not ported (refused): ``stitch: gaussian``, ``tta``, ``gpus`` above 1;
+the HBM guard (``hbm_guard``) is not ported and is ignored.
 """
 
 from __future__ import annotations
@@ -79,6 +81,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     batch_size = pred.get("batch_size", 8)
     prediction_path = pred.get("data")
     prediction_group = pred.get("group", "prediction")
+    landmarks_path = pred.get("landmarks")
     checkpoint_path = replace_env(pred["checkpoint"])
     checkpoint_step = pred.get("checkpoint_step")
     chunk_size = pred.get("chunk_size", 16)
@@ -93,8 +96,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         raise _refuse("prediction.tta", "TTA and the Gaussian stitch")
     if (pred.get("gpus", 1) or 1) > 1:
         raise _refuse("prediction.gpus above 1", "Multi-GPU")
-    if pred.get("landmarks"):
-        raise _refuse("prediction.landmarks", "landmarks and multitask")
     if checkpoint_step is not None:
         try:
             checkpoint_step = int(checkpoint_step)
@@ -107,8 +108,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from tpu_mednet_torch.inference.device_sliding import predict_volumes_on_device
     from tpu_mednet_torch.inference.serving import detect_task_name
     from tpu_mednet_torch.inference.sliding_window import predict_volumes
-    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.tasks import LandmarkTask, SegmentationTask
     from tpu_mednet_torch.train.checkpoint import load_for_inference
+    from tpu_mednet_torch.utils.evaluation import landmark_readout
 
     test_keys = read_keyfile(test_set)
     logger.info("total number of keys %d", len(test_keys))
@@ -134,12 +136,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             f"{'present' if detected == 'LandmarkNet' else 'absent'}); "
             f"restoring into the wrong task silently bakes the wrong "
             f"postprocess — fix prediction.model or the checkpoint path")
-    if model_name == "LandmarkNet":
-        raise _refuse("prediction of a LandmarkNet checkpoint", "landmarks and multitask")
     hparams = types.SimpleNamespace(**{k: _coerce(v) for k, v in hp_restored.items()})
-    task = SegmentationTask.from_hparams(hparams, device=device)
+    task_cls = LandmarkTask if model_name == "LandmarkNet" else SegmentationTask
+    task = task_cls.from_hparams(hparams, device=device)
+    if landmarks_path and getattr(task, "num_heatmaps", 0) == 0:
+        raise ValueError(
+            "prediction.landmarks is set but the checkpoint is a "
+            f"{model_name} with no heatmap channels — coordinates can only "
+            "be read out of a landmark model's predictions")
+    if landmarks_path and channel_selection is not None:
+        raise ValueError(
+            "prediction.landmarks needs the full heatmaps-first channel "
+            "layout; drop prediction.channel_selection (the readout would "
+            "index the wrong channels of a subset)")
     task.model.load_state_dict(state_dict, strict=True)
 
+    all_landmarks: dict = {}
     for c, chunk in enumerate(chunks):
         logger.info("chunk %d/%d", c, chunk_num)
         kw = dict(patch_size=patch_size, patch_overlap=patch_overlap,
@@ -153,7 +165,34 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if prediction_path:
             results.save(replace_env(prediction_path), group=prediction_group)
             logger.info("saved %d volumes to %s", len(results), prediction_path)
+        if landmarks_path:
+            for key, ds in results.items():
+                all_landmarks[key] = landmark_readout(ds.array, task.num_heatmaps,
+                                                      affine=ds.attrs.get("affine"))
+    if landmarks_path:
+        _write_landmarks(replace_env(landmarks_path), all_landmarks)
+        logger.info("wrote landmark coordinates for %d subjects to %s",
+                    len(all_landmarks), landmarks_path)
     return 0
+
+
+def _write_landmarks(path: str, per_subject: dict) -> None:
+    """Write {subject: [readouts]} as JSON, or flat rows as CSV."""
+    import csv
+    import json
+
+    if str(path).endswith(".csv"):
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["subject", "landmark", "x_vox", "y_vox", "z_vox", "peak",
+                        "x_mm", "y_mm", "z_mm"])
+            for key, rows in per_subject.items():
+                for i, r in enumerate(rows):
+                    w.writerow([key, i, *r["voxel"], r["peak"],
+                                *r.get("physical", [None, None, None])])
+    else:
+        with open(path, "w") as f:
+            json.dump(per_subject, f, indent=2)
 
 
 def _coerce(v):

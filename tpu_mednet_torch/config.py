@@ -255,6 +255,35 @@ def add_seg_model_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--loss_weight", nargs="+", type=float, default=None)
 
 
+def add_landmark_model_args(parser: argparse.ArgumentParser) -> None:
+    """LandmarkNet model flags (landmarks.py:191-206, same defaults)."""
+    parser.add_argument("--learning_rate", type=float, default=0.001)
+    parser.add_argument("--fmaps", type=int, default=64)
+    parser.add_argument("--batch_size", type=int, default=4)
+    parser.add_argument("--num_workers", type=int, default=4,
+                        help="accepted for reference parity; one prefetch "
+                             "thread replaces the worker pool")
+    parser.add_argument("--in_channels", type=int, default=1)
+    parser.add_argument("--out_channels", type=int, default=1)
+    parser.add_argument("--log_interval", type=int, default=5)
+    parser.add_argument("--log_vis_mip", type=str, choices=["mean", "max"],
+                        default="mean",
+                        help="accepted for parity; the MIP visualizer is not ported")
+    parser.add_argument("--heatmap_group", type=str, default="heatmaps")
+    parser.add_argument("--landmark_group", type=str, default=None,
+                        help="group of per-subject (L,3) landmark coords; "
+                             "heatmaps are rendered on the device instead of "
+                             "loading stored heatmap volumes (requires "
+                             "--device_sampler)")
+    parser.add_argument("--heatmap_sigma", type=float, default=4.0)
+    parser.add_argument("--loss_class", choices=["DICE", "CE"], default="DICE")
+    parser.add_argument("--loss_class_weight", nargs="+", type=float,
+                        default=[0.05, 1.0])
+    parser.add_argument("--loss_regression", choices=["L2", "L1"], default="L2")
+    parser.add_argument("--loss_regression_weight", type=float, nargs="+",
+                        default=[0.001, 0.015, 0.015, 0.015, 0.001, 0.001])
+
+
 def add_device_arg(parser: argparse.ArgumentParser) -> None:
     """``--device``: where the port runs (the counterpart of JAX_PLATFORMS)."""
     parser.add_argument("--device", type=str, default="cuda",

@@ -3,16 +3,21 @@
 Counterpart of ``tpu_mednet/data/device_sampler.py``:
 
 1. all subject volumes are padded to a common shape and stacked into
-   device tensors once at start-up (images bf16, labels uint8, both
-   channels-last (S, X, Y, Z, C));
+   device tensors once at start-up (images bf16, labels uint8 with any
+   stored heatmap channels before the class map, both channels-last
+   (S, X, Y, Z, C));
 2. per batch, the host only draws subject indices and class-balanced
    corners (``data/sampling.py``, the same numpy draws in the same order
    as the JAX package, so one seed gives the same batches);
 3. K2 (``ops/patches.py``, indexed by subject) cuts the training patches
    out of the device store: no per-step host-to-device volume traffic.
 
-Corners are drawn against each subject's true shape, so a patch never
-reads padding.  Heatmap and landmark groups are not ported yet.
+With ``landmark_group`` the store holds each subject's (L, 3) landmark
+coordinates instead of heatmap volumes; after K2's label gather each
+window's Gaussians are rendered on the device (``ops/heatmap.py``), cast
+to uint8 by truncation as the JAX package's ``astype`` does, and put
+before the class map.  Corners are drawn against each subject's true
+shape, so a patch never reads padding.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from tpu_mednet_torch._device import DeviceLike, resolve_device
 from tpu_mednet_torch.data.readers import DataReader, open_reader
 from tpu_mednet_torch.data.sampling import get_labeled_position, get_random_patch_indices
 from tpu_mednet_torch.ops import patches
+from tpu_mednet_torch.ops.heatmap import batched_gaussian_heatmaps
 
 logger = logging.getLogger(__name__)
 
@@ -36,7 +42,8 @@ class DevicePatchSampler:
 
     Yields batches ``{"data": (N, C, px, py, pz), "label": (N, Cl, px, py,
     pz)}``: ``channels_last_3d`` views of the gathered (N, px, py, pz, C)
-    windows, data in bf16 and labels uint8 (class map last).
+    windows, data in bf16 and labels uint8 (heatmap channels first, class
+    map last).
     """
 
     def __init__(
@@ -49,14 +56,15 @@ class DevicePatchSampler:
         label_group: str = "labels",
         heatmap_group: Optional[str] = None,
         landmark_group: Optional[str] = None,
+        heatmap_sigma: float = 4.0,
         reader_cls=None,
         reader: Optional[DataReader] = None,
         class_probabilities: Optional[Sequence[float]] = None,
         seed: int = 0,
         device: DeviceLike = None,
     ):
-        if heatmap_group or landmark_group:
-            raise NotImplementedError("heatmap and landmark groups are not ported yet")
+        if heatmap_group and landmark_group:
+            raise ValueError("pass either heatmap_group or landmark_group, not both")
         dev = resolve_device(device)
         self.subject_keys = list(subject_keys)
         self.samples_per_subject = samples_per_subject
@@ -72,6 +80,11 @@ class DevicePatchSampler:
         r = reader if reader is not None else open_reader(data_path, reader_cls)
         images = list(r.read(self.subject_keys, image_group, dtype=np.float32))
         labels = list(r.read(self.subject_keys, label_group, dtype=np.uint8))
+        heatmaps = landmarks = None
+        if heatmap_group:
+            heatmaps = list(r.read(self.subject_keys, heatmap_group, dtype=np.uint8))
+        if landmark_group:
+            landmarks = list(r.read(self.subject_keys, landmark_group, dtype=np.float32))
         if owns:
             r.close()
 
@@ -83,6 +96,19 @@ class DevicePatchSampler:
                     f"subject {key!r}: label volume extent {lbl.shape[1:]} "
                     f"({label_group!r}) does not match image extent {img.shape[1:]} "
                     f"({image_group!r})")
+        for key, img, hm in zip(self.subject_keys, images, heatmaps or ()):
+            if hm.shape[1:] != img.shape[1:]:
+                raise ValueError(
+                    f"subject {key!r}: heatmap volume extent {hm.shape[1:]} "
+                    f"({heatmap_group!r}) does not match image extent {img.shape[1:]} "
+                    f"({image_group!r})")
+        # heatmap channels per subject, for the CLI's check against the config
+        self.num_heatmap_channels = (
+            int(heatmaps[0].shape[0]) if heatmaps is not None else
+            int(landmarks[0].shape[0]) if landmarks is not None else None)
+        # label layout: heatmap channels first, class map last (dataset.py:322-330)
+        if heatmaps is not None:
+            labels = [np.concatenate([h, lbl], axis=0) for h, lbl in zip(heatmaps, labels)]
 
         self.shapes = np.asarray([img.shape[1:] for img in images], dtype=np.int64)
         if np.any(self.shapes < self.patch_size):
@@ -98,6 +124,10 @@ class DevicePatchSampler:
 
         self.images = torch.from_numpy(stack(images, np.float32)).to(torch.bfloat16).to(dev)
         self.labels = torch.from_numpy(stack(labels, np.uint8)).to(dev)
+        self.landmarks = None  # (S, L, 3) fp32 on the device
+        if landmarks is not None:
+            self.landmarks = torch.from_numpy(np.stack(landmarks).astype(np.float32)).to(dev)
+        self.heatmap_sigma = heatmap_sigma
         logger.info("device store: %d subjects padded to %s, ~%.2f GB",
                     len(images), pad_shape.tolist(),
                     (self.images.nbytes + self.labels.nbytes) / 1e9)
@@ -137,10 +167,27 @@ class DevicePatchSampler:
         return subj.astype(np.int32), corners
 
     def gather(self, subj: np.ndarray, corners: np.ndarray) -> Dict[str, torch.Tensor]:
-        """K2 on the device store: one launch for the images, one for the labels."""
+        """K2 on the device store: one launch for the images, one for the
+        labels; with landmarks, then the windows' heatmaps rendered in front
+        of the labels."""
         data = patches.extract_patches(self.images, corners, self.patch_size, subjects=subj)
         label = patches.extract_patches(self.labels, corners, self.patch_size, subjects=subj)
+        if self.landmarks is not None:
+            label = torch.cat([self._render(subj, corners), label], dim=-1)
         return {"data": data.permute(0, 4, 1, 2, 3), "label": label.permute(0, 4, 1, 2, 3)}
+
+    def _render(self, subj: np.ndarray, corners: np.ndarray) -> torch.Tensor:
+        """(N, px, py, pz, L) uint8 heatmaps of the windows' landmarks, in
+        patch-local coordinates; those outside a window render its tail or
+        zeros, and the < -1000 sentinel renders zeros."""
+        dev = self.landmarks.device
+        index = torch.from_numpy(np.stack([subj, *corners.T], axis=1).astype(np.int32))
+        if dev.type == "cuda":  # without waiting for the card's queue
+            index = index.pin_memory().to(dev, non_blocking=True)
+        local = self.landmarks[index[:, 0].long()] - index[:, None, 1:].float()
+        hm = batched_gaussian_heatmaps(local, [int(p) for p in self.patch_size],
+                                       self.heatmap_sigma)
+        return hm.to(torch.uint8).permute(0, 2, 3, 4, 1)
 
     def batches(self, batch_size: int, shuffle: bool = True) -> Iterator[Dict[str, torch.Tensor]]:
         """One epoch = a permutation of (subject, sample) pairs, exactly

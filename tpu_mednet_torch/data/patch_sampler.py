@@ -5,12 +5,14 @@ The port's copy of ``tpu_mednet/data/patch_sampler.py`` (reference
 on the host, draws class-probability-weighted positions and random
 corners, and crops patches in numpy, drawing from one
 ``numpy.random.Generator`` in the JAX package's order, so one seed gives
-byte-equal batches in both packages.
+byte-equal batches in both packages.  With ``heatmap_group`` the stored
+uint8 heatmaps are cropped with the labels and put before the class map
+(dataset.py:322-330).
 
 Batches are CPU tensors in the port's layout: logical (N, C, X, Y, Z) views
 of contiguous (N, X, Y, Z, C) buffers (``channels_last_3d``), data fp32 and
 labels uint8 with the class map last.  ``data/prefetch.py`` moves them to
-the card.  Heatmap groups are not ported.
+the card.
 """
 
 from __future__ import annotations
@@ -47,9 +49,6 @@ class PatchSampler:
         class_probabilities: Optional[Sequence[float]] = None,
         seed: int = 0,
     ):
-        if heatmap_group:
-            raise NotImplementedError("heatmap groups are not ported yet (ROADMAP §1, "
-                                      "'heatmaps and landmarks in the sampler')")
         self.subject_keys = list(subject_keys)
         self.samples_per_subject = samples_per_subject
         self.patch_size = np.asarray(patch_size, dtype=np.int64)
@@ -68,6 +67,10 @@ class PatchSampler:
                                                 dtype=np.float16)
             self.labels = r.read_data_to_memory(self.subject_keys, label_group,
                                                 dtype=np.uint8)
+            self.heatmaps = None
+            if heatmap_group:
+                self.heatmaps = r.read_data_to_memory(self.subject_keys, heatmap_group,
+                                                      dtype=np.uint8)
         finally:
             if owns_reader:
                 r.close()
@@ -86,6 +89,14 @@ class PatchSampler:
                     f"subject {key!r}: label volume extent {lbl_extent} "
                     f"({label_group!r}) does not match image extent {extent} "
                     f"({image_group!r})")
+            if self.heatmaps is not None and tuple(self.heatmaps[i].shape[1:]) != extent:
+                raise ValueError(
+                    f"subject {key!r}: heatmap volume extent "
+                    f"{tuple(self.heatmaps[i].shape[1:])} ({heatmap_group!r}) does not "
+                    f"match image extent {extent} ({image_group!r})")
+        # heatmap channels per subject, for the CLI's check against the config
+        self.num_heatmap_channels = (int(self.heatmaps[0].shape[0])
+                                     if self.heatmaps is not None else None)
 
         # per-(subject, class) any-masks over axis 2 of the class map (last
         # label channel), the reference's sampling-map trick (dataset.py:272-280)
@@ -107,8 +118,8 @@ class PatchSampler:
     def sample(self, idx: int) -> Dict[str, object]:
         """Draw one training patch (reference ``__getitem__``,
         dataset.py:285-346): ``data`` (C, X, Y, Z) fp32, ``label``
-        (C, X, Y, Z) uint8, ``subject_key``, ``patch_position``,
-        ``selected_class``."""
+        (C, X, Y, Z) uint8 (heatmap channels first, class map last),
+        ``subject_key``, ``patch_position``, ``selected_class``."""
         idx = idx % len(self.images)
         imgs = self.images[idx]
         lbls = self.labels[idx]
@@ -127,12 +138,16 @@ class PatchSampler:
                                             rng=self.rng)
         sl = (slice(None), slice(ini[0], fin[0]), slice(ini[1], fin[1]),
               slice(ini[2], fin[2]))
+        label = np.asarray(lbls[sl], dtype=np.uint8)
+        if self.heatmaps is not None:
+            label = np.concatenate([np.asarray(self.heatmaps[idx][sl], dtype=np.uint8),
+                                    label], axis=0)
         return {
             "subject_key": self.subject_keys[idx],
             "patch_position": ini,
             "selected_class": selected_class,
             "data": np.asarray(imgs[sl], dtype=np.float32),
-            "label": np.asarray(lbls[sl], dtype=np.uint8),
+            "label": label,
         }
 
     def batches(self, batch_size: int, shuffle: bool = True) -> Iterator[Dict[str, object]]:

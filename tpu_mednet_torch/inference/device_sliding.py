@@ -3,7 +3,8 @@
 Counterpart of ``tpu_mednet/inference/device_sliding.py``.  The volume is
 uploaded once in f16 and padded on the device; each batch of tiles is cut
 by K2 (``ops/patches.py``) with the cast to the compute dtype fused in,
-runs through the model and the uint8 postprocess, and each tile's core is
+runs through the model and the uint8 postprocess (heatmap channels first
+for a landmark task), and each tile's core is
 written into the output volume by slice assignment — the cores tile the
 padded volume disjointly (reference grid geometry, dataset.py:369-380).
 The result is cropped to the input extent on the device, and one

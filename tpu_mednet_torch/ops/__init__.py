@@ -4,6 +4,6 @@ around them.
 ``groupnorm`` (K1: GroupNorm statistics + fused normalize/act, and its
 backward under a ``torch.autograd.Function``), ``patches`` (K2: batched
 window gather, from one volume or indexed by subject from a stacked
-store); ``_build`` compiles ``csrc/``.  ``losses`` and ``augment`` are
-plain PyTorch.
+store); ``_build`` compiles ``csrc/``.  ``losses``, ``augment`` and
+``heatmap`` (Gaussian landmark heatmaps) are plain PyTorch.
 """

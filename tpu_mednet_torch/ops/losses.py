@@ -9,16 +9,18 @@ Counterpart of ``tpu_mednet/ops/losses.py`` (reference
 - ``ce_loss``                                     (loss.py:135-142; the
   reference's Softmax before CrossEntropyLoss is reproducible with
   ``double_softmax=True``, off by default as in the JAX package)
+- ``mse_loss`` / ``l1_loss`` / ``landmark_loss``  (loss.py:243-252)
+- ``multitask_landmark_loss``                     (landmarks.py:125-134)
 
 Conventions: ``logits``/``probs`` are (N, C, X, Y, Z); integer ``labels``
 are (N, X, Y, Z); a one-hot ``target`` is (N, C, X, Y, Z).  Every reduction
-is computed in fp32.  The weighted/pixelwise CE, BCE and landmark losses
-are not ported yet.
+is computed in fp32.  The weighted/pixelwise CE and BCE losses are not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -124,3 +126,41 @@ def ce_loss(logits: torch.Tensor, labels: torch.Tensor, weight: Weight = None,
     picked = logp.gather(1, safe.unsqueeze(1)).squeeze(1)
     vw = valid.float() if w is None else w[safe] * valid
     return -(vw * picked).sum() / vw.sum().clamp_min(1e-12)
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return ((pred.float() - target.float()) ** 2).mean()
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return (pred.float() - target.float()).abs().mean()
+
+
+def landmark_loss(logits: torch.Tensor, heatmaps: torch.Tensor) -> torch.Tensor:
+    """Heatmap-regression MSE (reference ``LandmarkLoss``, loss.py:243-252)."""
+    return mse_loss(logits, heatmaps)
+
+
+def multitask_landmark_loss(output_labels: torch.Tensor, output_heatmaps: torch.Tensor,
+                            labels: torch.Tensor, heatmaps: torch.Tensor,
+                            regression_weights: Sequence[float], class_loss: str = "DICE",
+                            class_weight: Weight = None, regression_loss: str = "L2"
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Segmentation plus landmark loss (reference landmarks.py:125-134):
+    ``class_loss(labels) + sum_c regression_weights[c] * reg(heatmap c)``,
+    each heatmap channel reduced over every other axis.  Heatmaps are
+    (N, L, X, Y, Z); returns (total, class loss, regression loss)."""
+    if class_loss == "DICE":
+        cls = dice_loss(output_labels, labels, weight=class_weight)
+    elif class_loss == "CE":
+        cls = ce_loss(output_labels, labels, weight=class_weight)
+    else:
+        raise ValueError(f"class_loss must be 'DICE' or 'CE', got {class_loss!r}")
+    if regression_loss not in ("L2", "L1"):
+        raise ValueError(f"regression_loss must be 'L2' or 'L1', got {regression_loss!r}")
+    reg_fn = mse_loss if regression_loss == "L2" else l1_loss
+    w = torch.as_tensor(regression_weights, dtype=torch.float32, device=output_heatmaps.device)
+    per_channel = torch.stack([reg_fn(output_heatmaps[:, c], heatmaps[:, c])
+                               for c in range(output_heatmaps.shape[1])])
+    reg = (w * per_channel).sum()
+    return cls + reg, cls, reg

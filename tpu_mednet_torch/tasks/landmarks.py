@@ -1,0 +1,126 @@
+"""Landmark task: Gaussian-heatmap regression with an auxiliary segmentation head.
+
+Counterpart of ``tpu_mednet/tasks/landmarks.py:29-138`` (reference
+``LandmarkNet``, landmarks.py:22-206): one U-Net emits ``num_heatmaps +
+num_classes`` channels; the first ``num_heatmaps`` regress the landmark
+heatmaps and the rest are class logits (landmarks.py:74-75, 144-145).
+``num_heatmaps`` is the length of ``loss_regression_weight``
+(landmarks.py:57).
+
+Outputs are (N, C, X, Y, Z) logits; the label batch holds the heatmap
+channels first and the class map last, (N, L + 1, X, Y, Z)
+(dataset.py:322-330).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from tpu_mednet_torch._device import DeviceLike
+from tpu_mednet_torch.models.unet import ResidualUNet3D, UNet3DBase
+from tpu_mednet_torch.ops import losses as L
+from tpu_mednet_torch.ops.heatmap import heatmap_argmax_coords
+
+
+def landmark_coordinate_error(pred_heatmaps: torch.Tensor,
+                              true_heatmaps: torch.Tensor) -> torch.Tensor:
+    """Mean Euclidean distance (voxels) between predicted and true heatmap
+    peaks over (N, L, X, Y, Z) stacks; a landmark whose true heatmap is all
+    zero in the patch (outside the crop) is left out of the mean."""
+    pred = heatmap_argmax_coords(pred_heatmaps).float()
+    true = heatmap_argmax_coords(true_heatmaps).float()
+    dist = ((pred - true) ** 2).sum(dim=-1).sqrt()  # (N, L)
+    present = true_heatmaps.amax(dim=tuple(range(2, true_heatmaps.dim()))) > 0
+    return (dist * present).sum() / present.sum().float().clamp_min(1.0)
+
+
+@dataclasses.dataclass(eq=False)
+class LandmarkTask:
+    """Joint heatmap regression and segmentation."""
+
+    model: UNet3DBase
+    loss_regression_weight: Sequence[float]
+    loss_class: str = "DICE"  # 'DICE' | 'CE'
+    loss_class_weight: Optional[Sequence[float]] = None
+    loss_regression: str = "L2"  # 'L2' | 'L1'
+
+    @classmethod
+    def from_hparams(cls, hparams, device: DeviceLike = None,
+                     generator: Optional[torch.Generator] = None) -> "LandmarkTask":
+        """Build from a train_ldmks-style hparams namespace; as for
+        segmentation, ``packed`` and ``remat`` are ignored."""
+        model = ResidualUNet3D(
+            in_channels=hparams.in_channels,
+            out_channels=hparams.out_channels,
+            final_sigmoid=False,
+            f_maps=hparams.fmaps,
+            dtype=torch.bfloat16 if getattr(hparams, "bf16", True) else torch.float32,
+            device=device,
+            generator=generator,
+        )
+        return cls(model=model,
+                   loss_regression_weight=list(hparams.loss_regression_weight),
+                   loss_class=getattr(hparams, "loss_class", "DICE"),
+                   loss_class_weight=getattr(hparams, "loss_class_weight", None),
+                   loss_regression=getattr(hparams, "loss_regression", "L2"))
+
+    @property
+    def num_heatmaps(self) -> int:
+        return len(self.loss_regression_weight)
+
+    @property
+    def out_channels(self) -> int:
+        return self.model.config.out_channels
+
+    @property
+    def num_classes(self) -> int:
+        return self.out_channels - self.num_heatmaps
+
+    def split_outputs(self, outputs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(heatmap channels, class logits), landmarks.py:74-75."""
+        h = self.num_heatmaps
+        return outputs[:, :h], outputs[:, h:]
+
+    def split_labels(self, batch: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(fp32 heatmaps, int64 class map), landmarks.py:68-70."""
+        label = batch["label"]
+        return label[:, :-1].float(), label[:, -1].long()
+
+    def loss_fn(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        heatmaps, labels = self.split_labels(batch)
+        out_heatmaps, out_labels = self.split_outputs(outputs)
+        total, cls, reg = L.multitask_landmark_loss(
+            out_labels, out_heatmaps, labels, heatmaps,
+            regression_weights=self.loss_regression_weight, class_loss=self.loss_class,
+            class_weight=self.loss_class_weight, regression_loss=self.loss_regression)
+        return total, {"class_loss": cls, "regression_loss": reg}
+
+    def val_metrics(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        heatmaps, labels = self.split_labels(batch)
+        out_heatmaps, out_labels = self.split_outputs(outputs)
+        total, aux = self.loss_fn(outputs, batch)
+        per_channel = L.dice_metric(out_labels, labels)
+        metrics = {
+            "val_loss": total,
+            "val_class_loss": aux["class_loss"],
+            "val_regression_loss": aux["regression_loss"],
+            "val_landmark_error": landmark_coordinate_error(out_heatmaps, heatmaps),
+        }
+        for c in range(self.num_classes):
+            metrics[f"val_dice{c}"] = per_channel[c]
+        return metrics
+
+    def predict_postprocess(self, logits: torch.Tensor) -> torch.Tensor:
+        """(N, C, X, Y, Z) logits -> (N, L + 1, X, Y, Z) uint8: heatmaps
+        clipped to [0, 255], then the class map (argmax of the softmax)
+        last (reference predict.py:88-94)."""
+        out_heatmaps, out_labels = self.split_outputs(logits)
+        pred = torch.argmax(torch.softmax(out_labels, dim=1), dim=1, keepdim=True)
+        hm = out_heatmaps.clamp(0.0, 255.0).to(torch.uint8)
+        return torch.cat([hm, pred.to(torch.uint8)], dim=1)

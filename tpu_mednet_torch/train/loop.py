@@ -118,7 +118,8 @@ class PreemptionGuard:
 
 
 class Trainer:
-    """Runs a task over train/val patch samplers on the task model's device."""
+    """Runs a task (``SegmentationTask`` or ``LandmarkTask``) over train/val
+    patch samplers on the task model's device."""
 
     def __init__(
         self,
@@ -204,6 +205,10 @@ class Trainer:
         if nonfinite not in ("off", "skip", "terminate"):
             raise ValueError(f"nonfinite must be off/skip/terminate, got {nonfinite!r}")
         self.nonfinite = nonfinite
+        # the JAX Trainer widens a spatial transform to warp a landmark
+        # task's heatmap channels trilinearly (label_trilinear_channels);
+        # the port refuses spatial_3d, so its augmentations never resample
+        # a label and that hook has nothing to do here
         self.augment = augment
         # validation monitors the EMA weights (what gets deployed) when EMA is on
         self.train_step = make_train_step(
