@@ -1,0 +1,212 @@
+#!/usr/bin/env python3
+"""Fit of the HBM guard's constants on one NVIDIA card.
+
+    python3 chip_memory_fit.py [--out memory_fit.json]
+
+Runs one volume at a time through the two on-device stitches
+(``predict_volumes_on_device`` and ``predict_volumes_weighted_on_device``,
+``hbm_guard='off'``) with full-width ``ResidualUNet3D``s (f_maps 32, bf16,
+seeded weights) at the ``configs/predict.yaml`` geometry (96^3 tiles,
+overlap 16, batch 8): 1 input channel and 2 classes (the flagship), 4 and
+2, and 4 and 4 (``configs/seg_brats_bf16.yaml``); volumes of 192^3, 320^3
+and 512^3; n_tta 1 and 8 (``tta_flips=(0, 1, 2)``); and, per model, one
+call of two 192^3 volumes (the pipeline holds one volume's result while
+it dispatches the next).  Before each run it empties the allocator's
+cache and resets its peak; after it, it reads
+``torch.cuda.max_memory_reserved`` (what the card must hold) and
+``max_memory_allocated``.  For every point it prints the guard's estimate
+(``utils/memory.device_stitch_bytes`` with the module's constants) and the
+ratio estimate / measured, which must lie in [1, 1.3], and the least
+``INFER_WORK_UNITS`` and ``TTA_WORK_UNITS`` that would cover every point
+with the other constants as they are.  Last, the guard's edge: the
+largest cube (a multiple of 16 voxels) of the 4-input, 4-class model whose
+Gaussian-stitch estimate the guard admits under its default budget
+(``utils/memory.hbm_budget_bytes``: the card's free memory plus the
+allocator's reservation) runs with ``hbm_guard='error'``; it must pass the
+guard, fit the card and hold the same ratio.  It exits non-zero where a
+ratio leaves that range or the edge volume does not fit.
+"""
+
+from __future__ import annotations
+
+import gc
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+SIZES = (192, 320, 512)
+MODELS = ((1, 2), (4, 2), (4, 4))  # (input channels, classes)
+PATCH, OVERLAP, BATCH = (96, 96, 96), (16, 16, 16), 8
+TTAS = ((), (0, 1, 2))
+RATIO = (1.0, 1.3)
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_memory_fit: CUDA is not available; this run needs an NVIDIA card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE))
+    from tpu_mednet_torch.data import MemoryReader
+    from tpu_mednet_torch.inference import (device_sliding, predict_volumes_on_device,
+                                            predict_volumes_weighted_on_device)
+    from tpu_mednet_torch.models import ResidualUNet3D
+    from tpu_mednet_torch.ops import _build
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.utils import memory
+
+    out_path = Path(argv[argv.index("--out") + 1]) if "--out" in argv else None
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    _build.build()
+    dev = torch.device("cuda", 0)
+    stitches = {"device": predict_volumes_on_device,
+                "gaussian": predict_volumes_weighted_on_device}
+    kw = dict(patch_size=list(PATCH), patch_overlap=list(OVERLAP), batch_size=BATCH,
+              device=dev, hbm_guard="off")
+    rng = np.random.default_rng(0)
+    points = []
+
+    def measure(fn, task, store, keys, tta):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        fn(task, None, keys, reader=MemoryReader(store), tta_flips=tta, **kw)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_reserved(dev), torch.cuda.max_memory_allocated(dev),
+                time.perf_counter() - t0)
+
+    for c_in, classes in MODELS:
+        model = ResidualUNet3D(c_in, classes, f_maps=32, dtype=torch.bfloat16, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+        task = SegmentationTask(model=model)
+        fmaps = model.config.feature_maps
+        params_b = memory.param_bytes(model)
+        unit0 = memory._unit_bytes(BATCH, PATCH, 0, fmaps[0], 2)
+        tta_unit = BATCH * float(np.prod(PATCH)) * classes * 4
+        warm = {"images": {"w": rng.standard_normal((c_in, 96, 96, 96), np.float32)
+                           .astype(np.float16)}}
+        for fn in stitches.values():  # cuDNN and cuBLAS handles, the kernels' library
+            fn(task, None, ["w"], reader=MemoryReader(warm), **kw)
+        for size in SIZES:
+            vol = rng.standard_normal((c_in, size, size, size), np.float32).astype(np.float16)
+            store = {"images": {"v": vol, "v2": vol}}
+            for stitch, fn in stitches.items():
+                for tta in TTAS:
+                    runs = [(1, ["v"])] + ([(2, ["v", "v2"])] if size == SIZES[0] and not tta
+                                           else [])
+                    for n_vol, keys in runs:
+                        reserved, allocated, seconds = measure(fn, task, store, keys, tta)
+                        n_tta = 2 ** len(tta)
+                        est, breakdown = memory.device_stitch_bytes(
+                            (size,) * 3, PATCH, OVERLAP, BATCH, c_in, 1, fmaps, stitch=stitch,
+                            params_bytes=params_b, n_tta=n_tta, acc_channels=classes)
+                        # the estimate without its fitted terms: what they must cover
+                        fixed = est - memory.INFER_WORK_UNITS * unit0 - (
+                            memory.TTA_WORK_UNITS * tta_unit if n_tta > 1 else 0)
+                        if breakdown["peak_phase_scan"] < breakdown["peak_phase_final"]:
+                            fixed = est  # the finalize phase sets the peak
+                        points.append(dict(
+                            in_channels=c_in, classes=classes, stitch=stitch, size=size,
+                            volumes=n_vol, n_tta=n_tta, reserved=reserved,
+                            allocated=allocated, estimate=est, ratio=est / reserved,
+                            residual=reserved - fixed, unit0=unit0, tta_unit=tta_unit,
+                            seconds=seconds, breakdown=breakdown))
+                        print(f"in {c_in} classes {classes} {stitch:8s} {n_vol} x {size}^3 "
+                              f"n_tta {n_tta}: max_memory_reserved {reserved / 2**30:.3f} GiB "
+                              f"(allocated {allocated / 2**30:.3f}), estimate "
+                              f"{est / 2**30:.3f} GiB, ratio {est / reserved:.3f}; "
+                              f"{seconds:.2f} s", flush=True)
+            del vol, store
+        # the device stitch's predictor cache holds its task (ROADMAP.md §3):
+        # drop it, so the next model's points measure that model alone
+        device_sliding._PREDICTOR_CACHE.pop(id(task), None)
+        del model, task
+
+    work = max(p["residual"] / p["unit0"] for p in points if p["n_tta"] == 1)
+    tta = max((p["residual"] - work * p["unit0"]) / p["tta_unit"]
+              for p in points if p["n_tta"] > 1)
+    ok = all(RATIO[0] <= p["ratio"] <= RATIO[1] for p in points)
+    print(f"least constants covering every point: INFER_WORK_UNITS {work:.3f}, "
+          f"TTA_WORK_UNITS {tta:.3f} (module: {memory.INFER_WORK_UNITS}, "
+          f"{memory.TTA_WORK_UNITS}); every ratio in {list(RATIO)}: {ok}", flush=True)
+    edge = guard_edge(torch, dev, rng, kw, memory, ResidualUNet3D, SegmentationTask,
+                      MemoryReader, predict_volumes_weighted_on_device)
+    ok = ok and edge["fits"] and RATIO[0] <= edge["ratio"] <= RATIO[1]
+    result = dict(card=smi, infer_work_units=memory.INFER_WORK_UNITS,
+                  tta_work_units=memory.TTA_WORK_UNITS, least_infer_work_units=work,
+                  least_tta_work_units=tta, ok=ok, edge=edge, points=points)
+    print(json.dumps({k: v for k, v in result.items() if k != "points"}), flush=True)
+    if out_path is not None:
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        out_path.write_text(json.dumps(result, indent=1))
+    return 0 if ok else 1
+
+
+def guard_edge(torch, dev, rng, kw, memory, ResidualUNet3D, SegmentationTask, MemoryReader,
+               predict):
+    """The largest 4-input, 4-class cube the guard admits on the Gaussian
+    stitch, run with the guard on: does what it admits fit?"""
+    c_in, classes = MODELS[-1]
+    model = ResidualUNet3D(c_in, classes, f_maps=32, dtype=torch.bfloat16, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+    task = SegmentationTask(model=model)
+    fmaps, params_b = model.config.feature_maps, memory.param_bytes(model)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    budget = memory.hbm_budget_bytes(dev)
+
+    def estimate(size):
+        return memory.device_stitch_bytes((size,) * 3, PATCH, OVERLAP, BATCH, c_in, 1, fmaps,
+                                          stitch="gaussian", params_bytes=params_b,
+                                          acc_channels=classes)[0]
+
+    size = SIZES[-1]
+    while estimate(size + 16) <= budget:
+        size += 16
+    # seeded 16-plane slabs repeated along z: the memory does not depend on the values
+    vol = np.empty((c_in, size, size, size), np.float16)
+    slab = rng.standard_normal((c_in, size, size, 16), np.float32).astype(np.float16)
+    for z in range(0, size, 16):
+        vol[..., z:z + 16] = slab[..., :size - z]
+    del slab
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        out = predict(task, None, ["edge"], reader=MemoryReader({"images": {"edge": vol}}),
+                      **{**kw, "hbm_guard": "error"})
+        torch.cuda.synchronize()
+        fits, error = out["edge"].shape == (1, size, size, size), None
+    except torch.cuda.OutOfMemoryError as exc:
+        fits, error = False, str(exc).splitlines()[0]
+    seconds = time.perf_counter() - t0
+    reserved = torch.cuda.max_memory_reserved(dev)
+    allocated = torch.cuda.max_memory_allocated(dev)
+    est = estimate(size)
+    edge = dict(in_channels=c_in, classes=classes, stitch="gaussian", size=size,
+                budget=budget, estimate=est, next_estimate=estimate(size + 16),
+                reserved=reserved, allocated=allocated, ratio=est / reserved, fits=fits,
+                error=error, seconds=seconds)
+    print(f"guard edge: in {c_in} classes {classes} gaussian {size}^3 n_tta 1: estimate "
+          f"{est / 2**30:.3f} GiB of a {budget / 2**30:.3f} GiB budget ({size + 16}^3 would "
+          f"need {edge['next_estimate'] / 2**30:.3f}); admitted and "
+          f"{'fits' if fits else 'does NOT fit: ' + str(error)}: max_memory_reserved "
+          f"{reserved / 2**30:.3f} GiB (allocated {allocated / 2**30:.3f}), ratio "
+          f"{est / reserved:.3f}; {seconds:.2f} s", flush=True)
+    return edge
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -33,7 +33,19 @@ drives the two main paths with launch counts:
   with ``--resume``, ``--device_sampler``, ``--device_sampler
   --landmark_group``) and a LandmarkNet ``predict`` with both stitches and
   ``prediction.landmarks``, with indexed K2 held on the 4-channel label
-  store.
+  store;
+- predict surface (a child process too): ``train_seg -c
+  configs/seg_brats_bf16.yaml`` (4 modalities, 4 classes) for 1 epoch from
+  a seeded NIfTI directory, ``predict`` on its checkpoint with the
+  ``crop``, ``device`` and ``gaussian`` stitches without and with ``tta:
+  true`` into ``*.nii`` (volumes/min, peak reserved memory against the HBM
+  guard's estimate, idle share), ``tpu_mednet_torch.utils.export`` on a
+  zarr prediction, the guard under ``error`` and a forced host spill, and
+  a LandmarkNet of ``configs/landmarks.yaml`` width through the Gaussian
+  stitch and a ``tta_flips=(0, 2)`` device stitch, with exact K1/K2
+  launches per call, TTA ``device`` vs ``crop`` and ``gaussian`` vs its
+  spill inside the tie band, and K2's 4-channel f16 -> bf16 gather held
+  byte-equal.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero without a result when CUDA is unavailable or the package is not
@@ -58,6 +70,7 @@ fp32 without tensor cores).
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib.util
 import json
 import subprocess
@@ -145,6 +158,22 @@ LDMK_RUNS = (("ldmk_train", "ldmk", 2, ()),
               ("--device_sampler", "--landmark_group", "landmarks")))
 LDMK_PROFILED = {("ldmk_resume", 2), ("ldmk_device", 1), ("ldmk_landmarks", 1)}
 LDMK_PREDICT_TURNS = 3
+# predict surface: train_seg -c configs/seg_brats_bf16.yaml (4 modalities, 4
+# classes, batch 2 of 128^3, 8 patches per subject) for 1 epoch from a seeded
+# NIfTI directory of six subjects (four train, one val, the val subject and
+# one more to predict), then predict -c configs/predict.yaml with each
+# stitch without and with tta, SURFACE_CALLS calls each in turns; and a
+# LandmarkNet of configs/landmarks.yaml width on one LDMK_VOLUME
+BRATS_SUBJECTS = (("b0", (160, 160, 136)), ("b1", (152, 160, 136)),
+                  ("b2", (160, 152, 144)), ("b3", (160, 160, 128)),
+                  ("b4", (160, 144, 136)), ("b5", (152, 160, 144)))
+BRATS_SPLITS = dict(train=["b0", "b1", "b2", "b3"], val=["b4"], test=["b4", "b5"])
+BRATS_MODALITIES, BRATS_CLASSES, BRATS_BATCH, BRATS_PATCHES_PER_SUBJECT = 4, 4, 2, 8
+BRATS_AFFINE = np.array([[-1.0, 0.0, 0.0, 90.0], [0.0, -1.0, 0.0, 126.0],
+                         [0.0, 0.0, 1.0, -72.0], [0.0, 0.0, 0.0, 1.0]])
+STITCHES = ("crop", "device", "gaussian")
+SURFACE_CALLS = 3
+LDMK_VOLUME = (192, 192, 160)
 LDMK_METRICS = {"train_loss", "class_loss", "regression_loss", "lr", "patches_per_sec",
                 "val_loss", "val_class_loss", "val_regression_loss", "val_landmark_error",
                 "val_dice0", "val_dice1"}
@@ -1083,7 +1112,7 @@ class CliRecorder:
 
     def wrappers(self) -> contextlib.ExitStack:
         from tpu_mednet_torch.data import DevicePatchSampler
-        from tpu_mednet_torch.inference import device_sliding, sliding_window
+        from tpu_mednet_torch.inference import device_sliding, sliding_window, weighted
         from tpu_mednet_torch.train import CheckpointManager, Trainer
 
         rec, torch = self, self.torch
@@ -1140,6 +1169,8 @@ class CliRecorder:
         stack.enter_context(wrapped(CheckpointManager, "save", timed_save))
         stack.enter_context(wrapped(sliding_window, "predict_volumes", timed_stitch))
         stack.enter_context(wrapped(device_sliding, "predict_volumes_on_device",
+                                    timed_stitch))
+        stack.enter_context(wrapped(weighted, "predict_volumes_weighted_on_device",
                                     timed_stitch))
         return stack
 
@@ -1807,18 +1838,416 @@ def landmarks_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
                 landmarks=ldmk)
 
 
-def run_landmarks_child() -> dict:
-    """``landmarks_phase`` in a child process on the same card (it reuses
-    the built library), which writes its results as JSON; it fails the run
-    if the child does."""
+def write_brats_nifti(root: Path) -> None:
+    """Six seeded 4-modality subjects as a NIfTI directory: ``images/<key>.nii``
+    (X, Y, Z, 4) fp32, uncompressed, and ``labels/<key>.nii.gz`` uint8
+    classes 0-3 (three ellipsoids, apart), each modality brighter by class
+    with its own gain; an oblique-free RAS affine with an offset; and the
+    key files."""
+    from tpu_mednet_torch.utils.nifti import save_nifti
+
+    rng = np.random.default_rng(5)
+    for group in ("images", "labels"):
+        (root / "brats_nii" / group).mkdir(parents=True)
+    centres = ((0.35, 0.35, 0.4), (0.65, 0.4, 0.6), (0.45, 0.7, 0.45))
+    gains = np.asarray([0.75, 0.5, 1.0, 0.25], np.float32)
+    for key, shape in BRATS_SUBJECTS:
+        lbl = np.zeros(shape, np.uint8)
+        grid = np.ogrid[tuple(slice(0, s) for s in shape)]
+        for c, frac in enumerate(centres, start=1):
+            centre = np.asarray(frac) * shape + rng.uniform(-6, 6, size=3)
+            radii = rng.uniform(14, 24, size=3)
+            lbl[sum(((g - m) / r) ** 2 for g, m, r in zip(grid, centre, radii)) <= 1] = c
+        img = rng.standard_normal((*shape, BRATS_MODALITIES), np.float32) * 0.5
+        img += lbl[..., None].astype(np.float32) * gains
+        save_nifti(root / "brats_nii" / "images" / f"{key}.nii", img, BRATS_AFFINE)
+        save_nifti(root / "brats_nii" / "labels" / f"{key}.nii.gz", lbl, BRATS_AFFINE)
+    for split, keys in BRATS_SPLITS.items():
+        (root / f"brats_{split}.txt").write_text("\n".join(keys) + "\n")
+
+
+def brats_train_argv(root: Path):
+    return ["-c", str(HERE / "configs" / "seg_brats_bf16.yaml"),
+            "--data_path", str(root / "brats_nii"),
+            "--train_set", str(root / "brats_train.txt"),
+            "--val_set", str(root / "brats_val.txt"),
+            "--model_dir", str(root / "brats"), "--log_dir", str(root / "brats" / "logs"),
+            "--max_epochs", "1"]
+
+
+def brats_predict_argv(root: Path, stitch: str, tta: bool, out: Path):
+    return ["-c", str(HERE / "configs" / "predict.yaml"),
+            f"base.data={root / 'brats_nii'}",
+            f"prediction.test_set={root / 'brats_test.txt'}",
+            f"prediction.checkpoint={root / 'brats' / 'best'}",
+            f"prediction.data={out}", f"prediction.stitch={stitch}",
+            f"prediction.tta={'true' if tta else 'false'}"]
+
+
+def n_tiles(shape):
+    return int(np.prod([-(-s // (p - 2 * o)) for s, p, o in zip(shape, PATCH, OVERLAP)]))
+
+
+def stitch_batches(stitch, shapes):
+    """Forward batches of one predict call: per volume on the card, over the
+    concatenated tile stream on the host (``GridPatchSampler``)."""
+    if stitch == "crop":
+        return -(-sum(n_tiles(s) for s in shapes) // BATCH)
+    return sum(-(-n_tiles(s) // BATCH) for s in shapes)
+
+
+def tta_band(torch, gn, P, task, vol, grid_corners, dev, flips=()):
+    """Tie bands of the TTA-averaged class probabilities of ``task`` on
+    ``vol``: the plain path's top-2 margin at every voxel, stitched by tile
+    cores (``crop``, ``device``) and Gaussian-weighted (``gaussian``), and
+    max |kernel - plain| of those probabilities over the device stitch's
+    tiles.  A weighted average of tiles each within that error of the
+    plain path stays within it, so the same bound holds for both stitches."""
+    import torch.nn.functional as F
+
+    from tpu_mednet_torch.inference.common import tta_split_activations
+    from tpu_mednet_torch.inference.weighted import gaussian_window
+
+    nh = getattr(task, "num_heatmaps", 0)
+    img = np.asarray(vol.shape[1:])
+    corners, padded = grid_corners(img, PATCH, OVERLAP)
+    n_valid = len(corners)
+    corners = np.concatenate([corners, np.repeat(corners[-1:], -len(corners) % BATCH, 0)])
+    pads = [int(p) for o, pd, n in reversed(list(zip(OVERLAP, padded, img)))
+            for p in (o, pd - n - o)]
+    v = F.pad(torch.from_numpy(vol).to(dev).permute(1, 2, 3, 0).contiguous(), (0, 0, *pads))
+    w = torch.from_numpy(gaussian_window(PATCH)).to(dev)
+    size = tuple(padded.tolist())
+    core_margin = torch.zeros(size, device=dev)
+    acc = torch.zeros((task.model.config.out_channels - nh, *size), device=dev)
+    wacc = torch.zeros(size, device=dev)
+    err = 0.0
+    core = tuple(slice(o, p - o) for o, p in zip(OVERLAP, PATCH))
+    for i in range(0, len(corners), BATCH):
+        batch = corners[i:i + BATCH]
+        tiles = P.extract_patches_plain(v, batch, PATCH, out_dtype=task.model.config.dtype)
+        tiles = tiles.permute(0, 4, 1, 2, 3)
+        probs = tta_split_activations(task, tiles, flips)[:, nh:]
+        with plain_kernels(gn, P):
+            probs_p = tta_split_activations(task, tiles, flips)[:, nh:]
+        err = max(err, float((probs - probs_p).abs().max()))
+        top2 = probs_p.topk(2, dim=1).values
+        m = top2[:, 0] - top2[:, 1]
+        for j, ((x0, y0, z0), tile) in enumerate(zip(batch.tolist(), m[(slice(None), *core)])):
+            core_margin[x0 + OVERLAP[0]:x0 + PATCH[0] - OVERLAP[0],
+                        y0 + OVERLAP[1]:y0 + PATCH[1] - OVERLAP[1],
+                        z0 + OVERLAP[2]:z0 + PATCH[2] - OVERLAP[2]] = tile
+            if i + j < n_valid:
+                sl = (slice(x0, x0 + PATCH[0]), slice(y0, y0 + PATCH[1]),
+                      slice(z0, z0 + PATCH[2]))
+                acc[(slice(None), *sl)] += probs_p[j] * w
+                wacc[sl] += w
+    top2 = (acc / wacc.clamp_min(1e-8)).topk(2, dim=0).values
+    crop = tuple(slice(o, o + s) for o, s in zip(OVERLAP, img))
+    return dict(core=core_margin[crop].cpu().numpy(),
+                weighted=(top2[0] - top2[1])[crop].cpu().numpy(), err=err)
+
+
+def check_gather_c4(torch, P, grid_corners, dev, gen):
+    """K2's 4-channel f16 -> bf16 gather at seg_brats_bf16's predict tiles:
+    8 windows of 96^3 x 4 from a test subject's padded volume, byte-equal to
+    plain (and in fp32 and f16), timed."""
+    shape = dict(BRATS_SUBJECTS)[BRATS_SPLITS["test"][-1]]
+    corners, padded = grid_corners(shape, PATCH, OVERLAP)
+    corners = corners[-BATCH:]
+    vol = torch.randn((*padded.tolist(), BRATS_MODALITIES), generator=gen, device=dev).half()
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        got = P.extract_patches(vol, corners, PATCH, out_dtype=dtype)
+        ref = P.extract_patches_plain(vol, corners, PATCH, out_dtype=dtype)
+        if got.shape != ref.shape or not torch.equal(got.view(-1).view(torch.uint8),
+                                                     ref.view(-1).view(torch.uint8)):
+            raise AssertionError(f"gather_patches 4-channel {dtype}: not byte-equal to plain")
+    gather = lambda: P.extract_patches(vol, corners, PATCH, out_dtype=torch.bfloat16)
+    t_dev, kept, _ = kernel_ms(torch, gather, "gather", 20)
+    t_p = cuda_ms(lambda: P.extract_patches_plain(vol, corners, PATCH,
+                                                  out_dtype=torch.bfloat16), reps=5)
+    b = bound_ms(BATCH * int(np.prod(PATCH)) * BRATS_MODALITIES * (2 + 2), 0)
+    log(f"K2 {tuple(vol.shape)} f16 -> {BATCH}x{PATCH}x{BRATS_MODALITIES} bf16 (seg_brats_bf16 "
+        f"tiles): {t_dev:.4f} ms device (profiler kept {kept:g} of the launches; bound "
+        f"{b:.4f}); plain {t_p:.4f} ms; byte-equal in bf16/fp32/f16")
+    return dict(ms=t_dev, plain_ms=t_p, bound_ms=b, max_abs_err=0.0, profiler_kept=kept,
+                per=f"{BATCH} windows of 96^3 x {BRATS_MODALITIES} f16 -> bf16 "
+                    "(seg_brats_bf16 predict tiles)")
+
+
+def run_predict_surface(torch, gn, P, grid_corners, dev, gen):
+    """The rest of ``predict`` as a user runs it, launches counted from 0:
+    ``train_seg -c configs/seg_brats_bf16.yaml`` for 1 epoch from a seeded
+    NIfTI directory (only the paths overridden), then ``predict -c
+    configs/predict.yaml`` on its ``best/`` with each stitch without and
+    with ``tta: true``, ``SURFACE_CALLS`` calls of each in turns, writing
+    ``*.nii``; one more ``device`` call into zarr for
+    ``tpu_mednet_torch.utils.export``; the guard under ``error`` (raises
+    before any upload) and under ``warn`` with a budget below the estimate
+    (the Gaussian stitch spilled to the host); a LandmarkNet of
+    ``configs/landmarks.yaml`` width (seeded weights) through one Gaussian
+    and one ``tta_flips=(0, 2)`` device call.  Then the checks: exact K1
+    and K2 launches of every run, TTA ``device`` against TTA ``crop`` and
+    ``gaussian`` against its spill inside the tie band, the NIfTI round
+    trip and the export, and K2's 4-channel gather byte-equal."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from tpu_mednet_torch.cli import predict, train_seg
+    from tpu_mednet_torch.data import MemoryReader, NiftiReader, ZarrReader
+    from tpu_mednet_torch.inference import (predict_volumes_on_device,
+                                            predict_volumes_weighted_on_device)
+    from tpu_mednet_torch.tasks import LandmarkTask, SegmentationTask
+    from tpu_mednet_torch.train import load_for_inference
+    from tpu_mednet_torch.utils import export, memory
+    from tpu_mednet_torch.utils.nifti import load_nifti
+
+    rec = CliRecorder(torch, gn, P, set(), lambda tag, sampler: False, "predict surface")
+    test, shapes = BRATS_SPLITS["test"], dict(BRATS_SUBJECTS)
+    test_shapes = [shapes[k] for k in test]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_surface_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_brats_nifti(root)
+        log(f"predict surface: seeded NIfTI directory of {len(BRATS_SUBJECTS)} subjects x "
+            f"{BRATS_MODALITIES} modalities ({', '.join(f'{k} {s}' for k, s in BRATS_SUBJECTS)})"
+            f" in {time.perf_counter() - t0:.1f} s")
+        outs, reserved, tags = {}, {}, []
+        with rec.wrappers():
+            torch.cuda.empty_cache()
+            reset_counts(gn, P)
+            torch.cuda.reset_peak_memory_stats(dev)
+            rec.cli("brats_train", train_seg.main, brats_train_argv(root))
+            peak_train = dict(allocated=torch.cuda.max_memory_allocated(dev),
+                              reserved=torch.cuda.max_memory_reserved(dev))
+            for turn in range(1, SURFACE_CALLS + 1):
+                for tta in (False, True):
+                    for stitch in STITCHES:
+                        tag = f"predict_{stitch}_{'tta' if tta else 'plain'}_{turn}"
+                        outs[stitch, tta] = root / f"pred_{stitch}_{int(tta)}.nii"
+                        gc.collect()  # the training run's cycles hold card tensors
+                        torch.cuda.empty_cache()
+                        torch.cuda.reset_peak_memory_stats(dev)
+                        held = torch.cuda.memory_reserved(dev)
+                        rec.cli(tag, predict.main,
+                                brats_predict_argv(root, stitch, tta, outs[stitch, tta]))
+                        reserved[tag] = (torch.cuda.max_memory_reserved(dev), held)
+                        tags.append(tag)
+            rec.cli("predict_device_zarr", predict.main,
+                    brats_predict_argv(root, "device", False, root / "pred_device.zarr"))
+
+            weights, hp = load_for_inference(root / "brats" / "best")
+            task = SegmentationTask.from_hparams(
+                SimpleNamespace(**{k: predict._coerce(v) for k, v in hp.items()}), device=dev)
+            task.model.load_state_dict(weights)
+            kw = dict(patch_size=list(PATCH), patch_overlap=list(OVERLAP), batch_size=BATCH,
+                      device=dev)
+            # the guard under error: raises before anything is read or uploaded
+            launched, held = launch_counts(gn, P), torch.cuda.memory_allocated(dev)
+            try:
+                predict_volumes_weighted_on_device(task, root / "brats_nii", test,
+                                                   hbm_guard="error", hbm_budget=1 << 20, **kw)
+            except memory.HBMBudgetError as exc:
+                log(f"predict surface: hbm_guard error: {str(exc)[:160]}...")
+            else:
+                raise AssertionError("predict surface: hbm_guard error did not raise")
+            if (launch_counts(gn, P) != launched
+                    or torch.cuda.memory_allocated(dev) != held):
+                raise AssertionError("predict surface: the guard's error came after an upload")
+            # the guard under warn with a budget below the estimate: every
+            # volume goes to the host Gaussian stitch
+            spilled = predict_volumes_weighted_on_device(
+                task, root / "brats_nii", test, hbm_guard="warn", hbm_budget=1 << 20, **kw)
+            rec.snapshots["gaussian_spill"] = launch_counts(gn, P)
+
+            # LandmarkNet at configs/landmarks.yaml width, seeded weights
+            ldmk = LandmarkTask.from_hparams(SimpleNamespace(
+                in_channels=1, out_channels=LDMK_HEATMAPS + 2, fmaps=64, bf16=True,
+                loss_regression_weight=[0.015] * LDMK_HEATMAPS), device=dev,
+                generator=torch.Generator().manual_seed(7))
+            vol = np.random.default_rng(8).standard_normal(
+                (1, *LDMK_VOLUME), np.float32).astype(np.float16)
+            ldmk_store = MemoryReader({"images": {"l0": vol}})
+            ldmk_out = {}
+            ldmk_out["gaussian"] = predict_volumes_weighted_on_device(
+                ldmk, None, ["l0"], reader=ldmk_store, **kw)["l0"].array
+            rec.snapshots["ldmk_gaussian"] = launch_counts(gn, P)
+            ldmk_out["device_tta"] = predict_volumes_on_device(
+                ldmk, None, ["l0"], reader=ldmk_store, tta_flips=(0, 2), **kw)["l0"].array
+            rec.snapshots["ldmk_device_tta02"] = launch_counts(gn, P)
+            counts = launch_counts(gn, P)
+
+        # launches: K2 once per batch on the card's stitches whatever the
+        # TTA, none on the host's; K1 27 x 2^k per batch
+        per_run = rec.per_run(counts)
+        log(f"predict surface: launches {counts}; by run {per_run}")
+        steps = len(BRATS_SPLITS["train"]) * BRATS_PATCHES_PER_SUBJECT // BRATS_BATCH
+        if (per_run["brats_train"]["gn_bwd_reduce"] != 27 * steps
+                or per_run["brats_train"]["gather_patches"]):
+            raise AssertionError(f"predict surface: brats training launches "
+                                 f"{per_run['brats_train']}, expected 27 x {steps} steps")
+        expected = {}
+        for tag in tags:
+            stitch, mode = tag.split("_")[1:3]
+            n_b = stitch_batches(stitch, test_shapes)
+            expected[tag] = (27 * n_b * (8 if mode == "tta" else 1),
+                             0 if stitch == "crop" else n_b)
+        expected["predict_device_zarr"] = (27 * stitch_batches("device", test_shapes),
+                                           stitch_batches("device", test_shapes))
+        expected["gaussian_spill"] = (27 * stitch_batches("crop", test_shapes), 0)
+        n_l = stitch_batches("device", [LDMK_VOLUME])
+        expected["ldmk_gaussian"] = (27 * n_l, n_l)
+        expected["ldmk_device_tta02"] = (27 * 4 * n_l, n_l)
+        for tag, (k1, k2) in expected.items():
+            c = per_run[tag]
+            if (c["gn_moments"], c["gn_apply"], c["gather_patches"], c["gn_bwd_reduce"]) != (
+                    k1, k1, k2, 0):
+                raise AssertionError(f"predict surface: {tag} launched {c}, expected K1 {k1}, "
+                                     f"K2 {k2}")
+
+        # outputs: shapes, classes, the affine carried, NIfTI read back
+        reader = NiftiReader(root / "brats_nii")
+        vols = dict(zip(test, reader.read(test, "images", np.float16)))
+        affine_in = reader.get_data_attribute(test, "images", "affine")
+        masks = {}
+        for (stitch, tta), path in outs.items():
+            r = NiftiReader(path)
+            masks[stitch, tta] = dict(zip(test, r.read(test, "prediction", dtype=None)))
+            for key in test:
+                m = masks[stitch, tta][key]
+                if m.shape != (1, *shapes[key]) or m.dtype != np.uint8 or m.max() >= BRATS_CLASSES:
+                    raise AssertionError(f"predict surface: bad mask {stitch} {tta} {key} "
+                                         f"{m.shape} {m.dtype}")
+                if not np.array_equal(r.get_data_attribute([key], "prediction", "affine")[key],
+                                      affine_in[key]):
+                    raise AssertionError(f"predict surface: {stitch} {key}: the affine changed")
+        with ZarrReader(root / "pred_device.zarr") as r:
+            zarr_masks = dict(zip(test, r.read(test, "prediction", np.uint8)))
+        for key in test:
+            data, affine = load_nifti(outs["device", False] / "prediction" / f"{key}.nii.gz")
+            if not (np.array_equal(data[None], zarr_masks[key])
+                    and np.array_equal(affine, affine_in[key])):
+                raise AssertionError(f"predict surface: {key}: load_nifti does not read back "
+                                     "what to_nifti wrote")
+        # the export tool on the zarr store
+        rc = export.main(["--data_path", str(root / "pred_device.zarr"), "--data_group",
+                          "prediction", "--export_dir", str(root / "export")])
+        exported = sorted((root / "export" / "pred_device" / "prediction").iterdir())
+        log(f"predict surface: export exit code {rc}: {[p.name for p in exported]}")
+        for key in test:
+            data, affine = load_nifti(root / "export" / "pred_device" / "prediction"
+                                      / f"{key}_prediction_c0.nii.gz")
+            if rc or data.dtype != np.float32 or not np.array_equal(data, zarr_masks[key][0]):
+                raise AssertionError(f"predict surface: export of {key} differs from the store")
+
+        # TTA device vs TTA crop, gaussian vs its spill: inside the tie band
+        agreement = {}
+        with torch.inference_mode():
+            for key in test:
+                bands = {flips: tta_band(torch, gn, P, task, vols[key], grid_corners, dev, flips)
+                         for flips in ((0, 1, 2), ())}
+                for name, a, b, band in (
+                        ("device_vs_crop_tta", masks["device", True][key],
+                         masks["crop", True][key], bands[0, 1, 2]["core"]),
+                        ("gaussian_vs_spill", masks["gaussian", False][key],
+                         spilled[key].array, bands[()]["weighted"])):
+                    err = bands[(0, 1, 2) if "tta" in name else ()]["err"]
+                    flips = a[0] != b[0]
+                    outside = int((flips & (band > 2 * err)).sum())
+                    agreement[f"{name}_{key}"] = dict(differ=float(flips.mean()),
+                                                      outside_band=outside, err=err)
+                    log(f"predict surface: {key} {name}: class maps differ on "
+                        f"{flips.mean():.6f} of voxels, outside the tie band on {outside} "
+                        f"(max |kernel - plain| probability {err:.3g})")
+                    if outside:
+                        raise AssertionError(f"predict surface: {key} {name}: outside the "
+                                             "tie band")
+        # LandmarkNet outputs
+        for name, out in ldmk_out.items():
+            if out.shape != (LDMK_HEATMAPS + 1, *LDMK_VOLUME) or out[-1].max() > 1:
+                raise AssertionError(f"predict surface: LandmarkNet {name} {out.shape}")
+        ldmk_diff = int(np.abs(ldmk_out["gaussian"][:-1].astype(np.int16)
+                               - ldmk_out["device_tta"][:-1].astype(np.int16)).max())
+        log(f"predict surface: LandmarkNet f_maps 64 {LDMK_VOLUME}: gaussian and tta [0, 2] "
+            f"device heatmaps max |diff| {ldmk_diff}, class maps differ on "
+            f"{float((ldmk_out['gaussian'][-1] != ldmk_out['device_tta'][-1]).mean()):.6f}")
+
+        # memory: each card stitch's peak reserved over what the process held
+        # before the call (the CLI builds its model inside it), against the
+        # guard's estimate (which counts the model's parameters)
+        params_b = memory.param_bytes(task.model)
+        mem = {}
+        for stitch in ("device", "gaussian"):
+            for tta in (False, True):
+                est = max(memory.device_stitch_bytes(
+                    s, PATCH, OVERLAP, BATCH, BRATS_MODALITIES, 1, task.model.config.feature_maps,
+                    stitch=stitch, params_bytes=params_b, n_tta=8 if tta else 1,
+                    acc_channels=BRATS_CLASSES)[0] for s in test_shapes)
+                mode = "tta" if tta else "plain"
+                peak, held = max(reserved[f"predict_{stitch}_{mode}_{t}"]
+                                 for t in range(1, SURFACE_CALLS + 1))
+                mem[f"{stitch}_{mode}"] = dict(max_memory_reserved=peak, held_before=held,
+                                               estimate=est, ratio=est / (peak - held))
+                log(f"predict surface: {stitch} tta {tta}: max_memory_reserved "
+                    f"{peak / 2**30:.3f} GiB over its calls, {held / 2**30:.3f} GiB held "
+                    f"before the call; the guard's estimate {est / 2**30:.3f} GiB (ratio to "
+                    f"the call's own {est / (peak - held):.3f})")
+
+        # idle share of one predict call of each stitch, profiled apart
+        idle = {}
+        for stitch in STITCHES:
+            box = {}
+
+            def go():
+                t = time.perf_counter()
+                if predict.main(brats_predict_argv(root, stitch, False,
+                                                   root / "profiled.nii")) != 0:
+                    raise AssertionError("predict surface: a profiled call failed")
+                box["wall"] = time.perf_counter() - t
+
+            rows, kept = profile_kept(torch, gn, go, 1)
+            busy = sum(ms for ms, _, _ in rows) / 1e3
+            idle[stitch] = dict(seconds=box["wall"], device_busy_s=busy, profiler_kept=kept,
+                                idle_share=idle_share(busy, box["wall"], kept))
+            log(f"predict surface: profiled {stitch} call: {box['wall']:.3f} s, device busy "
+                f"{busy:.3f} s (profiler kept {kept:g} of the gn_moments launches), idle share "
+                f"{idle[stitch]['idle_share']:.4f}")
+        del task, weights, ldmk
+
+    k2 = check_gather_c4(torch, P, grid_corners, dev, gen)
+    vpm = {f"{st}_{mode}": rec.vpm(f"predict_{st}_{mode}_")
+           for mode in ("plain", "tta") for st in STITCHES}
+    log(f"predict surface: seg_brats_bf16 training 1 epoch in {rec.walls['brats_train']:.2f} s, "
+        f"peak memory allocated {peak_train['allocated'] / 2**30:.2f} GiB, reserved "
+        f"{peak_train['reserved'] / 2**30:.2f} GiB; predict volumes/min over {SURFACE_CALLS} "
+        f"calls of {len(test)} volumes: " + ", ".join(
+            f"{k} median {v['median']:.2f} (min {v['min']:.2f}, max {v['max']:.2f})"
+            for k, v in vpm.items()))
+    return counts, dict(per_run=per_run, brats_check=k2), dict(
+        predict_volumes_per_min=vpm, idle=idle, memory=mem, peak_train=peak_train,
+        agreement=agreement, cli_seconds=rec.walls, stitches=rec.stitches,
+        landmark_heatmap_max_diff=ldmk_diff)
+
+
+def predict_surface_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
+    probe_profiler(torch, dev)
+    log_clocks("predict surface")
+    counts, k2, surface = run_predict_surface(torch, gn, P, grid_corners, dev, gen)
+    return dict(counts=counts, k2=k2, surface=surface)
+
+
+def run_child(flag: str, tag: str) -> dict:
+    """A phase in a child process on the same card (it reuses the built
+    library), which writes its results as JSON; it fails the run if the
+    child does."""
     import tempfile
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ldmk_") as tmp:
-        out = Path(tmp) / "landmarks.json"
-        rc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--landmarks",
-                             str(out)], timeout=900).returncode
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_") as tmp:
+        out = Path(tmp) / f"{tag}.json"
+        rc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag, str(out)],
+                            timeout=900).returncode
         if rc != 0:
-            raise AssertionError(f"landmarks phase: the child process exited with {rc}")
+            raise AssertionError(f"{tag} phase: the child process exited with {rc}")
         return json.loads(out.read_text())
 
 
@@ -1858,9 +2287,10 @@ def main(argv) -> int:
         for name in ("yaml", "h5py", "zarr", "tensorboardX")))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    if argv[:1] == ["--landmarks"]:  # the child of run_landmarks_child
+    children = {"--landmarks": landmarks_phase, "--predict-surface": predict_surface_phase}
+    if argv[:1] and argv[0] in children:  # a child of run_child
         _build.build()
-        out = landmarks_phase(torch, gn, P, _grid_corners, dev, gen)
+        out = children[argv[0]](torch, gn, P, _grid_corners, dev, gen)
         Path(argv[1]).write_text(json.dumps(out))
         return 0
 
@@ -1907,18 +2337,25 @@ def main(argv) -> int:
 
     # 9. the landmark workload, in a fresh process: late in this one the
     # profiler drops records (device_rows)
-    ldmk_all = run_landmarks_child()
+    ldmk_all = run_child("--landmarks", "landmarks")
     ldmk_counts, ldmk_k2, ldmk = ldmk_all["counts"], ldmk_all["k2"], ldmk_all["landmarks"]
     k1_ldmk, k1b_ldmk = ldmk_all["gn_f64"], ldmk_all["gn_backward_f64"]
     ldmk_parity = ldmk_all["parity"]
 
+    # 10. the rest of predict (seg_brats_bf16 from NIfTI, the Gaussian
+    # stitch, TTA, the guard, the export tool), in a fresh process too
+    surface_all = run_child("--predict-surface", "predict_surface")
+    surface_counts, surface_k2 = surface_all["counts"], surface_all["k2"]
+
     def launches(name):
         by_path = dict(serving=counts[name], training=train_counts[name],
-                       entry_points=entry_counts[name], landmarks=ldmk_counts[name])
+                       entry_points=entry_counts[name], landmarks=ldmk_counts[name],
+                       predict_surface=surface_counts[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
-    def gather_launches(path, entry, landmarks):
-        by_path = dict(serving=0, training=0, entry_points=entry, landmarks=landmarks)
+    def gather_launches(path, entry, landmarks, surface):
+        by_path = dict(serving=0, training=0, entry_points=entry, landmarks=landmarks,
+                       predict_surface=surface)
         by_path[path] = counts["gather_patches"] if path == "serving" \
             else train_counts["gather_patches"]
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
@@ -1958,13 +2395,15 @@ def main(argv) -> int:
              **common),
         dict(name="gather_patches", source="tpu_mednet_torch/csrc/patches.cu",
              replaces="tpu_mednet/ops/pallas/patches.py:95",
-             **gather_launches("serving", entry_k2["plain"], ldmk_k2["plain"]),
+             **gather_launches("serving", entry_k2["plain"], ldmk_k2["plain"],
+                               surface_counts["gather_patches"]),
              max_abs_err=k2["err"],
              ms=k2["ms"], event_ms=k2["wrapper_ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound"], library_ms=None, profiler_kept=k2["kept"],
              library_call="none: no one PyTorch call gathers N windows at host "
                           "corners with the cast fused in",
-             per="one batch of 8 tiles of 96^3, f16 -> bf16", **common),
+             per="one batch of 8 tiles of 96^3, f16 -> bf16",
+             brats_check=surface_k2["brats_check"], **common),
         dict(name="gn_bwd_reduce", source="tpu_mednet_torch/csrc/groupnorm.cu",
              replaces="tpu_mednet/ops/pallas/groupnorm.py:149-175 (custom VJP of the "
                       "kernel at :94) with the normalize chain's autodiff",
@@ -2002,7 +2441,7 @@ def main(argv) -> int:
         dict(name="gather_patches_indexed", source="tpu_mednet_torch/csrc/patches.cu",
              replaces="tpu_mednet/ops/pallas/patches.py:95 (and the sampler's gather, "
                       "tpu_mednet/data/device_sampler.py:171-190)",
-             **gather_launches("training", entry_k2["indexed"], ldmk_k2["indexed"]),
+             **gather_launches("training", entry_k2["indexed"], ldmk_k2["indexed"], 0),
              max_abs_err=k2i["err"],
              ms=k2i["ms"], plain_ms=k2i["plain_ms"], bound_ms=k2i["bound"],
              profiler_kept=k2i["kept"],
@@ -2033,6 +2472,8 @@ def main(argv) -> int:
                     "nonfinite_guard": guard, "gn_128": k1_organ, "gn_backward_128": k1b_organ}))
     log(json.dumps({"landmarks": ldmk, "launches_by_run": ldmk_k2["per_run"],
                     "parity": ldmk_parity, "gn_f64": k1_ldmk, "gn_backward_f64": k1b_ldmk}))
+    log(json.dumps({"predict_surface": surface_all["surface"],
+                    "launches_by_run": surface_k2["per_run"]}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

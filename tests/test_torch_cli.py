@@ -8,8 +8,14 @@ zarr stores that the JAX package's ``ZarrReader`` reads.  Their masks
 equal the JAX package's ``predict_volumes`` on the carried weights on
 every voxel where the JAX logits' top-2 margin exceeds 1e-4 (the tolerance
 on record).  A reference-style ``.ckpt`` from the JAX package's
-``save_reference_checkpoint`` predicts through the port.  The modes that
-wait are refused, and both CLIs exit non-zero without CUDA unless
+``save_reference_checkpoint`` predicts through the port.  ``predict``
+with ``stitch: gaussian``, with ``tta: true``, and with both from a NIfTI
+directory into ``*.nii`` (on the card's stitch and spilled to the host
+one by the HBM guard, which also raises under ``error``) is held against
+the JAX pipeline of the same stitch on the carried weights: class maps
+equal outside the 1e-4 top-2 band of JAX's (TTA- and Gaussian-)averaged
+probabilities (``test_torch_tta.assert_prediction_matches``).  The modes
+that wait are refused, and both CLIs exit non-zero without CUDA unless
 ``--device cpu`` is given.
 """
 
@@ -25,14 +31,19 @@ import torch
 
 from tpu_mednet.data import MemoryReader as JaxMemoryReader
 from tpu_mednet.data.readers import ZarrReader as JaxZarrReader
+from tests.test_torch_tta import assert_prediction_matches, core_stitch, jax_tile_activations
+from tests.test_torch_weighted import weighted_average
+from tpu_mednet.inference import weighted as jax_weighted
 from tpu_mednet.inference.device_sliding import _grid_corners as jax_grid_corners
 from tpu_mednet.inference.sliding_window import predict_volumes as jax_predict_volumes
 from tpu_mednet.tasks import SegmentationTask as JaxSegmentationTask
 from tpu_mednet.utils.torch_export import flax_to_state_dict, save_reference_checkpoint
 from tpu_mednet.utils.torch_import import convert_state_dict
 from tpu_mednet_torch.cli import predict, train_seg
-from tpu_mednet_torch.data import zarrlite
+from tpu_mednet_torch.data import NiftiReader, zarrlite
 from tpu_mednet_torch.train import CheckpointManager, load_for_inference
+from tpu_mednet_torch.utils.memory import HBMBudgetError
+from tpu_mednet_torch.utils.nifti import save_nifti
 
 REPO = Path(__file__).resolve().parent.parent
 SHAPES = {"s0": (24, 20, 22), "s1": (20, 24, 18), "s2": (22, 18, 24), "s3": (20, 20, 20),
@@ -40,6 +51,17 @@ SHAPES = {"s0": (24, 20, 22), "s1": (20, 24, 18), "s2": (22, 18, 24), "s3": (20,
 TIE_BAND = 1e-4
 HP = SimpleNamespace(in_channels=1, out_channels=3, fmaps=4, bf16=False, loss="DICE",
                      loss_weight=None)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The small models' many small ops run fastest on one thread; with
+    several test workers on the host, more threads oversubscribe its cores
+    (a spill test took 456 s instead of 25 s, six copies at once)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _write_store(root: Path, nan: bool = False) -> None:
@@ -193,12 +215,24 @@ def test_predict_from_a_reference_ckpt(run, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["prediction.stitch=gaussian"], "Gaussian"),
-    (["prediction.tta=true"], "TTA"),
+    (["prediction.stitch=gaussian"], None),
+    (["prediction.tta=true"], None),
     (["prediction.gpus=2"], "Multi-GPU"),
     (["prediction.landmarks=/tmp/l.json"], "landmarks"),
 ])
-def test_predict_refuses_what_waits(run, extra, match):
+def test_predict_refuses_what_waits(run, tmp_path, extra, match):
+    if match is None:  # the Gaussian stitch and TTA are ported: held against JAX
+        out = tmp_path / "pred.zarr"
+        assert predict.main(_predict_argv(run, "crop", None, *extra,
+                                          f"prediction.data={out}")) == 0
+        stitch, flips = ("gaussian", ()) if "gaussian" in extra[0] else ("crop", (0, 1, 2))
+        want, act = _jax_reference(run, stitch, flips)
+        with JaxZarrReader(out) as r:
+            masks = dict(zip(["s3", "s4"], r.read(["s3", "s4"], "prediction", np.uint8)))
+        for key, mask in masks.items():
+            assert_prediction_matches(np.asarray(mask), want[key], act[key],
+                                      what=f"{extra[0]} {key}")
+        return
     # landmarks are ported: a segmentation checkpoint has no heatmaps to
     # read them from, which is a configuration error
     error = ValueError if match == "landmarks" else NotImplementedError
@@ -261,3 +295,71 @@ def test_both_clis_refuse_to_run_without_cuda_unless_told(run, no_cuda, capsys):
     pred = [a for a in _predict_argv(run, "crop") if a not in ("--device", "cpu")]
     assert predict.main(pred) == 2
     assert "CUDA is not available" in capsys.readouterr().err
+
+
+def _write_nifti_dir(root: Path, run: Path) -> None:
+    """The test subjects of the zarr fixture as a NIfTI directory."""
+    with JaxZarrReader(run / "data.zarr") as r:
+        images = dict(zip(["s3", "s4"], r.read(["s3", "s4"], "images", np.float32)))
+        affines = r.get_data_attribute(["s3", "s4"], "images", "affine")
+    (root / "images").mkdir(parents=True)
+    for key, img in images.items():
+        save_nifti(root / "images" / f"{key}.nii", img[0], np.asarray(affines[key]))
+
+
+def _jax_reference(run, stitch, flips):
+    """JAX's masks of the test subjects through the ``stitch`` pipeline
+    (``crop``: ``predict_volumes``; ``gaussian``:
+    ``predict_volumes_weighted_on_device``) with ``tta_flips=flips`` on
+    ``best/``'s carried weights, and per subject the averaged activations
+    whose class margin sets the tie band."""
+    weights, _ = load_for_inference(run / "model" / "best")
+    variables = convert_state_dict({k: v.numpy() for k, v in weights.items()})
+    jtask = JaxSegmentationTask.from_hparams(HP)
+    keys, patch, overlap = ["s3", "s4"], [16] * 3, [4] * 3
+    with JaxZarrReader(run / "data.zarr") as r:
+        store = {"images": {k: np.asarray(v) for k, v in
+                            zip(keys, r.read(keys, "images", np.float32))}}
+    kw = dict(patch_size=patch, patch_overlap=overlap, batch_size=4, tta_flips=flips)
+    if stitch == "gaussian":
+        ref = jax_weighted.predict_volumes_weighted_on_device(
+            jtask, variables, None, keys, reader=JaxMemoryReader(store), **kw)
+    else:
+        ref = jax_predict_volumes(jtask, variables, None, keys, reader=JaxMemoryReader(store),
+                                  pad_mode="constant", **kw)
+    average = weighted_average if stitch == "gaussian" else core_stitch
+    act = {}
+    for key in keys:
+        tiles, corners, padded = jax_tile_activations(jtask, variables, store["images"][key],
+                                                      flips, patch, overlap)
+        act[key] = average(tiles, corners, padded, SHAPES[key], patch, overlap)
+    return {k: np.asarray(ref[k]) for k in keys}, act
+
+
+@pytest.mark.parametrize("stitch", ["gaussian"])
+def test_predict_nifti_directory_with_tta_and_the_guard(run, tmp_path, monkeypatch, stitch):
+    """``predict`` from a NIfTI directory into ``*.nii`` with ``tta: true``,
+    held against JAX's pipeline of the same stitch with the same flips,
+    with the affine carried; a budget of a few KiB spills every volume to
+    the host stitch under ``hbm_guard: warn`` (held against JAX the same
+    way) and raises under ``error``."""
+    _write_nifti_dir(tmp_path / "nii", run)
+    out = tmp_path / "pred.nii"
+    argv = _predict_argv(run, stitch, None, f"base.data={tmp_path / 'nii'}",
+                         f"prediction.data={out}", "prediction.tta=true")
+    assert predict.main(argv) == 0
+    want, act = _jax_reference(run, stitch, (0, 1, 2))  # before the budget (JAX reads it too)
+    monkeypatch.setenv("TPU_MEDNET_HBM_GB", "1e-5")
+    spilled = tmp_path / "spilled.nii"
+    assert predict.main([*argv, f"prediction.data={spilled}"]) == 0
+    for path in (out, spilled):
+        got = NiftiReader(path)
+        for key in ("s3", "s4"):
+            (mask,) = got.read([key], "prediction", dtype=None)
+            assert_prediction_matches(np.asarray(mask), want[key], act[key],
+                                      what=f"{path.name} {key}")
+            np.testing.assert_allclose(
+                got.get_data_attribute([key], "prediction", "affine")[key],
+                np.diag([1.5, 1.5, 2.0, 1.0]))
+    with pytest.raises(HBMBudgetError, match=f"'{stitch}' stitch path"):
+        predict.main([*argv, "prediction.hbm_guard=error"])

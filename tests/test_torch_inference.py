@@ -116,12 +116,19 @@ def test_predict_rejects_model_on_other_device_and_other_pad_modes(tmp_path):
         device_sliding.predict_volumes_on_device(
             task, None, ["s0"], reader=MemoryReader(*_store()), device="cpu",
             pad_mode="reflect", **KW)
-    # HDF5 and zarr files are read now; a directory of NIfTI volumes is not
+    # a directory of NIfTI volumes is read (NiftiReader) and predicts as
+    # the same volumes from memory do
+    from tpu_mednet_torch.utils.nifti import save_nifti
+
+    store, attrs = _store()
     (tmp_path / "images").mkdir()
-    (tmp_path / "images" / "s0.nii").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        device_sliding.predict_volumes_on_device(
-            task, tmp_path, ["s0"], device="cpu", **KW)
+    save_nifti(tmp_path / "images" / "s1.nii", store["images"]["s1"][0],
+               attrs["images"]["s1"]["affine"])
+    got = device_sliding.predict_volumes_on_device(task, tmp_path, ["s1"], device="cpu", **KW)
+    want = device_sliding.predict_volumes_on_device(
+        task, None, ["s1"], reader=MemoryReader(store, attrs), device="cpu", **KW)
+    np.testing.assert_array_equal(got["s1"].array, want["s1"].array)
+    np.testing.assert_array_equal(got["s1"].attrs["affine"], want["s1"].attrs["affine"])
 
 
 def test_run_pipelined_keeps_one_item_in_flight():

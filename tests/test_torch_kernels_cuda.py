@@ -125,6 +125,10 @@ _GATHER_CASES = {
                 [[1, 2, 3], [0, 0, 1], [15, 14, 15], [7, 3, 5]]),
     "bf16-long-rows": ((6, 5, 30, 64), torch.bfloat16, (3, 2, 21),
                        [[0, 0, 1], [3, 3, 9], [2, 1, 5]]),
+    # seg_brats_bf16's predict tiles: 4 f16 modalities cast to bf16, rows of
+    # a 96-voxel tile's z extent (768 bytes) at misaligned corners
+    "f16-c4": ((24, 20, 104, 4), torch.float16, (8, 6, 96),
+               [[0, 0, z] for z in range(1, 8)] + [[16, 14, 8], [3, 5, 0]]),
 }
 
 

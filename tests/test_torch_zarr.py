@@ -123,10 +123,13 @@ def test_readers_route_by_suffix_and_refuse_what_waits(tmp_path, monkeypatch):
     nii = tmp_path / "nii" / "images"
     nii.mkdir(parents=True)
     (nii / "s0.nii.gz").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        readers.open_reader(tmp_path / "nii")
-    with pytest.raises(NotImplementedError, match="NIfTI export"):
-        VolumeGroup().save(tmp_path / "out.nii")
+    assert isinstance(readers.open_reader(tmp_path / "nii"), readers.NiftiReader)
+    (tmp_path / "loose").mkdir()
+    (tmp_path / "loose" / "s0.nii").write_bytes(b"")
+    with pytest.raises(ValueError, match="loose .nii files"):
+        readers.open_reader(tmp_path / "loose")
+    _group(VolumeGroup).save(tmp_path / "out.nii")
+    assert sorted(p.name for p in (tmp_path / "out.nii").iterdir()) == ["s0.nii.gz", "s1.nii.gz"]
     with pytest.raises(ValueError, match="cannot infer"):
         readers.open_reader(tmp_path / "missing.txt")
     with readers.open_reader(tmp_path / "p.zarr") as r, pytest.raises(KeyError, match="stale"):

@@ -3,10 +3,19 @@
 The port's counterpart of ``tpu_mednet/cli/predict.py`` (the reference's
 hydra entry point, ``examples/predict.py:20-115``): a YAML config with
 ``base.*`` / ``prediction.*`` groups plus dotted ``key=value`` overrides;
-checkpoint -> model -> stitch -> an HDF5 or zarr store.  Subjects go in
-chunks of ``prediction.chunk_size`` to bound host memory.
-``prediction.stitch`` is ``crop`` (the reference's host stitch, the
-default) or ``device`` (tiles cut by K2 and stitched on the card).  A
+checkpoint -> model -> stitch -> an HDF5 or zarr store, or a directory of
+NIfTI volumes (``prediction.data`` named ``*.nii``).  ``base.data`` may be
+an HDF5 file, a zarr store or a ``<root>/<group>/<key>.nii[.gz]``
+directory.  Subjects go in chunks of ``prediction.chunk_size`` to bound
+host memory.  ``prediction.stitch`` is ``crop`` (the reference's host
+stitch, the default), ``device`` (tiles cut by K2 and stitched on the
+card) or ``gaussian`` (tiles cut by K2, Gaussian-weighted fp32
+accumulation on the card).  ``prediction.tta`` (``true`` or a list of
+spatial axes 0..2) averages 2^k mirrored forwards per tile before the
+argmax, in every stitch.  ``prediction.hbm_guard`` (``warn``, the
+default; ``error``; ``off``) sizes each volume for the two on-device
+stitches before it is uploaded and, under ``warn``, stitches a volume
+that would not fit the card on the host (``utils/memory.py``).  A
 LandmarkNet checkpoint writes its heatmap channels (clipped to uint8)
 before the class map, and ``prediction.landmarks`` (a ``.json`` or
 ``.csv`` path) gets one argmax readout per subject and landmark.  The
@@ -15,8 +24,7 @@ checkpoint is a training directory of the port (EMA weights unless
 or a reference-style ``.ckpt`` file.  It runs on CUDA unless ``--device
 cpu`` is given.
 
-Not ported (refused): ``stitch: gaussian``, ``tta``, ``gpus`` above 1;
-the HBM guard (``hbm_guard``) is not ported and is ignored.
+Not ported (refused): ``gpus`` above 1.
 """
 
 from __future__ import annotations
@@ -88,12 +96,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     model_name = pred.get("model")  # default: detected from the hparams
     stitch = pred.get("stitch", "crop")
     use_ema = bool(pred.get("use_ema", True))
-    if stitch == "gaussian":
-        raise _refuse("prediction.stitch=gaussian", "TTA and the Gaussian stitch")
-    if stitch not in ("crop", "device"):
+    if stitch not in ("crop", "device", "gaussian"):
         raise ValueError(f"prediction.stitch must be crop, device or gaussian, got {stitch!r}")
-    if pred.get("tta", False):
-        raise _refuse("prediction.tta", "TTA and the Gaussian stitch")
+    hbm_guard = pred.get("hbm_guard", "warn")
     if (pred.get("gpus", 1) or 1) > 1:
         raise _refuse("prediction.gpus above 1", "Multi-GPU")
     if checkpoint_step is not None:
@@ -105,13 +110,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 f"{checkpoint_step!r} (for the best-val checkpoint point "
                 f"prediction.checkpoint at <model_dir>/best)") from None
 
+    from tpu_mednet_torch.inference.common import normalize_tta
     from tpu_mednet_torch.inference.device_sliding import predict_volumes_on_device
     from tpu_mednet_torch.inference.serving import detect_task_name
     from tpu_mednet_torch.inference.sliding_window import predict_volumes
+    from tpu_mednet_torch.inference.weighted import predict_volumes_weighted_on_device
     from tpu_mednet_torch.tasks import LandmarkTask, SegmentationTask
     from tpu_mednet_torch.train.checkpoint import load_for_inference
     from tpu_mednet_torch.utils.evaluation import landmark_readout
 
+    tta_flips = normalize_tta(pred.get("tta", False))
+    if tta_flips:
+        logger.info("mirror TTA on axes %s (%d forwards per patch)", tta_flips,
+                    2 ** len(tta_flips))
     test_keys = read_keyfile(test_set)
     logger.info("total number of keys %d", len(test_keys))
     chunk_num = max(len(test_keys) // chunk_size, 1)
@@ -155,9 +166,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for c, chunk in enumerate(chunks):
         logger.info("chunk %d/%d", c, chunk_num)
         kw = dict(patch_size=patch_size, patch_overlap=patch_overlap,
-                  batch_size=batch_size, image_group=image_group, device=device)
+                  batch_size=batch_size, image_group=image_group, device=device,
+                  tta_flips=tta_flips)
         if stitch == "device":
-            results = predict_volumes_on_device(task, data_path, list(chunk), **kw)
+            results = predict_volumes_on_device(task, data_path, list(chunk),
+                                                hbm_guard=hbm_guard, **kw)
+        elif stitch == "gaussian":
+            results = predict_volumes_weighted_on_device(task, data_path, list(chunk),
+                                                         hbm_guard=hbm_guard, **kw)
         else:
             results = predict_volumes(task, data_path, list(chunk),
                                       out_channels=num_heatmaps + 1,

@@ -4,10 +4,10 @@ the host and device-resident patch samplers, and the grid sampler."""
 from tpu_mednet_torch.data.device_sampler import DevicePatchSampler
 from tpu_mednet_torch.data.grid import GridPatchSampler
 from tpu_mednet_torch.data.patch_sampler import PatchSampler
-from tpu_mednet_torch.data.readers import (DataReader, HDF5Reader, MemoryReader, ZarrReader,
-                                           open_reader)
+from tpu_mednet_torch.data.readers import (DataReader, HDF5Reader, MemoryReader, NiftiReader,
+                                           ZarrReader, open_reader)
 from tpu_mednet_torch.data.stores import VolumeDataset, VolumeGroup
 
 __all__ = ["DataReader", "DevicePatchSampler", "GridPatchSampler", "HDF5Reader",
-           "MemoryReader", "PatchSampler", "VolumeDataset", "VolumeGroup", "ZarrReader",
-           "open_reader"]
+           "MemoryReader", "NiftiReader", "PatchSampler", "VolumeDataset", "VolumeGroup",
+           "ZarrReader", "open_reader"]

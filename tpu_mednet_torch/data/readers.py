@@ -11,8 +11,8 @@ bulk preload with timing telemetry, shape and ``affine`` queries.
 - ``ZarrReader`` uses the ``zarr`` package where it is installed and the
   port's stdlib-only copy of the v2 format (``zarrlite``) where it is not.
 
-The NIfTI directory reader waits with ``utils/nifti.py``: ``open_reader``
-refuses a directory of ``.nii`` volumes.
+``NiftiReader`` reads a directory of ``<group>/<key>.nii[.gz]`` volumes
+through the port's dependency-free ``utils/nifti.py``.
 """
 
 from __future__ import annotations
@@ -167,6 +167,81 @@ class ZarrReader(_NodeReader):
             store.close()
 
 
+class NiftiReader(DataReader):
+    """Reader over a directory of per-subject NIfTI volumes, laid out as the
+    container stores' groups::
+
+        <root>/<group>/<key>.nii[.gz]      e.g.  data/images/s0.nii.gz
+
+    Volumes come channels-first (C, X, Y, Z): a 3D NIfTI gets a leading
+    singleton channel, a 4D one's trailing axis becomes the channel axis.
+    Shape and ``affine`` queries read headers only.
+    """
+
+    def __init__(self, path_data):
+        self.path_data = Path(str(path_data))
+        if not self.path_data.is_dir():
+            raise FileNotFoundError(
+                f"NiftiReader expects a directory of <group>/<key>.nii[.gz] volumes, "
+                f"got {path_data!r}")
+
+    def _path(self, group: str, key: str) -> Path:
+        for suffix in (".nii.gz", ".nii"):
+            p = self.path_data / group / f"{key}{suffix}"
+            if p.exists():
+                return p
+        raise KeyError(f"no NIfTI volume {group}/{key}(.nii|.nii.gz) under {self.path_data}")
+
+    @staticmethod
+    def _to_channels_first_shape(shape: tuple) -> tuple:
+        if len(shape) == 3:
+            return (1, *shape)
+        if len(shape) == 4:
+            return (shape[3], *shape[:3])
+        raise ValueError(f"NIfTI volumes must be 3D or 4D, got {len(shape)}D {shape}")
+
+    def read(self, subject_keys, group, dtype=np.float16):
+        from tpu_mednet_torch.utils.nifti import load_nifti
+
+        for k in subject_keys:
+            data, _ = load_nifti(self._path(group, k))
+            if data.ndim == 3:
+                data = data[None]
+            elif data.ndim == 4:
+                data = np.moveaxis(data, -1, 0)  # (X, Y, Z, C) -> (C, X, Y, Z)
+            else:
+                raise ValueError(
+                    f"NIfTI volumes must be 3D or 4D, got {data.ndim}D ({group}/{k})")
+            yield np.asarray(data, dtype=dtype)
+
+    def get_data_shape(self, subject_keys, group):
+        from tpu_mednet_torch.utils.nifti import read_nifti_header
+
+        return {k: self._to_channels_first_shape(read_nifti_header(self._path(group, k))[0])
+                for k in subject_keys}
+
+    def get_data_attribute(self, subject_keys, group, attribute):
+        if attribute != "affine":
+            raise KeyError(
+                f"NIfTI volumes carry only the 'affine' attribute, not {attribute!r}")
+        from tpu_mednet_torch.utils.nifti import read_nifti_header
+
+        return {k: read_nifti_header(self._path(group, k))[2] for k in subject_keys}
+
+    def list_keys(self, group):
+        keys = set()
+        for p in (self.path_data / group).glob("*.nii*"):
+            for suffix in (".nii.gz", ".nii"):
+                if p.name.endswith(suffix):
+                    keys.add(p.name[: -len(suffix)])
+                    break
+        return sorted(keys)
+
+    def list_groups(self):
+        return sorted(d.name for d in self.path_data.iterdir()
+                      if d.is_dir() and next(d.glob("*.nii*"), None) is not None)
+
+
 class MemoryReader(DataReader):
     """Reader over an in-memory ``{group: {key: array}}`` mapping.
 
@@ -217,13 +292,16 @@ def open_reader(path, reader_cls=None) -> DataReader:
         return ZarrReader(p)
     if p.is_dir():
         # zarr markers win; .nii files one level into a group directory
-        # select the NIfTI layout; marker-less directories are zarr
+        # select the NIfTI layout; loose top-level .nii files are refused;
+        # other marker-less directories are zarr
         if (p / ".zgroup").exists() or (p / ".zarray").exists():
             return ZarrReader(p)
         if next(p.glob("*/*.nii*"), None) is not None:
-            raise NotImplementedError(
-                f"{path!s} is a directory of NIfTI volumes: the NIfTI reader is "
-                "not yet ported to tpu_mednet_torch (ROADMAP §1, 'to_nifti and "
-                "the NIfTI reader'); convert it to a zarr store")
+            return NiftiReader(p)
+        if next(p.glob("*.nii*"), None) is not None:
+            raise ValueError(
+                f"{path!s} holds loose .nii files at the top level; the NIfTI reader "
+                "expects <root>/<group>/<key>.nii[.gz] — nest them in group "
+                "directories (e.g. images/)")
         return ZarrReader(p)
     raise ValueError(f"cannot infer reader for {path!r}")

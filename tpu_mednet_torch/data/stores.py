@@ -3,8 +3,8 @@
 The port's own copy of ``VolumeDataset``/``VolumeGroup`` from
 ``tpu_mednet/data/stores.py``: a dict-backed group of named arrays with
 per-dataset attrs, persisted to HDF5 (``h5py``, imported when used) or to
-zarr (the ``zarr`` package, else the port's ``zarrlite``).  NIfTI export
-waits with ``utils/nifti.py``.
+zarr (the ``zarr`` package, else the port's ``zarrlite``), or to a
+directory of NIfTI volumes (``utils/nifti.py``).
 """
 
 from __future__ import annotations
@@ -113,15 +113,32 @@ class VolumeGroup:
             if store is not None and hasattr(store, "close"):
                 store.close()
 
+    def to_nifti(self, path, group: Optional[str] = None) -> None:
+        """Write per-key ``.nii.gz`` volumes under ``<path>[/<group>]``, the
+        layout ``NiftiReader`` reads: (C, X, Y, Z) arrays write as 3D NIfTI
+        when C == 1, else as 4D with the channel axis trailing; an
+        ``affine`` attr lands in the sform."""
+        from tpu_mednet_torch.utils.nifti import save_nifti
+
+        base = Path(str(path)) / group if group else Path(str(path))
+        base.mkdir(parents=True, exist_ok=True)
+        for key, ds in self._datasets.items():
+            arr = np.asarray(ds.array)
+            if arr.ndim == 4:
+                arr = arr[0] if arr.shape[0] == 1 else np.moveaxis(arr, 0, -1)
+            affine = ds.attrs.get("affine")
+            save_nifti(base / f"{key}.nii.gz", arr,
+                       None if affine is None else np.asarray(affine))
+
     def save(self, path, group: Optional[str] = None) -> None:
-        """Persist to ``.h5``/``.hdf5``/``.hdf`` or else to zarr, by suffix
-        (the intended behaviour of the reference's save branch,
+        """Persist to ``.h5``/``.hdf5``/``.hdf``, to a directory of NIfTI
+        volumes for a path named ``*.nii`` (``to_nifti``), or else to zarr,
+        by suffix (the intended behaviour of the reference's save branch,
         predict.py:100-115, whose suffix test was buggy)."""
         name = Path(str(path)).name
         if name.endswith(".nii") or name.endswith(".nii.gz"):
-            raise NotImplementedError(
-                "NIfTI export is not yet ported to tpu_mednet_torch (ROADMAP §1, "
-                "'to_nifti and the NIfTI reader'); save to .zarr or .h5")
+            self.to_nifti(path, group)
+            return
         if Path(str(path)).suffix in (".h5", ".hdf5", ".hdf"):
             self.to_hdf5(path, group)
         else:

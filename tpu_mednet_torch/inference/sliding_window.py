@@ -5,8 +5,10 @@ Counterpart of ``tpu_mednet/inference/sliding_window.py`` (reference
 crop``: ``GridPatchSampler`` tiles each volume on the host, batches are
 padded to a fixed size by repeating the last tile, each batch goes to the
 device for the forward and the uint8 postprocess
-(``train/step.py`` ``make_predict_step``), and the host crops and writes
-each tile's core.  TTA and meshes are not ported.
+(``train/step.py`` ``make_predict_step``, with mirror TTA where
+``tta_flips`` asks for it), and the host crops and writes each tile's
+core.  It is also where the device stitch spills a volume that does not
+fit the card (``hbm_guard``).  Meshes are not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from tpu_mednet_torch._device import DeviceLike, resolve_device
 from tpu_mednet_torch.data.grid import GridPatchSampler
 from tpu_mednet_torch.data.stores import VolumeGroup
+from tpu_mednet_torch.inference.common import check_model_device
 from tpu_mednet_torch.train.step import make_predict_step
 
 logger = logging.getLogger(__name__)
@@ -45,21 +48,22 @@ def predict_volumes(
     image_group: str = "images",
     reader=None,
     device: DeviceLike = None,
+    tta_flips=(),
 ) -> VolumeGroup:
     """Sliding-window inference over subjects with the task model's own
     weights, which must live on ``device`` (``None`` means ``cuda``);
     returns the assembled ``VolumeGroup`` (key -> (out_channels, X, Y, Z)
-    volume with the input's affine)."""
+    volume with the input's affine).  With ``tta_flips`` (spatial axes
+    0..2), mirror TTA averages 2^k flipped forwards per patch before the
+    argmax."""
     dev = resolve_device(device)
-    param_dev = next(task.model.parameters()).device
-    if param_dev.type != dev.type or (dev.index is not None and param_dev != dev):
-        raise ValueError(f"model parameters live on {param_dev}, not on {dev}")
+    check_model_device(task, dev)
     if out_channels is None:
         out_channels = getattr(task, "num_heatmaps", 0) + 1
     sampler = GridPatchSampler(
         data_path, subject_keys, patch_size, patch_overlap, out_channels=out_channels,
         channel_selection=channel_selection, image_group=image_group, reader=reader)
-    predict_step = make_predict_step(task)
+    predict_step = make_predict_step(task, tta_flips=tta_flips)
 
     n_patches = 0
     for batch in sampler.batches(batch_size):

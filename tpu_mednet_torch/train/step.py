@@ -147,15 +147,25 @@ def make_eval_step(task, use_ema: bool = False
     return step
 
 
-def make_predict_step(task) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_predict_step(task, tta_flips=()) -> Callable[[torch.Tensor], torch.Tensor]:
     """Inference step: the task model's forward in eval mode, then the
-    task's postprocess (``tpu_mednet/train/step.py:169-192`` without TTA).
-    Takes (N, C, X, Y, Z) data on the model's device."""
+    task's postprocess (``tpu_mednet/train/step.py:169-192``).  With
+    ``tta_flips`` (spatial axes 0..2), mirror TTA averages 2^k flipped
+    forwards in activation space before the argmax
+    (``inference/common.py``).  Takes (N, C, X, Y, Z) data on the model's
+    device."""
+    from tpu_mednet_torch.inference.common import (postprocess_activations,
+                                                   tta_split_activations)
+
     model = task.model
+    tta_flips = tuple(tta_flips)
 
     def step(data: torch.Tensor) -> torch.Tensor:
         model.eval()
         with torch.inference_mode():
+            if tta_flips:
+                return postprocess_activations(
+                    task, tta_split_activations(task, data, tta_flips))
             return task.predict_postprocess(model(data.to(model.config.dtype)))
 
     return step

@@ -1,0 +1,256 @@
+"""Device-memory estimates of the on-device stitches, and the guard that
+spills a volume too large for the card to the host stitch.
+
+The inference half of ``tpu_mednet/utils/memory.py``, refit for the port
+on the card: an on-device stitch holds the whole padded volume and its
+result (or, for the Gaussian stitch, two fp32 accumulators) on the card,
+so a large enough volume would die as a CUDA out-of-memory error halfway
+through.  ``check_stitch_budget`` estimates each volume's footprint before
+anything is uploaded and then fails with the numbers (``error``), logs and
+sends the volume to the host stitch (``warn``, the predict CLI's default),
+or lets it through (``off``).
+
+The model is phase-max, as in JAX: the peak is the larger of the scan
+phase (input volume + padded volume + result or accumulators + one
+batch's forward working set) and the finalize phase (padded volume +
+result or accumulators + the cropped output).  The volume terms are exact
+sizes.  The forward working set is the batch's input tiles, its fp32
+logits and class probabilities, the encoder skips and
+``INFER_WORK_UNITS`` full-resolution units; the Gaussian stitch adds
+``GAUSSIAN_WORK_UNITS`` and mirror TTA ``TTA_WORK_UNITS`` fp32 patch
+batches at the model's output width.
+
+The constants are fit to the caching allocator's peak
+(``torch.cuda.max_memory_reserved`` after ``empty_cache`` and
+``reset_peak_memory_stats``; it holds 0.3-1.1 GiB more than the peak of
+live tensors) of one volume on each stitch, measured by
+``chip_memory_fit.py`` on an NVIDIA H100 80GB HBM3, 700.00 W: f_maps 32,
+bf16, batch 8 of 96^3 tiles, overlap 16.  Peak reserved GiB (estimate /
+measured), n_tta 1 at 192^3, 320^3, 512^3, then n_tta 8 at the same:
+
+    in 1, 2 classes, device    3.994 (1.013) 4.090 (1.023) 3.652 (1.287)
+                               3.994 (1.079) 4.090 (1.087) 4.496 (1.104)
+    in 1, 2 classes, gaussian  4.107 (1.064) 4.580 (1.057) 5.877 (1.116)
+                               4.107 (1.128) 4.580 (1.114) 6.299 (1.083)
+    in 4, 2 classes, device    3.820 (1.096) 4.338 (1.072) 5.881 (1.086)
+                               4.242 (1.049) 4.338 (1.133) 5.881 (1.131)
+    in 4, 2 classes, gaussian  4.326 (1.043) 4.664 (1.138) 7.082 (1.165)
+                               4.326 (1.104) 5.086 (1.095) 7.082 (1.202)
+    in 4, 4 classes, device    3.820 (1.123) 4.338 (1.096) 5.459 (1.190)
+                               4.242 (1.136) 4.338 (1.218) 5.881 (1.194)
+    in 4, 4 classes, gaussian  4.410 (1.114) 5.410 (1.099) 8.281 (1.179)
+                               4.410 (1.234) 5.410 (1.197) 8.703 (1.183)
+
+Two 192^3 volumes in one call peak as one does (the pipeline's pending
+uint8 result is small).  The constants are the centre of the window that
+keeps every point's ratio in [1, 1.3] (margin 1.3 % each side: the
+flagship's 512^3 device point, whose allocator cache stayed small, bounds
+it from above; the flagship's 192^3 device point from below).  At the
+guard's edge, the largest 4-input, 4-class cube it admits on the Gaussian
+stitch under the default budget (1264^3: estimate 78.506 of 78.561 GiB)
+fit, with a peak of 63.002 GiB reserved (ratio 1.246).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
+
+GiB = float(1 << 30)
+
+# full-resolution (level-0) activation units that one inference forward
+# holds in the caching allocator beyond the encoder skips: the block's
+# conv and GroupNorm outputs, the residual, the transposed conv's output,
+# cuDNN's workspace and the allocator's cached blocks (fit on the card,
+# module docstring)
+INFER_WORK_UNITS = 7.56
+
+# fp32 patch batches at the model's output width that the Gaussian stitch
+# holds beside the forward: the activations, their weighted copy and the
+# allocator's cached blocks around them (fit on the card, module docstring)
+GAUSSIAN_WORK_UNITS = 4.0
+
+# fp32 patch batches at the model's output width that mirror TTA keeps
+# live beside the forward: the running sum, a flipped activation and its
+# flip back (fit on the card, module docstring)
+TTA_WORK_UNITS = 5.0
+
+
+def param_bytes(model: torch.nn.Module) -> int:
+    """Bytes of a module's parameters and buffers."""
+    return sum(t.numel() * t.element_size()
+               for t in (*model.parameters(), *model.buffers()))
+
+
+def _unit_bytes(batch: int, patch: Sequence[int], level: int, channels: int,
+                dtype_bytes: int) -> float:
+    """Bytes of one full activation at encoder/decoder level ``level``."""
+    vox = 1.0
+    for p in patch:
+        vox *= max(int(p) >> level, 1)
+    return float(batch) * vox * channels * dtype_bytes
+
+
+def unet_infer_peak_bytes(batch: int, patch: Sequence[int],
+                          feature_maps: Sequence[int], dtype_bytes: int = 2) -> int:
+    """Working set of one inference forward: the encoder skip features stay
+    live until their decoder joins, plus ``INFER_WORK_UNITS`` units at the
+    widest level."""
+    f = list(feature_maps)
+    skips = sum(_unit_bytes(batch, patch, lvl, c, dtype_bytes)
+                for lvl, c in enumerate(f[:-1]))
+    work = INFER_WORK_UNITS * _unit_bytes(batch, patch, 0, f[0], dtype_bytes)
+    return int(skips + work)
+
+
+def _padded_extent(img_size, patch_size, overlap) -> np.ndarray:
+    """Padded-volume extent of the grid geometry (``inference/common.grid_corners``)."""
+    img = np.asarray(img_size, dtype=np.int64)
+    patch = np.asarray(patch_size, dtype=np.int64)
+    ov = np.asarray(overlap, dtype=np.int64)
+    stride = patch - 2 * ov
+    if np.any(stride <= 0):
+        raise ValueError("patch_overlap too large for patch_size")
+    return img + 2 * ov + (-img) % stride
+
+
+def device_stitch_bytes(
+    img_size: Sequence[int],
+    patch_size: Sequence[int],
+    patch_overlap: Sequence[int],
+    batch_size: int,
+    in_channels: int,
+    out_channels: int,
+    feature_maps: Sequence[int],
+    stitch: str = "device",
+    dtype_bytes: int = 2,
+    params_bytes: int = 0,
+    n_tta: int = 1,
+    acc_channels: Optional[int] = None,
+) -> Tuple[int, Dict[str, int]]:
+    """Estimated device bytes of one volume on an on-device stitch.
+
+    Returns ``(total_bytes, breakdown)``:
+
+    - ``stitch='device'`` (``inference/device_sliding.py``): f16 input
+      volume + f16 padded copy + uint8 result over the padded domain + the
+      cropped copy;
+    - ``stitch='gaussian'`` (``inference/weighted.py``): an fp32 activation
+      accumulator ``acc_channels`` wide (the model's out_channels, wider
+      than the uint8 result's ``out_channels`` for multi-class tasks) and an
+      fp32 weight accumulator instead of the padded result.
+
+    ``acc_channels`` (default ``out_channels``) also sizes the TTA term,
+    whose running sum is the model's output width.
+    """
+    if acc_channels is None:
+        acc_channels = out_channels
+    img_vox = float(np.prod(np.asarray(img_size, dtype=np.float64)))
+    padded_vox = float(np.prod(
+        _padded_extent(img_size, patch_size, patch_overlap).astype(np.float64)))
+    breakdown: Dict[str, int] = {
+        "input_volume_f16": int(img_vox * in_channels * 2),
+        "padded_volume_f16": int(padded_vox * in_channels * 2),
+        "params": int(params_bytes),
+    }
+    # the batch's input tiles, fp32 logits and probabilities, then the net
+    patch_vox = float(np.prod(np.asarray(patch_size, dtype=np.float64)))
+    acc_unit = batch_size * patch_vox * acc_channels * 4
+    fwd = batch_size * patch_vox * in_channels * dtype_bytes + 2 * acc_unit
+    fwd += unet_infer_peak_bytes(batch_size, patch_size, feature_maps, dtype_bytes)
+    if stitch == "gaussian":
+        fwd += GAUSSIAN_WORK_UNITS * acc_unit
+    if n_tta > 1:
+        fwd += TTA_WORK_UNITS * acc_unit
+    breakdown["forward_working_set"] = int(fwd)
+    if stitch == "gaussian":
+        breakdown["accumulator_f32"] = int(padded_vox * acc_channels * 4)
+        breakdown["weight_accumulator_f32"] = int(padded_vox * 4)
+        breakdown["result_u8"] = int(img_vox * out_channels)
+        resident = (breakdown["padded_volume_f16"] + breakdown["accumulator_f32"]
+                    + breakdown["weight_accumulator_f32"])
+        final = resident + breakdown["result_u8"]
+    elif stitch == "device":
+        breakdown["result_u8"] = int(padded_vox * out_channels)
+        breakdown["crop_copy_u8"] = int(img_vox * out_channels)
+        resident = breakdown["padded_volume_f16"] + breakdown["result_u8"]
+        final = resident + breakdown["crop_copy_u8"]
+    else:
+        raise ValueError(f"stitch must be device or gaussian, got {stitch!r}")
+    scan = resident + breakdown["input_volume_f16"] + breakdown["forward_working_set"]
+    breakdown["peak_phase_scan"] = int(scan)
+    breakdown["peak_phase_final"] = int(final)
+    return int(params_bytes + max(scan, final)), breakdown
+
+
+def hbm_budget_bytes(device=None) -> int:
+    """Device-memory budget: ``$TPU_MEDNET_HBM_GB`` (GiB) if set, else what
+    this process's caching allocator can reach on the card: the card's
+    free memory (``torch.cuda.mem_get_info``) plus what the allocator
+    already reserves.  That leaves out the CUDA context, memory libraries
+    take outside the allocator and other processes' memory, as JAX's
+    allocator limit does; the estimate is fit to the allocator's reserved
+    peak.  For a CPU device, the host's physical memory."""
+    env = os.environ.get("TPU_MEDNET_HBM_GB")
+    if env:
+        return int(float(env) * GiB)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        return int(torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev))
+    return int(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
+
+
+class HBMBudgetError(RuntimeError):
+    """An on-device stitch request that cannot fit the card's memory."""
+
+
+def check_stitch_budget(
+    key: str,
+    img_size: Sequence[int],
+    patch_size: Sequence[int],
+    patch_overlap: Sequence[int],
+    batch_size: int,
+    in_channels: int,
+    out_channels: int,
+    feature_maps: Sequence[int],
+    stitch: str = "device",
+    dtype_bytes: int = 2,
+    params_bytes: int = 0,
+    n_tta: int = 1,
+    budget_bytes: Optional[int] = None,
+    guard: str = "error",
+    acc_channels: Optional[int] = None,
+    device=None,
+) -> bool:
+    """True when the volume fits the on-device stitch.
+
+    ``guard``: ``error`` raises :class:`HBMBudgetError`; ``warn`` logs and
+    returns False (the caller stitches the volume on the host); ``off``
+    skips the check.  ``budget_bytes`` defaults to ``hbm_budget_bytes(device)``.
+    """
+    if guard == "off":
+        return True
+    if guard not in ("error", "warn"):
+        raise ValueError(f"hbm_guard must be error|warn|off, got {guard!r}")
+    budget = hbm_budget_bytes(device) if budget_bytes is None else int(budget_bytes)
+    total, breakdown = device_stitch_bytes(
+        img_size, patch_size, patch_overlap, batch_size, in_channels, out_channels,
+        feature_maps, stitch=stitch, dtype_bytes=dtype_bytes, params_bytes=params_bytes,
+        n_tta=n_tta, acc_channels=acc_channels)
+    if total <= budget:
+        return True
+    detail = ", ".join(f"{k}={v / GiB:.2f}G" for k, v in breakdown.items())
+    msg = (f"volume {key!r} {tuple(int(v) for v in img_size)} needs an estimated "
+           f"{total / GiB:.2f}G of device memory on the '{stitch}' stitch path (budget "
+           f"{budget / GiB:.2f}G): {detail}. Use prediction.stitch: crop (host "
+           f"stitching), a smaller batch_size, or set hbm_guard: off to force the attempt.")
+    if guard == "warn":
+        logger.warning("%s Falling back to host stitching for this volume.", msg)
+        return False
+    raise HBMBudgetError(msg)
