@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Fit of the HBM guard's constants on one NVIDIA card.
+"""Fit of the device-memory model's constants on one NVIDIA card.
 
-    python3 chip_memory_fit.py [--out memory_fit.json]
+    python3 chip_memory_fit.py [--out memory_fit.json] [--train-only]
+
+Inference (the HBM guard's constants; skipped with ``--train-only``):
 
 Runs one volume at a time through the two on-device stitches
 (``predict_volumes_on_device`` and ``predict_volumes_weighted_on_device``,
@@ -23,8 +25,23 @@ largest cube (a multiple of 16 voxels) of the 4-input, 4-class model whose
 Gaussian-stitch estimate the guard admits under its default budget
 (``utils/memory.hbm_budget_bytes``: the card's free memory plus the
 allocator's reservation) runs with ``hbm_guard='error'``; it must pass the
-guard, fit the card and hold the same ratio.  It exits non-zero where a
-ratio leaves that range or the edge volume does not fit.
+guard, fit the card and hold the same ratio.
+
+Training (``unet_train_peak_bytes``): the train step (Adam, mirror flips,
+bf16, seeded weights, a seeded batch on the card) of ``ResidualUNet3D``
+f_maps 32 with 1 input channel and 2 classes at batch 8, 16 and 32 of
+96^3 with remat 0, 1 and all; of ``configs/seg_brats_bf16.yaml``'s model
+(4 inputs, 4 classes, Dice) at batch 2 of 128^3 and of
+``configs/landmarks.yaml``'s ``LandmarkTask`` (f_maps 64, 3 heatmaps and 2
+classes) at batch 4 of 96^3, each with remat 0 and 1.  After
+``empty_cache`` and ``reset_peak_memory_stats``, three steps; then
+``max_memory_reserved`` against the estimate with the module's
+constants, printed with the estimate's terms (the stored activations, the
+fp32 GroupNorm units, the full-resolution unit and the parameters) from
+which the constants are fit.
+
+It exits non-zero where a ratio leaves [1, 1.3] or the edge volume does
+not fit.
 """
 
 from __future__ import annotations
@@ -44,6 +61,12 @@ MODELS = ((1, 2), (4, 2), (4, 4))  # (input channels, classes)
 PATCH, OVERLAP, BATCH = (96, 96, 96), (16, 16, 16), 8
 TTAS = ((), (0, 1, 2))
 RATIO = (1.0, 1.3)
+# training points: (name, input channels, classes, heatmaps, f_maps, patch,
+# batches, remat settings)
+TRAIN_MODELS = (("f_maps 32, 1 -> 2", 1, 2, 0, 32, (96, 96, 96), (8, 16, 32), (0, 1, True)),
+                ("seg_brats_bf16", 4, 4, 0, 32, (128, 128, 128), (2,), (0, 1)),
+                ("landmarks", 1, 2, 3, 64, (96, 96, 96), (4,), (0, 1)))
+TRAIN_STEPS = 3
 
 
 def main(argv) -> int:
@@ -55,7 +78,7 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, str(HERE))
     from tpu_mednet_torch.data import MemoryReader
-    from tpu_mednet_torch.inference import (device_sliding, predict_volumes_on_device,
+    from tpu_mednet_torch.inference import (predict_volumes_on_device,
                                             predict_volumes_weighted_on_device)
     from tpu_mednet_torch.models import ResidualUNet3D
     from tpu_mednet_torch.ops import _build
@@ -63,6 +86,7 @@ def main(argv) -> int:
     from tpu_mednet_torch.utils import memory
 
     out_path = Path(argv[argv.index("--out") + 1]) if "--out" in argv else None
+    train_only = "--train-only" in argv
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
@@ -76,6 +100,14 @@ def main(argv) -> int:
               device=dev, hbm_guard="off")
     rng = np.random.default_rng(0)
     points = []
+    if train_only:
+        train = train_fit(torch, dev, memory, ResidualUNet3D)
+        result = dict(card=smi, train=train, ok=train["ok"])
+        print(json.dumps({k: v for k, v in train.items() if k != "points"}), flush=True)
+        if out_path is not None:
+            out_path.parent.mkdir(parents=True, exist_ok=True)
+            out_path.write_text(json.dumps(result, indent=1))
+        return 0 if result["ok"] else 1
 
     def measure(fn, task, store, keys, tta):
         torch.cuda.synchronize()
@@ -129,9 +161,6 @@ def main(argv) -> int:
                               f"{est / 2**30:.3f} GiB, ratio {est / reserved:.3f}; "
                               f"{seconds:.2f} s", flush=True)
             del vol, store
-        # the device stitch's predictor cache holds its task (ROADMAP.md §3):
-        # drop it, so the next model's points measure that model alone
-        device_sliding._PREDICTOR_CACHE.pop(id(task), None)
         del model, task
 
     work = max(p["residual"] / p["unit0"] for p in points if p["n_tta"] == 1)
@@ -144,14 +173,103 @@ def main(argv) -> int:
     edge = guard_edge(torch, dev, rng, kw, memory, ResidualUNet3D, SegmentationTask,
                       MemoryReader, predict_volumes_weighted_on_device)
     ok = ok and edge["fits"] and RATIO[0] <= edge["ratio"] <= RATIO[1]
+    train = train_fit(torch, dev, memory, ResidualUNet3D)
     result = dict(card=smi, infer_work_units=memory.INFER_WORK_UNITS,
                   tta_work_units=memory.TTA_WORK_UNITS, least_infer_work_units=work,
-                  least_tta_work_units=tta, ok=ok, edge=edge, points=points)
-    print(json.dumps({k: v for k, v in result.items() if k != "points"}), flush=True)
+                  least_tta_work_units=tta, ok=ok and train["ok"], edge=edge, points=points,
+                  train=train)
+    print(json.dumps({k: v for k, v in result.items() if k not in ("points", "train")}),
+          flush=True)
+    print(json.dumps({k: v for k, v in train.items() if k != "points"}), flush=True)
     if out_path is not None:
         out_path.parent.mkdir(parents=True, exist_ok=True)
         out_path.write_text(json.dumps(result, indent=1))
     return 0 if ok else 1
+
+
+def train_terms(memory, **kw):
+    """The estimate's terms at one point: the stored activations (bytes
+    before the overhead factor), the bytes of one fp32 GroupNorm unit per
+    stored full-resolution conv, and the parameters' bytes."""
+    consts = ("TRAIN_OVERHEAD", "GN_F32_UNITS", "TRAIN_WORK_UNITS")
+    saved = [getattr(memory, c) for c in consts]
+    try:
+        def est(overhead, gn, params):
+            memory.TRAIN_OVERHEAD, memory.GN_F32_UNITS, memory.TRAIN_WORK_UNITS = overhead, gn, 0.0
+            return memory.unet_train_peak_bytes(**{**kw, "n_params": params})
+        act = est(1.0, 0.0, 0)
+        return dict(activations=act, gn_f32_unit=est(1.0, 1.0, 0) - act,
+                    params=est(0.0, 0.0, kw["n_params"]))
+    finally:
+        for c, v in zip(consts, saved):
+            setattr(memory, c, v)
+
+
+def train_fit(torch, dev, memory, ResidualUNet3D):
+    """Peak reserved memory of the train step at every ``TRAIN_MODELS``
+    point against ``unet_train_peak_bytes``."""
+    import dataclasses
+
+    from tpu_mednet_torch.ops.augment import AugmentConfig
+    from tpu_mednet_torch.tasks import LandmarkTask, SegmentationTask
+    from tpu_mednet_torch.train import create_train_state, make_train_step
+
+    points = []
+    for name, c_in, classes, heatmaps, f_maps, patch, batches, remats in TRAIN_MODELS:
+        model = ResidualUNet3D(c_in, classes + heatmaps, f_maps=f_maps, dtype=torch.bfloat16,
+                               device=dev, generator=torch.Generator().manual_seed(0))
+        task = (LandmarkTask(model=model, loss_regression_weight=[0.015] * heatmaps)
+                if heatmaps else SegmentationTask(model=model, loss="DICE"))
+        n_params = sum(p.numel() for p in model.parameters())
+        fmaps = model.config.feature_maps
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for batch in batches:
+            data = torch.randn((batch, c_in, *patch), generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+            cls = torch.randint(0, classes, (batch, 1, *patch), generator=gen, device=dev,
+                                dtype=torch.uint8)
+            hm = torch.randint(0, 256, (batch, heatmaps, *patch), generator=gen, device=dev,
+                               dtype=torch.uint8)
+            batch_ = {"data": data, "label": torch.cat([hm, cls], 1)}
+            for remat in remats:
+                model.config = dataclasses.replace(model.config, remat=remat)
+                model.zero_grad(set_to_none=True)
+                state = create_train_state(model, learning_rate=1e-3, seed=0)
+                step = make_train_step(task, augment=AugmentConfig(mirror_axes=(1, 2, 3)))
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                for _ in range(TRAIN_STEPS):
+                    state, metrics = step(state, batch_)
+                loss = float(metrics["train_loss"])
+                seconds = time.perf_counter() - t0
+                reserved = torch.cuda.max_memory_reserved(dev)
+                allocated = torch.cuda.max_memory_allocated(dev)
+                kw = dict(batch=batch, patch=patch, feature_maps=fmaps, in_channels=c_in,
+                          out_channels=classes + heatmaps, n_params=n_params, remat=remat)
+                est = memory.unet_train_peak_bytes(**kw)
+                terms = train_terms(memory, **kw)
+                points.append(dict(model=name, batch=batch, remat=str(remat).lower(),
+                                   reserved=reserved, allocated=allocated, estimate=est,
+                                   ratio=est / reserved, loss=loss, seconds=seconds,
+                                   unit0=memory._unit_bytes(batch, patch, 0, fmaps[0], 2),
+                                   **terms))
+                print(f"train {name} batch {batch} of {patch[0]}^3 remat {str(remat).lower()}: "
+                      f"max_memory_reserved {reserved / 2**30:.3f} GiB (allocated "
+                      f"{allocated / 2**30:.3f}), estimate {est / 2**30:.3f} GiB, ratio "
+                      f"{est / reserved:.3f}; terms {json.dumps(terms)}; loss {loss:.4f}; "
+                      f"{seconds:.2f} s", flush=True)
+                del state, step
+            del data, cls, hm, batch_
+        del model, task
+    ok = all(RATIO[0] <= p["ratio"] <= RATIO[1] for p in points)
+    print(f"training: every ratio in {list(RATIO)}: {ok} (TRAIN_OVERHEAD "
+          f"{memory.TRAIN_OVERHEAD}, GN_F32_UNITS {memory.GN_F32_UNITS}, TRAIN_WORK_UNITS "
+          f"{memory.TRAIN_WORK_UNITS})", flush=True)
+    return dict(ok=ok, train_overhead=memory.TRAIN_OVERHEAD, gn_f32_units=memory.GN_F32_UNITS,
+                train_work_units=memory.TRAIN_WORK_UNITS, points=points)
 
 
 def guard_edge(torch, dev, rng, kw, memory, ResidualUNet3D, SegmentationTask, MemoryReader,

@@ -44,8 +44,19 @@ drives the two main paths with launch counts:
   a LandmarkNet of ``configs/landmarks.yaml`` width through the Gaussian
   stitch and a ``tta_flips=(0, 2)`` device stitch, with exact K1/K2
   launches per call, TTA ``device`` vs ``crop`` and ``gaussian`` vs its
-  spill inside the tie band, and K2's 4-channel f16 -> bf16 gather held
-  byte-equal.
+  spill inside the tie band, K2's 4-channel f16 -> bf16 gather held
+  byte-equal, and no more than ``HELD_LIMIT`` of reserved memory held
+  between predict calls beyond what the process held before the first;
+- training surface (a child process too): the ``bench.py`` step at remat
+  0, 1 and all (patches/s, peak memory against ``unet_train_peak_bytes``,
+  exact K1 launches per step with the recomputed stages), one step's loss
+  and gradients at remat 1 and all against remat 0 (and K1's recomputed
+  statistics bit-equal to the forward's), the step with the spatial
+  transform (the warp's device ms, labels in-set), ``spatial_3d`` on the
+  card against the CPU and ``separable`` against ``exact``, then
+  ``train_seg -c configs/seg_organ.yaml --remat 1`` and ``train_ldmks -c
+  configs/landmarks.yaml`` with the spatial flags for two epochs each (the
+  landmark heatmaps warped linearly by the Trainer's hook).
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero without a result when CUDA is unavailable or the package is not
@@ -177,6 +188,30 @@ LDMK_VOLUME = (192, 192, 160)
 LDMK_METRICS = {"train_loss", "class_loss", "regression_loss", "lr", "patches_per_sec",
                 "val_loss", "val_class_loss", "val_regression_loss", "val_landmark_error",
                 "val_dice0", "val_dice1"}
+# predict surface: reserved memory a process may hold between predict calls
+# beyond what it held before the first (the models of earlier calls freed)
+HELD_LIMIT = 0.1 * 2**30
+PR6_BRATS_PEAK_GIB = 5.83   # seg_brats_bf16's 1-epoch peak allocated with remat ignored (PR 6)
+# training surface: bench.py's step at each remat setting, then with the
+# spatial transform; train_seg (seg_organ, --remat 1) and train_ldmks with
+# the spatial flags, 1 epoch each
+REMATS = (("0", False), ("1", 1), ("all", True))
+SURFACE_WARMUP, SURFACE_STEPS = 2, 5
+SPATIAL = dict(elastic_sigma=2.0, rotate_deg=15.0, scale_range=(0.85, 1.15))
+SPATIAL_FLAGS = ("--aug_elastic_sigma", "2", "--aug_rotate_deg", "15", "--aug_scale", "0.85",
+                 "1.15")
+SURFACE_EPOCHS = 2     # of each training CLI run: the first holds cuDNN's warm-up
+# spatial_3d on the card against the CPU from the same draws, at 2 x 64^3:
+# image within 1e-4 x max |x|, class map equal but where the CPU's source
+# coordinate lies within WARP_TIE of a rounding boundary, heatmap within 1
+# (tests/test_torch_spatial_aug.py's bounds)
+WARP_CHECK, WARP_TIE, WARP_IMAGE_REL = (2, 64), 1e-4, 1e-4
+# separable vs exact on a smooth image under a small deformation
+# (tests/test_spatial_aug.py::test_separable_close_to_exact_for_small_deformations):
+# mean |separable - exact| < 0.05 x the image's range, correlation > 0.97
+SMALL_DEFORMATION = dict(elastic_sigma=1.0, rotate_deg=3.0)
+SEPARABLE_MEAN_REL, SEPARABLE_CORR = 0.05, 0.97
+MEMORY_RATIO = (1.0, 1.3)   # unet_train_peak_bytes / max_memory_reserved
 
 
 def log(msg: str) -> None:
@@ -931,15 +966,9 @@ def step_groups(rows):
     return groups
 
 
-def run_training(torch, gn, P, dev):
-    """The training path: DevicePatchSampler -> create_train_state ->
-    make_train_step at full width, bf16, batch 32, bench.py's augment;
-    launches counted over the timed steps."""
+def seeded_train_sampler(dev):
+    """``DevicePatchSampler`` over ``TRAIN_SUBJECTS``: a class-1 box in noise."""
     from tpu_mednet_torch.data import DevicePatchSampler, MemoryReader
-    from tpu_mednet_torch.models import ResidualUNet3D
-    from tpu_mednet_torch.ops.augment import AugmentConfig
-    from tpu_mednet_torch.tasks import SegmentationTask
-    from tpu_mednet_torch.train import create_train_state, make_train_step
 
     rng = np.random.default_rng(1)
     store = {"images": {}, "labels": {}}
@@ -948,16 +977,28 @@ def run_training(torch, gn, P, dev):
         lbl[0, 40:100, 50:110, 30:90] = 1
         store["images"][key] = rng.normal(0.0, 0.5, size=(1, *shape)).astype(np.float32) + lbl
         store["labels"][key] = lbl
-    sampler = DevicePatchSampler(None, [k for k, _ in TRAIN_SUBJECTS], TRAIN_BATCH // 4,
-                                 PATCH, reader=MemoryReader(store),
-                                 class_probabilities=[0.5, 0.5], seed=0, device=dev)
+    return DevicePatchSampler(None, [k for k, _ in TRAIN_SUBJECTS], TRAIN_BATCH // 4,
+                              PATCH, reader=MemoryReader(store),
+                              class_probabilities=[0.5, 0.5], seed=0, device=dev)
+
+
+def endless_batches(sampler, batch):
+    while True:
+        yield from sampler.batches(batch)
+
+
+def run_training(torch, gn, P, dev):
+    """The training path: DevicePatchSampler -> create_train_state ->
+    make_train_step at full width, bf16, batch 32, bench.py's augment;
+    launches counted over the timed steps."""
+    from tpu_mednet_torch.models import ResidualUNet3D
+    from tpu_mednet_torch.ops.augment import AugmentConfig
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.train import create_train_state, make_train_step
+
+    sampler = seeded_train_sampler(dev)
     k2 = check_gather_indexed(torch, P, sampler, TRAIN_BATCH)
-
-    def batches():
-        while True:
-            yield from sampler.batches(TRAIN_BATCH)
-
-    feed = batches()
+    feed = endless_batches(sampler, TRAIN_BATCH)
     model = ResidualUNet3D(1, 2, f_maps=32, dtype=torch.bfloat16, device=dev,
                            generator=torch.Generator().manual_seed(0))
     task = SegmentationTask(model=model, loss="DICE")
@@ -2172,6 +2213,16 @@ def run_predict_surface(torch, gn, P, grid_corners, dev, gen):
             f"device heatmaps max |diff| {ldmk_diff}, class maps differ on "
             f"{float((ldmk_out['gaussian'][-1] != ldmk_out['device_tta'][-1]).mean()):.6f}")
 
+        # the predictor of a call keeps no task alive: what the process holds
+        # before each call is what it held before the first
+        helds = [reserved[tag][1] for tag in tags]
+        held_growth = max(helds) - helds[0]
+        log(f"predict surface: reserved memory held before each predict call "
+            f"{' '.join(f'{h / 2**30:.3f}' for h in helds)} GiB; at most "
+            f"{held_growth / 2**30:.3f} GiB beyond the first (limit {HELD_LIMIT / 2**30:.1f})")
+        if held_growth > HELD_LIMIT:
+            raise AssertionError("predict surface: predict calls leave memory held")
+
         # memory: each card stitch's peak reserved over what the process held
         # before the call (the CLI builds its model inside it), against the
         # guard's estimate (which counts the model's parameters)
@@ -2217,8 +2268,10 @@ def run_predict_surface(torch, gn, P, grid_corners, dev, gen):
     k2 = check_gather_c4(torch, P, grid_corners, dev, gen)
     vpm = {f"{st}_{mode}": rec.vpm(f"predict_{st}_{mode}_")
            for mode in ("plain", "tta") for st in STITCHES}
-    log(f"predict surface: seg_brats_bf16 training 1 epoch in {rec.walls['brats_train']:.2f} s, "
-        f"peak memory allocated {peak_train['allocated'] / 2**30:.2f} GiB, reserved "
+    log(f"predict surface: seg_brats_bf16 (remat: 1) training 1 epoch in "
+        f"{rec.walls['brats_train']:.2f} s, peak memory allocated "
+        f"{peak_train['allocated'] / 2**30:.2f} GiB (PR 6, remat ignored: "
+        f"{PR6_BRATS_PEAK_GIB} GiB), reserved "
         f"{peak_train['reserved'] / 2**30:.2f} GiB; predict volumes/min over {SURFACE_CALLS} "
         f"calls of {len(test)} volumes: " + ", ".join(
             f"{k} median {v['median']:.2f} (min {v['min']:.2f}, max {v['max']:.2f})"
@@ -2226,7 +2279,7 @@ def run_predict_surface(torch, gn, P, grid_corners, dev, gen):
     return counts, dict(per_run=per_run, brats_check=k2), dict(
         predict_volumes_per_min=vpm, idle=idle, memory=mem, peak_train=peak_train,
         agreement=agreement, cli_seconds=rec.walls, stitches=rec.stitches,
-        landmark_heatmap_max_diff=ldmk_diff)
+        landmark_heatmap_max_diff=ldmk_diff, held_before_calls=helds)
 
 
 def predict_surface_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
@@ -2234,6 +2287,449 @@ def predict_surface_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
     log_clocks("predict surface")
     counts, k2, surface = run_predict_surface(torch, gn, P, grid_corners, dev, gen)
     return dict(counts=counts, k2=k2, surface=surface)
+
+
+def k1_per_step(remat_levels: int, n_levels: int = 5) -> dict:
+    """K1 launches of one full-width train step: 27 GroupNorms forward and
+    backward, and each recomputed stage's 3 forwards again in the backward
+    (encoder stage i when i < k, the decoder stage whose output level is < k)."""
+    k = min(remat_levels, n_levels)
+    again = 3 * (k + min(k, n_levels - 1))
+    return dict(gn_moments=27 + again, gn_apply=27 + again, gn_bwd_reduce=27, gn_bwd_apply=27)
+
+
+def timed_steps(torch, step, state, feed, n):
+    """``n`` steps, each between CUDA events: (state, step ms, losses)."""
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(n)]
+    losses = []
+    torch.cuda.synchronize()
+    for start, end in events:
+        start.record()
+        state, metrics = step(state, next(feed))
+        end.record()
+        losses.append(metrics["train_loss"])
+    torch.cuda.synchronize()
+    return state, [a.elapsed_time(b) for a, b in events], [float(v) for v in losses]
+
+
+def remat_surface(torch, gn, P, dev, sampler):
+    """bench.py's step (batch 32 of 96^3, bf16, Dice, Adam, mirror flips,
+    ``DevicePatchSampler``) at remat 0, 1 and all on one model: patches/s,
+    peak memory against ``unet_train_peak_bytes``, exact K1 launches per step."""
+    import dataclasses
+
+    from tpu_mednet_torch.models import ResidualUNet3D
+    from tpu_mednet_torch.ops.augment import AugmentConfig
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.train import create_train_state, make_train_step
+    from tpu_mednet_torch.utils import memory
+
+    model = ResidualUNet3D(1, 2, f_maps=32, dtype=torch.bfloat16, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+    task = SegmentationTask(model=model, loss="DICE")
+    n_params = sum(p.numel() for p in model.parameters())
+    feed = endless_batches(sampler, TRAIN_BATCH)
+    out = {}
+    for name, remat in REMATS:
+        model.config = dataclasses.replace(model.config, remat=remat)
+        model.zero_grad(set_to_none=True)
+        state = create_train_state(model, learning_rate=1e-3, seed=0)
+        step = make_train_step(task, augment=AugmentConfig(mirror_axes=(1, 2, 3)))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(SURFACE_WARMUP):
+            state, _ = step(state, next(feed))
+        before = launch_counts(gn, P)
+        state, step_ms, losses = timed_steps(torch, step, state, feed, SURFACE_STEPS)
+        after = launch_counts(gn, P)
+        per_step = {k: (after[k] - before[k]) / SURFACE_STEPS for k in after}
+        want = dict(k1_per_step(model.config.remat_levels), gather_patches=2)
+        reserved = torch.cuda.max_memory_reserved(dev)
+        allocated = torch.cuda.max_memory_allocated(dev)
+        est = memory.unet_train_peak_bytes(TRAIN_BATCH, PATCH, model.config.feature_maps, 1, 2,
+                                           n_params, remat=remat)
+        median = float(np.median(step_ms))
+        out[name] = dict(patches_per_s=TRAIN_BATCH / median * 1e3, step_ms=step_ms,
+                         max_memory_allocated=allocated, max_memory_reserved=reserved,
+                         estimate=est, ratio=est / reserved, launches_per_step=per_step,
+                         losses=losses)
+        log(f"training surface: remat {name}: median step {median:.2f} ms = "
+            f"{TRAIN_BATCH / median * 1e3:.2f} patches/s (steps "
+            f"{' '.join(f'{t:.2f}' for t in step_ms)}); max_memory_allocated "
+            f"{allocated / 2**30:.3f} GiB, max_memory_reserved {reserved / 2**30:.3f} GiB; "
+            f"unet_train_peak_bytes {est / 2**30:.3f} GiB (ratio {est / reserved:.3f}); "
+            f"launches per step {per_step}")
+        if per_step != want:
+            raise AssertionError(f"training surface: remat {name}: launches per step "
+                                 f"{per_step}, expected {want}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"training surface: remat {name}: non-finite loss {losses}")
+        if not MEMORY_RATIO[0] <= est / reserved <= MEMORY_RATIO[1]:
+            raise AssertionError(f"training surface: remat {name}: estimate / reserved "
+                                 f"{est / reserved:.3f} outside {list(MEMORY_RATIO)}")
+        del state, step
+    peaks = [out[name]["max_memory_reserved"] for name, _ in REMATS]
+    if not peaks[0] > peaks[1] > peaks[2]:
+        raise AssertionError(f"training surface: reserved peaks by remat {peaks} do not fall")
+    model.config = dataclasses.replace(model.config, remat=False)
+    model.zero_grad(set_to_none=True)
+    return model, task, out
+
+
+def remat_parity(torch, gn, dev, gen):
+    """One step's loss and every parameter's gradient at remat 1 and all
+    against remat 0, same weights and batch, fp32 (TF32 off) and bf16,
+    held to the train-step parity bounds with cuDNN's default algorithms
+    and with its deterministic ones (the default wgrad sums in a varying
+    order, so that even two identical steps may differ in the last bits);
+    bit-equality printed.  And K1 under the recompute, with deterministic
+    cuDNN: at remat 1 the statistics the backward recomputes for the
+    level-0 stages (decoder, then encoder) must equal the forward's bit for
+    bit where K1's input does, which must be somewhere."""
+    import dataclasses
+
+    from tpu_mednet_torch.models import ResidualUNet3D
+    from tpu_mednet_torch.tasks import SegmentationTask
+
+    x = torch.randn((PARITY_BATCH, 1, *PATCH), generator=gen, device=dev)
+    label = torch.zeros((PARITY_BATCH, 1, *PATCH), dtype=torch.uint8, device=dev)
+    label[:, :, 20:70, 30:80, 10:60] = 1
+    x = x + label
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        for mode in ("default", "deterministic"):
+            torch.backends.cudnn.deterministic = mode == "deterministic"
+            for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                out[f"{dt}_{mode}"] = remat_parity_case(
+                    torch, gn, ResidualUNet3D(1, 2, f_maps=32, dtype=dtype, device=dev,
+                                              generator=torch.Generator().manual_seed(0)),
+                    SegmentationTask, dataclasses, x, label, dt, mode)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def remat_parity_case(torch, gn, model, SegmentationTask, dataclasses, x, label, dt, mode):
+    task = SegmentationTask(model=model, loss="DICE")
+    calls = []  # (K1's input, its statistics) per moments call
+
+    def recording(orig):
+        def group_norm_moments(xin, *args, **kw):
+            st = orig(xin, *args, **kw)
+            calls.append((xin.clone(), [t.clone() for t in st]))
+            return st
+        return group_norm_moments
+
+    def grads(remat):
+        model.config = dataclasses.replace(model.config, remat=remat)
+        model.zero_grad(set_to_none=True)
+        del calls[:]
+        with wrapped(gn, "group_norm_moments", recording):
+            loss, _ = task.loss_fn(model(x), {"label": label})
+            loss.backward()
+        return float(loss.detach()), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    ref = grads(False)
+    res = {"1": grads(1)}
+    # backward order: decoder stage 3 (GroupNorms 24-26), then encoder stage 0 (0-2)
+    pairs = list(zip(range(27, 33), (24, 25, 26, 0, 1, 2))) if len(calls) == 33 else []
+    same_input = [(i, j) for i, j in pairs if torch.equal(calls[i][0], calls[j][0])]
+    k1_equal = bool(same_input) and all(
+        torch.equal(a, b) for i, j in same_input for a, b in zip(calls[i][1], calls[j][1]))
+    del calls[:]
+    res["all"] = grads(True)
+    again = grads(1)
+    repeatable = again[0] == res["1"][0] and all(
+        torch.equal(again[1][k], res["1"][1][k]) for k in again[1])
+    out = dict(k1_recompute_bit_equal=k1_equal, k1_inputs_bit_equal=len(same_input),
+               remat1_twice_bit_equal=repeatable)
+    tag = f"{dt}, cuDNN {mode}"
+    for name, (loss, g) in res.items():
+        rel = {k: float((g[k] - ref[1][k]).abs().max()) / float(ref[1][k].abs().max())
+               for k in g}
+        worst = max(rel, key=rel.get)
+        bit_equal = loss == ref[0] and all(torch.equal(g[k], ref[1][k]) for k in g)
+        out[name] = dict(loss=loss, loss_remat0=ref[0], worst_param=worst,
+                         worst_rel=rel[worst], bit_equal=bit_equal)
+        log(f"training surface: remat {name} vs 0, {tag}, batch {PARITY_BATCH}: loss "
+            f"{loss:.6f} vs {ref[0]:.6f}; max over {len(rel)} parameters of max|dg|/max|g| "
+            f"{rel[worst]:.3g} ({worst}; bound {PARITY_REL[dt]}); bit-equal {bit_equal}")
+        if abs(loss - ref[0]) > PARITY_REL[dt] or rel[worst] > PARITY_REL[dt]:
+            raise AssertionError(f"training surface: remat {name} ({tag}) disagrees with "
+                                 "remat 0")
+    log(f"training surface: {tag}: under remat 1, K1's input to the 6 recomputed "
+        f"GroupNorms bit-equal to the forward's in {len(same_input)}, the statistics there "
+        f"bit-equal: {k1_equal}; remat 1 twice bit-equal: {repeatable}")
+    if mode == "deterministic" and not k1_equal:
+        raise AssertionError(f"training surface: K1's recompute under remat 1 ({tag}) "
+                             "differs from its forward")
+    return out
+
+
+def spatial_surface(torch, dev, task, sampler):
+    """bench.py's step with the spatial transform (SPATIAL, the separable
+    warp) added to the mirror flips: patches/s, the warp's device ms per
+    step from CUDA events around ``spatial_3d``, peak memory; every warped
+    label value must lie in the input's label set, every loss be finite."""
+    from tpu_mednet_torch.ops import augment as A
+    from tpu_mednet_torch.train import create_train_state, make_train_step
+
+    model = task.model
+    state = create_train_state(model, learning_rate=1e-3, seed=0)
+    step = make_train_step(task, augment=A.AugmentConfig(mirror_axes=(1, 2, 3), **SPATIAL))
+    feed = endless_batches(sampler, TRAIN_BATCH)
+    pairs, outside = [], []
+
+    def timing(orig):
+        def spatial_3d(x, draws, label=None, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            y, lab = orig(x, draws, label=label, **kw)
+            end.record()
+            pairs.append((start, end))
+            outside.append(int((~torch.isin(lab, torch.unique(label))).sum()))
+            return y, lab
+        return spatial_3d
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with wrapped(A, "spatial_3d", timing):
+        for _ in range(SURFACE_WARMUP):
+            state, _ = step(state, next(feed))
+        del pairs[:]
+        state, step_ms, losses = timed_steps(torch, step, state, feed, SURFACE_STEPS)
+    warp_ms = [a.elapsed_time(b) for a, b in pairs]
+    median = float(np.median(step_ms))
+    res = dict(patches_per_s=TRAIN_BATCH / median * 1e3, step_ms=step_ms, warp_ms=warp_ms,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+               max_memory_reserved=torch.cuda.max_memory_reserved(dev), losses=losses,
+               labels_outside_set=sum(outside))
+    log(f"training surface: spatial {SPATIAL} + mirror, remat 0: median step {median:.2f} ms = "
+        f"{res['patches_per_s']:.2f} patches/s; spatial_3d {np.mean(warp_ms):.3f} ms per step "
+        f"(events; {' '.join(f'{t:.3f}' for t in warp_ms)}); max_memory_allocated "
+        f"{res['max_memory_allocated'] / 2**30:.3f} GiB, reserved "
+        f"{res['max_memory_reserved'] / 2**30:.3f} GiB; losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}; warped label voxels outside the input's "
+        f"label set: {sum(outside)}")
+    if sum(outside) or not all(np.isfinite(losses)):
+        raise AssertionError("training surface: spatial step: labels left the set or a loss "
+                             "is not finite")
+    del state, step
+    return res
+
+
+def warp_ambiguous(coords, apply, method, bands, tie=WARP_TIE):
+    """(N, X, Y, Z) bool: label voxels whose nearest pick, at the source
+    positions ``coords`` (N, X, Y, Z, 3), lies within ``tie`` of a rounding
+    boundary, followed through the separable passes."""
+    shape = coords.shape[1:4]
+    near = lambda src: np.abs(src - np.floor(src) - 0.5) < tie
+    base = np.stack(np.meshgrid(*[np.arange(s, dtype=np.float32) for s in shape],
+                                indexing="ij"), -1)
+    if method == "exact":
+        amb = near(np.clip(coords, 0.0, np.asarray(shape, np.float32) - 1.0)).any(-1)
+    else:
+        disp = np.clip(coords - base, -np.asarray(bands, np.float32),
+                       np.asarray(bands, np.float32))
+        amb = np.zeros(coords.shape[:4], bool)
+        for axis in range(3):
+            src = np.clip(base[..., axis] + disp[..., axis], 0.0, shape[axis] - 1.0)
+            lo = np.floor(src)
+            idx = (lo + (src - lo > 0.5)).astype(np.int64)
+            amb = np.take_along_axis(amb, idx, axis=axis + 1) | near(src)
+    return amb & np.asarray(apply).reshape(-1, 1, 1, 1)
+
+
+def smooth_volume(n, extent, seed):
+    """(n, 1, e, e, e) fp32: sines along each axis and a little noise."""
+    rng = np.random.default_rng(seed)
+    g = np.meshgrid(*[np.arange(extent, dtype=np.float32)] * 3, indexing="ij")
+    x = np.sin(0.2 * g[0]) + np.cos(0.15 * g[1]) + np.sin(0.25 * g[2])
+    return (x[None, None] + 0.1 * rng.normal(size=(n, 1, *x.shape))).astype(np.float32)
+
+
+def check_warp_devices(torch, dev):
+    """``spatial_3d`` on the card against the CPU from the same draws (both
+    methods, a heatmap channel warped linearly and a class map), then
+    ``separable`` against ``exact`` on the card under a small deformation."""
+    from tpu_mednet_torch.ops import augment as A
+
+    n, e = WARP_CHECK
+    shape = (e,) * 3
+    x = torch.from_numpy(smooth_volume(n, e, 6))
+    g = np.meshgrid(*[np.arange(e, dtype=np.float32)] * 3, indexing="ij")
+    heat = 255.0 * np.exp(-sum((a - e / 2) ** 2 for a in g) / (2 * 6.0**2))
+    label = torch.from_numpy(np.concatenate(
+        [np.broadcast_to(heat, (n, 1, *shape)).astype(np.uint8),
+         ((x > 0.5).numpy() + (x > 1.5).numpy()).astype(np.uint8)], 1))
+    draws = A.draw_spatial(n, torch.Generator().manual_seed(5), **SPATIAL)
+    on_card = A.SpatialDraws(*[None if t is None else t.to(dev) for t in draws])
+    coords = A.sample_coords(shape, draws).permute(0, 2, 3, 4, 1).numpy()
+    bands = [A.axis_band(shape, ax, **SPATIAL) for ax in range(3)]
+    out = {}
+    for method in ("separable", "exact"):
+        kw = dict(method=method, label_trilinear_channels=1, **SPATIAL)
+        y_c, l_c = A.spatial_3d(x, draws, label=label, **kw)
+        y_d, l_d = A.spatial_3d(x.to(dev), on_card, label=label.to(dev), **kw)
+        err = float((y_d.cpu() - y_c).abs().max())
+        amb = warp_ambiguous(coords, draws.apply, method, bands)
+        cls = (l_d.cpu()[:, 1] != l_c[:, 1]).numpy()
+        heat_diff = int((l_d.cpu()[:, 0].int() - l_c[:, 0].int()).abs().max())
+        out[method] = dict(image_err=err, image_bound=WARP_IMAGE_REL * float(x.abs().max()),
+                           class_differ=int(cls.sum()), class_outside_tie=int((cls & ~amb).sum()),
+                           tie_share=float(amb.mean()), heatmap_max_diff=heat_diff)
+        log(f"training surface: spatial_3d {method} at {n} x {e}^3, card vs CPU: image "
+            f"max|diff| {err:.3g} (bound {out[method]['image_bound']:.3g}); class map differs "
+            f"on {int(cls.sum())} voxels, {out[method]['class_outside_tie']} outside the "
+            f"{WARP_TIE} tie ({amb.mean():.2e} of voxels); heatmap max|diff| {heat_diff}")
+        if (err > out[method]["image_bound"] or out[method]["class_outside_tie"]
+                or heat_diff > 1):
+            raise AssertionError(f"training surface: spatial_3d {method} on the card "
+                                 "disagrees with the CPU")
+    small = A.draw_spatial(n, torch.Generator(device=dev).manual_seed(3), **SMALL_DEFORMATION)
+    xd = x.to(dev)
+    kw = dict(elastic_sigma=SMALL_DEFORMATION["elastic_sigma"],
+              rotate_deg=SMALL_DEFORMATION["rotate_deg"])
+    sep = A.spatial_3d(xd, small, method="separable", **kw).cpu().numpy()
+    ex = A.spatial_3d(xd, small, method="exact", **kw).cpu().numpy()
+    span = float(x.max() - x.min())
+    mean = float(np.abs(sep - ex).mean())
+    corr = float(np.corrcoef(sep.ravel(), ex.ravel())[0, 1])
+    out["separable_vs_exact"] = dict(mean_abs=mean, bound=SEPARABLE_MEAN_REL * span, corr=corr,
+                                     moved=float(np.abs(sep - x.numpy()).mean()))
+    log(f"training surface: separable vs exact on the card, {SMALL_DEFORMATION}: mean|diff| "
+        f"{mean:.4g} (bound {SEPARABLE_MEAN_REL} x range = {SEPARABLE_MEAN_REL * span:.4g}), "
+        f"correlation {corr:.5f} (bound {SEPARABLE_CORR}); mean |warped - input| "
+        f"{out['separable_vs_exact']['moved']:.4g}")
+    if not (mean < SEPARABLE_MEAN_REL * span and corr > SEPARABLE_CORR
+            and out["separable_vs_exact"]["moved"] > 0):
+        raise AssertionError("training surface: separable and exact disagree on the card")
+    return out
+
+
+def training_surface_entry_points(torch, gn, P, dev):
+    """``train_seg -c configs/seg_organ.yaml --remat 1`` and ``train_ldmks -c
+    configs/landmarks.yaml``, both with the spatial flags, ``SURFACE_EPOCHS``
+    each through ``main(argv)`` on the seeded stores: patches/s by epoch,
+    peak memory, launches.  The landmark run's first warped label must keep its heatmap
+    channels within the unwarped range and its class map in-set, and its
+    heatmap channels must differ from a nearest warp of the same draws (the
+    Trainer's hook warps them linearly)."""
+    import tempfile
+
+    from tpu_mednet_torch.cli import train_ldmks, train_seg
+    from tpu_mednet_torch.ops import augment as A
+
+    seen = {}
+
+    def capture(orig):
+        def spatial_3d(x, draws, label=None, **kw):
+            out = orig(x, draws, label=label, **kw)
+            if label is not None and label.shape[1] > 1 and "ldmk" not in seen:
+                seen["ldmk"] = (label.clone(), out[1].clone(), draws, kw)
+            return out
+        return spatial_3d
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_training_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_organ_store(root)
+        write_landmark_store(root)
+        log(f"training surface: seeded organ and landmark stores in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for tag, main, name, argv, steps in (
+                ("seg_organ_spatial_remat1", train_seg.main, "seg_organ",
+                 organ_train_argv(root, "seg_organ", "--max_epochs", str(SURFACE_EPOCHS),
+                                  "--remat", "1", *SPATIAL_FLAGS),
+                 SURFACE_EPOCHS * ORGAN_STEPS_PER_EPOCH),
+                ("landmarks_spatial", train_ldmks.main, "ldmk",
+                 ldmk_train_argv(root, "ldmk", SURFACE_EPOCHS, *SPATIAL_FLAGS),
+                 SURFACE_EPOCHS * LDMK_STEPS_PER_EPOCH)):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = launch_counts(gn, P)
+            t = time.perf_counter()
+            with wrapped(A, "spatial_3d", capture):
+                rc = main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            after = launch_counts(gn, P)
+            pps = [r["patches_per_sec"] for r in read_metrics(
+                root / name / "logs" / "metrics.jsonl") if "patches_per_sec" in r]
+            runs[tag] = dict(exit_code=rc, seconds=seconds, patches_per_s=pps,
+                             max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                             max_memory_reserved=torch.cuda.max_memory_reserved(dev),
+                             launches={k: after[k] - before[k] for k in after})
+            log(f"training surface: {tag}: exit code {rc} in {seconds:.2f} s; patches/s "
+                f"{pps}; max_memory_allocated {runs[tag]['max_memory_allocated'] / 2**30:.3f} "
+                f"GiB, reserved {runs[tag]['max_memory_reserved'] / 2**30:.3f} GiB; launches "
+                f"{runs[tag]['launches']}")
+            if rc != 0 or len(pps) != SURFACE_EPOCHS:
+                raise AssertionError(f"training surface: {tag} exited with {rc}")
+            if runs[tag]["launches"]["gn_bwd_reduce"] != 27 * steps:
+                raise AssertionError(f"training surface: {tag}: K1 backward launches "
+                                     f"{runs[tag]['launches']}, expected 27 x {steps} steps")
+        # remat 1 recomputes 6 GroupNorms a step on top of the forwards'
+        seg = runs["seg_organ_spatial_remat1"]["launches"]
+        steps = SURFACE_EPOCHS * ORGAN_STEPS_PER_EPOCH
+        val = seg["gn_moments"] - 33 * steps
+        if val <= 0 or val % 27:
+            raise AssertionError(f"training surface: seg_organ --remat 1 launched {seg}, "
+                                 f"expected 33 x {steps} steps + 27 per validation batch")
+
+    lab_in, lab_out, draws, kw = seen["ldmk"]
+    k = kw["label_trilinear_channels"]
+    heat_in, heat_out = lab_in[:, :k].float(), lab_out[:, :k].float()
+    nearest = A.spatial_3d(torch.zeros_like(lab_in[:, :1], dtype=torch.float32), draws,
+                           label=lab_in, **{**kw, "label_trilinear_channels": 0})[1]
+    hook = dict(label_trilinear_channels=k,
+                heatmap_range_in=[float(heat_in.min()), float(heat_in.max())],
+                heatmap_range_out=[float(heat_out.min()), float(heat_out.max())],
+                class_outside_set=int((~torch.isin(lab_out[:, k:], torch.unique(
+                    lab_in[:, k:]))).sum()),
+                voxels_unlike_nearest=int((nearest[:, :k] != lab_out[:, :k]).sum()))
+    log(f"training surface: landmark hook: {hook}")
+    if not (k == LDMK_HEATMAPS and heat_out.min() >= heat_in.min()
+            and heat_out.max() <= heat_in.max() and hook["class_outside_set"] == 0
+            and hook["voxels_unlike_nearest"] > 0):
+        raise AssertionError("training surface: the landmark heatmaps were not warped "
+                             "linearly within their range, or the class map left its set")
+    return dict(runs=runs, landmark_hook=hook)
+
+
+def training_surface_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
+    """remat 0/1/all and the spatial transform at full width, their parity
+    and card checks, then the two training CLIs with the new flags;
+    launches counted from 0."""
+    log_clocks("training surface")
+    torch.backends.cudnn.allow_tf32 = False  # the fp32 parity bound holds without TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    reset_counts(gn, P)
+    sampler = seeded_train_sampler(dev)
+    model, task, remat = remat_surface(torch, gn, P, dev, sampler)
+    spatial = spatial_surface(torch, dev, task, sampler)
+    del model, task, sampler
+    torch.cuda.empty_cache()
+    parity = remat_parity(torch, gn, dev, gen)
+    warp = check_warp_devices(torch, dev)
+    torch.cuda.empty_cache()
+    entry = training_surface_entry_points(torch, gn, P, dev)
+    counts = launch_counts(gn, P)
+    seconds = time.perf_counter() - t0
+    log(f"training surface: launches {counts}; {seconds:.1f} s")
+    return dict(counts=counts, surface=dict(remat=remat, parity=parity, spatial=spatial,
+                                            warp_checks=warp, entry_points=entry,
+                                            seconds=seconds))
 
 
 def run_child(flag: str, tag: str) -> dict:
@@ -2287,7 +2783,8 @@ def main(argv) -> int:
         for name in ("yaml", "h5py", "zarr", "tensorboardX")))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    children = {"--landmarks": landmarks_phase, "--predict-surface": predict_surface_phase}
+    children = {"--landmarks": landmarks_phase, "--predict-surface": predict_surface_phase,
+                "--training-surface": training_surface_phase}
     if argv[:1] and argv[0] in children:  # a child of run_child
         _build.build()
         out = children[argv[0]](torch, gn, P, _grid_corners, dev, gen)
@@ -2347,15 +2844,21 @@ def main(argv) -> int:
     surface_all = run_child("--predict-surface", "predict_surface")
     surface_counts, surface_k2 = surface_all["counts"], surface_all["k2"]
 
+    # 11. the training surface (remat, spatial_3d, the training CLIs' new
+    # flags), in a fresh process too
+    training_all = run_child("--training-surface", "training_surface")
+    training_counts = training_all["counts"]
+
     def launches(name):
         by_path = dict(serving=counts[name], training=train_counts[name],
                        entry_points=entry_counts[name], landmarks=ldmk_counts[name],
-                       predict_surface=surface_counts[name])
+                       predict_surface=surface_counts[name],
+                       training_surface=training_counts[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
-    def gather_launches(path, entry, landmarks, surface):
+    def gather_launches(path, entry, landmarks, surface, training_surface):
         by_path = dict(serving=0, training=0, entry_points=entry, landmarks=landmarks,
-                       predict_surface=surface)
+                       predict_surface=surface, training_surface=training_surface)
         by_path[path] = counts["gather_patches"] if path == "serving" \
             else train_counts["gather_patches"]
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
@@ -2396,7 +2899,7 @@ def main(argv) -> int:
         dict(name="gather_patches", source="tpu_mednet_torch/csrc/patches.cu",
              replaces="tpu_mednet/ops/pallas/patches.py:95",
              **gather_launches("serving", entry_k2["plain"], ldmk_k2["plain"],
-                               surface_counts["gather_patches"]),
+                               surface_counts["gather_patches"], 0),
              max_abs_err=k2["err"],
              ms=k2["ms"], event_ms=k2["wrapper_ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound"], library_ms=None, profiler_kept=k2["kept"],
@@ -2441,7 +2944,8 @@ def main(argv) -> int:
         dict(name="gather_patches_indexed", source="tpu_mednet_torch/csrc/patches.cu",
              replaces="tpu_mednet/ops/pallas/patches.py:95 (and the sampler's gather, "
                       "tpu_mednet/data/device_sampler.py:171-190)",
-             **gather_launches("training", entry_k2["indexed"], ldmk_k2["indexed"], 0),
+             **gather_launches("training", entry_k2["indexed"], ldmk_k2["indexed"], 0,
+                               training_counts["gather_patches"]),
              max_abs_err=k2i["err"],
              ms=k2i["ms"], plain_ms=k2i["plain_ms"], bound_ms=k2i["bound"],
              profiler_kept=k2i["kept"],
@@ -2474,6 +2978,7 @@ def main(argv) -> int:
                     "parity": ldmk_parity, "gn_f64": k1_ldmk, "gn_backward_f64": k1b_ldmk}))
     log(json.dumps({"predict_surface": surface_all["surface"],
                     "launches_by_run": surface_k2["per_run"]}))
+    log(json.dumps({"training_surface": training_all["surface"]}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,7 +77,8 @@ def test_port_draws_are_reproducible_by_seed():
     shape = (4, 2, 6, 5, 4)
     draw = lambda seed: A.draw_augmentations(cfg, shape, torch.Generator().manual_seed(seed))
     a, b, c = draw(0), draw(0), draw(1)
-    for u, v, w in zip(a, b, c):
+    assert a.spatial is b.spatial is c.spatial is None  # the spatial transform is off
+    for u, v, w in zip(a[1:], b[1:], c[1:]):
         assert torch.equal(u, v)
         assert not torch.equal(u, w)
     assert a.brightness.shape == a.contrast.shape == (4, 2)
@@ -96,7 +97,13 @@ def test_apply_with_a_generator_moves_label_with_image():
     assert not torch.equal(y, x)
 
 
-def test_spatial_transform_is_not_ported():
-    with pytest.raises(NotImplementedError, match="spatial_3d"):
-        A.AugmentConfig(rotate_deg=10.0)
+def test_spatial_transform_config_matches_jax():
+    """The spatial fields are the JAX package's (``spatial_3d`` itself is
+    held against JAX in ``test_torch_spatial_aug.py``)."""
+    kw = dict(elastic_sigma=2.0, elastic_grid=6, rotate_deg=10.0, scale_range=(0.9, 1.1),
+              spatial_prob=0.5, label_trilinear_channels=2)
+    import dataclasses
+
+    assert dataclasses.asdict(A.AugmentConfig(**kw)) == dataclasses.asdict(JA.AugmentConfig(**kw))
+    assert A.AugmentConfig(rotate_deg=10.0).wants_spatial() is True
     assert A.AugmentConfig().wants_spatial() is False

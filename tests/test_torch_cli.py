@@ -19,6 +19,7 @@ that wait are refused, and both CLIs exit non-zero without CUDA unless
 ``--device cpu`` is given.
 """
 
+import dataclasses
 import json
 import shutil
 from pathlib import Path
@@ -267,12 +268,45 @@ def test_predict_refuses_the_wrong_task(run, tmp_path):
     (["--spatial_shards", "2"], "Multi-GPU"),
     (["--native_loader"], "native loader"),
     (["--neptune_project", "p"], "Neptune"),
-    (["--aug_elastic_sigma", "2"], "spatial_3d"),
 ])
 def test_train_refuses_what_waits(run, tmp_path, extra, match):
     argv = _train_argv(run, "--max_epochs", "1", "--model_dir", str(tmp_path / "m"), *extra)
     with pytest.raises(NotImplementedError, match=match):
         train_seg.main(argv)
+
+
+SPATIAL_FLAGS = ("--aug_elastic_sigma", "2", "--aug_rotate_deg", "15", "--aug_scale", "0.85",
+                 "1.15", "--aug_elastic_grid", "3", "--aug_spatial_prob", "0.75")
+
+
+def test_train_takes_the_spatial_and_remat_flags(run, tmp_path, monkeypatch):
+    """The spatial flags build the JAX CLI's ``AugmentConfig``, ``--remat 1``
+    recomputes the full-resolution stages, and the run trains."""
+    from tpu_mednet import config as jax_config
+    from tpu_mednet.cli import train_seg as jax_train_seg
+    from tpu_mednet_torch.train import Trainer
+
+    seen = {}
+    orig = Trainer.__init__
+
+    def init(self, task, *args, **kw):
+        orig(self, task, *args, **kw)
+        seen.update(augment=self.augment, remat=task.model.config.remat)
+
+    monkeypatch.setattr(Trainer, "__init__", init)
+    argv = _train_argv(run, "--max_epochs", "1", "--limit_train_batches", "1",
+                       "--model_dir", str(tmp_path / "m"), "--log_dir", str(tmp_path / "logs"),
+                       "--remat", "1", *SPATIAL_FLAGS)
+    assert train_seg.main(argv) == 0
+    jax_hp = jax_config.parse_with_config(jax_train_seg.build_parser(), argv[2:])
+    assert dataclasses.asdict(seen["augment"]) == dataclasses.asdict(
+        jax_config.augment_config_from_hparams(jax_hp))
+    assert seen["augment"].wants_spatial() and seen["remat"] == 1
+    assert CheckpointManager(tmp_path / "m").available_steps == [1]
+    records = [json.loads(line) for line in (tmp_path / "logs" / "metrics.jsonl")
+               .read_text().splitlines()]
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    assert losses and all(np.isfinite(losses))
 
 
 def test_train_exits_3_when_it_stops_on_non_finite_values(tmp_path):

@@ -11,6 +11,7 @@
 """
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -125,8 +126,20 @@ def test_augment_config_from_hparams():
     assert config.augment_config_from_hparams(parser.parse_args([])) is None
     aug = config.augment_config_from_hparams(parser.parse_args(["--aug_mirror"]))
     assert aug.mirror_axes == (1, 2, 3) and aug.gamma_range == (0.7, 1.3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config.augment_config_from_hparams(parser.parse_args(["--aug_rotate_deg", "10"]))
+    # the spatial flags build the JAX package's AugmentConfig, field for field
+    jax_parser = argparse.ArgumentParser()
+    jax_config.add_common_train_args(jax_parser)
+    for argv in (["--aug_rotate_deg", "10"],
+                 ["--aug_elastic_sigma", "3", "--aug_elastic_grid", "6", "--aug_rotate_deg",
+                  "15", "--aug_scale", "0.85", "1.25", "--aug_spatial_prob", "0.5",
+                  "--aug_mirror"]):
+        aug = config.augment_config_from_hparams(parser.parse_args(argv))
+        ref = jax_config.augment_config_from_hparams(jax_parser.parse_args(argv))
+        assert aug.wants_spatial() and ref.wants_spatial()
+        assert dataclasses.asdict(aug) == dataclasses.asdict(ref)
+    for value, want in (("0", False), ("false", False), ("all", True), ("true", True),
+                        ("1", 1), ("3", 3), (True, True)):
+        assert config.parse_remat(value) == jax_config.parse_remat(value) == want
 
 
 def test_env_expansion_and_keyfile(tmp_path, monkeypatch):

@@ -23,7 +23,7 @@ from tpu_mednet.tasks import SegmentationTask as JaxSegmentationTask
 from tpu_mednet.utils.torch_import import convert_state_dict
 from tpu_mednet_torch.data import MemoryReader
 from tpu_mednet_torch.inference import device_sliding
-from tpu_mednet_torch.inference.common import per_task_cache, run_pipelined
+from tpu_mednet_torch.inference.common import run_pipelined
 from tpu_mednet_torch.models import ResidualUNet3D
 from tpu_mednet_torch.tasks import SegmentationTask
 
@@ -139,17 +139,27 @@ def test_run_pipelined_keeps_one_item_in_flight():
     assert events == ["d0", "d1", "f0", "d2", "f1", "f2"]
 
 
-def test_per_task_cache_builds_once_per_key():
-    class Task:
-        pass
+@pytest.mark.parametrize("stitch", ["device", "gaussian"])
+def test_predict_call_leaves_its_task_collectable(stitch):
+    """No predict call keeps its task (and so its model's parameters) alive
+    once the caller drops it: a long-lived process that predicts with one
+    checkpoint after another holds one model at a time."""
+    import gc
+    import weakref
 
-    cache, task, built = {}, Task(), []
-    build = lambda: built.append(1) or len(built)
-    assert per_task_cache(cache, task, "a", build) == 1
-    assert per_task_cache(cache, task, "a", build) == 1
-    assert per_task_cache(cache, task, "b", build) == 2
+    from tpu_mednet_torch.inference import weighted
+
+    predict = dict(device=device_sliding.predict_volumes_on_device,
+                   gaussian=weighted.predict_volumes_weighted_on_device)[stitch]
+    task = SegmentationTask(model=ResidualUNet3D(1, 2, f_maps=4, num_levels=2, num_groups=2,
+                                                 dtype=torch.float32, device="cpu"))
+    out = predict(task, None, ["s0", "s1"], reader=MemoryReader(*_store()), device="cpu",
+                  tta_flips=(0,), **KW)
+    assert out["s0"].array.shape == (1, *SHAPES[0])
+    task_ref, model_ref = weakref.ref(task), weakref.ref(task.model)
     del task
-    assert cache == {}
+    gc.collect()
+    assert task_ref() is None and model_ref() is None
 
 
 def test_from_hparams_and_postprocess():

@@ -16,6 +16,7 @@ same rows.  The guards of both CLIs, and CUDA by default.
 """
 
 import csv
+import dataclasses
 import json
 from pathlib import Path
 from types import SimpleNamespace
@@ -222,13 +223,45 @@ def test_predict_guards(run, extra, match):
     (["--gpus", "2"], NotImplementedError, "Multi-GPU"),
     (["--native_loader"], NotImplementedError, "native loader"),
     (["--neptune_project", "p"], NotImplementedError, "Neptune"),
-    (["--aug_elastic_sigma", "2"], NotImplementedError, "spatial_3d"),
 ], ids=["landmarks_need_device_sampler", "heatmaps_vs_out_channels", "store_vs_config",
-        "gpus", "native_loader", "neptune", "spatial_3d"])
+        "gpus", "native_loader", "neptune"])
 def test_train_ldmks_refuses(run, tmp_path, extra, error, match):
     argv = _train_argv(run, "--max_epochs", "1", "--model_dir", str(tmp_path / "m"), *extra)
     with pytest.raises(error, match=match):
         train_ldmks.main(argv)
+
+
+def test_train_ldmks_takes_the_spatial_and_remat_flags(run, tmp_path, monkeypatch):
+    """The spatial flags build the JAX CLI's ``AugmentConfig`` with the
+    Trainer's hook on top (the heatmap channels warp linearly), ``--remat
+    all`` recomputes every stage, and the run trains."""
+    from tpu_mednet import config as jax_config
+    from tpu_mednet.cli import train_ldmks as jax_train_ldmks
+    from tpu_mednet_torch.train import Trainer
+
+    seen = {}
+    orig = Trainer.__init__
+
+    def init(self, task, *args, **kw):
+        orig(self, task, *args, **kw)
+        seen.update(augment=self.augment, remat=task.model.config.remat, task=task)
+
+    monkeypatch.setattr(Trainer, "__init__", init)
+    argv = _train_argv(run, "--max_epochs", "1", "--limit_train_batches", "1",
+                       "--model_dir", str(tmp_path / "m"), "--log_dir", str(tmp_path / "logs"),
+                       "--remat", "all", "--aug_elastic_sigma", "2", "--aug_rotate_deg", "15",
+                       "--aug_scale", "0.85", "1.15")
+    assert train_ldmks.main(argv) == 0
+    jax_hp = jax_config.parse_with_config(jax_train_ldmks.build_parser(), argv[2:])
+    want = dataclasses.replace(jax_config.augment_config_from_hparams(jax_hp),
+                               label_trilinear_channels=seen["task"].num_heatmaps)
+    assert dataclasses.asdict(seen["augment"]) == dataclasses.asdict(want)
+    assert seen["augment"].label_trilinear_channels == 3 and seen["remat"] is True
+    assert CheckpointManager(tmp_path / "m").available_steps == [1]
+    records = [json.loads(line) for line in (tmp_path / "logs" / "metrics.jsonl")
+               .read_text().splitlines()]
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    assert losses and all(np.isfinite(losses))
 
 
 @pytest.fixture

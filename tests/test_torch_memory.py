@@ -182,3 +182,35 @@ def test_weighted_guard_counts_the_model_channels():
                                                  reader=MemoryReader(store, attrs),
                                                  hbm_budget=hi, **KW)
     assert out["s0"].shape == (1, *SHAPES["s0"])
+
+
+# -- the training half ----------------------------------------------------------
+
+FLAGSHIP = dict(patch=(96, 96, 96), feature_maps=[32, 64, 128, 256, 512], in_channels=1,
+                out_channels=2, n_params=35_316_738)
+CONFIG4 = dict(patch=(128, 128, 128), feature_maps=[32, 64, 128, 256, 512], in_channels=4,
+               out_channels=4, n_params=35_318_000)
+
+
+@pytest.mark.parametrize("batch,kw,remat", [
+    (36, FLAGSHIP, 1), (32, FLAGSHIP, 1), (16, FLAGSHIP, 1), (8, FLAGSHIP, 1),
+    (8, FLAGSHIP, 0), (32, FLAGSHIP, 0), (32, FLAGSHIP, 2), (32, FLAGSHIP, True),
+    (2, CONFIG4, 0), (2, CONFIG4, 1), (4, dict(FLAGSHIP, feature_maps=[64, 128, 256, 512, 1024],
+                                                out_channels=5, n_params=141_246_661), 1),
+])
+def test_train_estimate_is_jax_with_jax_constants(monkeypatch, batch, kw, remat):
+    """At the points of ``tests/test_memory.py`` (and the landmark model's),
+    the port's structure with the JAX package's constants is JAX's estimate."""
+    monkeypatch.setattr(memory, "TRAIN_OVERHEAD", jax_memory.XLA_OVERHEAD)
+    monkeypatch.setattr(memory, "GN_F32_UNITS", jax_memory.GN_F32_UNITS)
+    monkeypatch.setattr(memory, "TRAIN_WORK_UNITS", 0.0)  # JAX folds it into the overhead
+    assert memory.unet_train_peak_bytes(batch, remat=remat, **kw) == \
+        jax_memory.unet_train_peak_bytes(batch, remat=remat, **kw)
+
+
+def test_train_estimate_falls_with_remat_and_refuses_the_double_family():
+    est = [memory.unet_train_peak_bytes(32, remat=r, **FLAGSHIP) for r in (0, 1, 2, True)]
+    assert est == sorted(est, reverse=True) and len(set(est)) == 4
+    assert memory.unet_train_peak_bytes(16, remat=1, **FLAGSHIP) < est[1]
+    with pytest.raises(NotImplementedError, match="double/UNet3D"):
+        memory.unet_train_peak_bytes(8, block="double", **FLAGSHIP)

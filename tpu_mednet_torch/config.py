@@ -52,6 +52,18 @@ def env_path(value: str) -> str:
     return replace_env(value)
 
 
+def parse_remat(value):
+    """'0'/'false' -> False, 'all'/'true' -> True, 'k' -> int k."""
+    if isinstance(value, bool):
+        return value
+    v = str(value).lower()
+    if v in ("0", "false", "none", ""):
+        return False
+    if v in ("all", "true"):
+        return True
+    return int(v)
+
+
 # -- YAML ---------------------------------------------------------------------
 
 def load_yaml_file(path):
@@ -86,18 +98,19 @@ def add_common_train_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--aug_noise_sigma", type=float, default=0.0,
                         help="additive gaussian noise sigma (0 = off)")
     parser.add_argument("--aug_elastic_sigma", type=float, default=0.0,
-                        help="elastic deformation sigma in voxels (0 = off; "
-                             "not ported yet)")
+                        help="on-device elastic deformation: coarse-grid "
+                             "displacement sigma in voxels (0 = off)")
     parser.add_argument("--aug_elastic_grid", type=int, default=4,
                         help="elastic deformation control grid size")
     parser.add_argument("--aug_rotate_deg", type=float, default=0.0,
                         help="random 3D rotation, max degrees per axis "
-                             "(0 = off; not ported yet)")
+                             "(0 = off)")
     parser.add_argument("--aug_scale", type=float, nargs=2, default=None,
                         metavar=("LO", "HI"),
-                        help="random isotropic scale range (not ported yet)")
+                        help="random isotropic scale range, e.g. 0.85 1.25")
     parser.add_argument("--aug_spatial_prob", type=float, default=1.0,
-                        help="per-sample probability of the spatial transform")
+                        help="per-sample probability of the elastic/rotate/"
+                             "scale transform")
     parser.add_argument("--gpus", type=int, default=1,
                         help="device count (one GPU is ported; more raise)")
     parser.add_argument("--preload", action="store_true")
@@ -109,8 +122,9 @@ def add_common_train_args(parser: argparse.ArgumentParser) -> None:
                              "the port has no z-packed layout and ignores it")
     parser.add_argument("--no_packed", dest="packed", action="store_false")
     parser.add_argument("--remat", type=str, default="0",
-                        help="accepted for parity with the JAX package's flags; "
-                             "rematerialization is not ported and is ignored")
+                        help="rematerialization: 0=off, all=every stage, "
+                             "k=recompute the k highest-resolution stages in "
+                             "the backward")
     parser.add_argument("--device_sampler", action="store_true",
                         help="keep volumes resident on the card and gather "
                              "patches there (DevicePatchSampler)")
@@ -133,9 +147,9 @@ def augment_config_from_hparams(hparams):
     """The on-device ``AugmentConfig`` from CLI flags, or None.
 
     ``--data_augmentation`` alone reproduces the reference Compose
-    (brightness/gamma/contrast, train_seg.py:84-86); ``--aug_mirror`` and
-    ``--aug_noise_sigma`` extend it and imply augmentation.  The spatial
-    flags are refused by ``AugmentConfig`` until ``spatial_3d`` is ported.
+    (brightness/gamma/contrast, train_seg.py:84-86); the ``--aug_*`` flags
+    extend it with mirror flips, noise and the spatial transform, and any of
+    them implies augmentation.
     """
     from tpu_mednet_torch.ops.augment import AugmentConfig
 
@@ -148,8 +162,10 @@ def augment_config_from_hparams(hparams):
         mirror_axes=(1, 2, 3) if hparams.aug_mirror else (),
         noise_sigma=hparams.aug_noise_sigma,
         elastic_sigma=hparams.aug_elastic_sigma,
+        elastic_grid=hparams.aug_elastic_grid,
         rotate_deg=hparams.aug_rotate_deg,
         scale_range=tuple(hparams.aug_scale) if hparams.aug_scale else None,
+        spatial_prob=hparams.aug_spatial_prob,
     )
 
 

@@ -1,7 +1,7 @@
 """Shared plumbing for the inference pipelines.
 
-Counterpart of ``tpu_mednet/inference/common.py``: the per-task predictor
-cache, the depth-1 dispatch/finalize pipeline over volumes (CUDA launches
+Counterpart of ``tpu_mednet/inference/common.py``: the depth-1
+dispatch/finalize pipeline over volumes (CUDA launches
 are asynchronous, so dispatching the next volume queues its work on the
 card while the previous volume's result is copied back to the host — the
 same overlap JAX's async dispatch gave), and mirror test-time
@@ -15,9 +15,8 @@ Round-robin multi-device placement is not ported yet.
 
 from __future__ import annotations
 
-import weakref
 from itertools import chain, combinations
-from typing import Callable, Dict, Hashable, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,25 +25,6 @@ from tpu_mednet_torch._device import DeviceLike, resolve_device
 from tpu_mednet_torch.data.readers import DataReader, open_reader
 from tpu_mednet_torch.data.stores import VolumeGroup
 from tpu_mednet_torch.utils.memory import check_stitch_budget, param_bytes
-
-
-def per_task_cache(cache: Dict[int, Dict], task, key: Hashable,
-                   build: Callable[[], object]):
-    """Get-or-build a per-task cached object (e.g. a predictor).
-
-    Predictors are cached per task and evicted when the task is
-    garbage-collected (``weakref.finalize``; the outer key is ``id(task)``),
-    so long-lived processes cycling tasks don't pin dead predictors.
-    ``key`` is the static configuration of the predictor.
-    """
-    tid = id(task)
-    if tid not in cache:
-        cache[tid] = {}
-        weakref.finalize(task, cache.pop, tid, None)
-    per_task = cache[tid]
-    if key not in per_task:
-        per_task[key] = build()
-    return per_task[key]
 
 
 def run_pipelined(items: Iterable[Tuple], dispatch: Callable,

@@ -19,7 +19,7 @@ Not ported yet: ``devices`` (round-robin multi-GPU).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,9 +28,8 @@ import torch.nn.functional as F
 from tpu_mednet_torch._device import DeviceLike
 from tpu_mednet_torch.data.readers import DataReader
 from tpu_mednet_torch.data.stores import VolumeGroup
-from tpu_mednet_torch.inference.common import (grid_corners, per_task_cache,
-                                               postprocess_activations, predict_on_device,
-                                               tta_split_activations)
+from tpu_mednet_torch.inference.common import (grid_corners, postprocess_activations,
+                                               predict_on_device, tta_split_activations)
 from tpu_mednet_torch.inference.sliding_window import predict_volumes
 from tpu_mednet_torch.ops import patches
 
@@ -83,16 +82,6 @@ def make_device_predictor(task, patch_size: Sequence[int],
     return run
 
 
-_PREDICTOR_CACHE: Dict[int, Dict] = {}
-
-
-def _cached_predictor(task, patch_size, patch_overlap, tta_flips):
-    return per_task_cache(
-        _PREDICTOR_CACHE, task, (patch_size, patch_overlap, tta_flips),
-        lambda: make_device_predictor(task, patch_size, patch_overlap, tta_flips),
-    )
-
-
 def predict_volumes_on_device(
     task,
     data_path,
@@ -131,5 +120,5 @@ def predict_volumes_on_device(
     return predict_on_device(
         task, data_path, subject_keys, patch_size, patch_overlap, batch_size, image_group,
         reader_cls, reader, device, tta_flips, hbm_guard, hbm_budget, stitch="device",
-        predictor=_cached_predictor(task, tuple(patch_size), tuple(patch_overlap), tta_flips),
+        predictor=make_device_predictor(task, patch_size, patch_overlap, tta_flips),
         spill=spill)

@@ -11,8 +11,11 @@ dtype (bf16 by default), the head's logits cast to fp32.  Parameters start
 from torch's layer defaults — the JAX package's ``'torch'`` init scheme
 (blocks.py:82-137) — optionally drawn from an explicit ``torch.Generator``.
 
-Not ported yet: the ``double``/UNet3D family, ``remat`` (training only) and
-``packed`` (a TPU layout with the same parameters and math).
+``remat`` recomputes the chosen stages' activations in the backward
+(``torch.utils.checkpoint``), as JAX's ``nn.remat`` does; JAX keeps the
+GroupNorm statistics across it, the port recomputes them with the stage.
+Not ported yet: the ``double``/UNet3D family and ``packed`` (a TPU layout
+with the same parameters and math).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpu_mednet_torch._device import DeviceLike, resolve_device
 from tpu_mednet_torch.models.blocks import (
@@ -48,6 +52,12 @@ class UNetConfig:
 
     ``f_maps`` may be an int (expanded geometrically over ``num_levels``
     levels, model.py:44-46,148-150) or an explicit per-level tuple.
+
+    ``remat`` recomputes stages in the backward instead of keeping their
+    activations: False (none), True (every stage) or an int k, the k
+    highest-resolution stages on each side (encoder stage i when i < k,
+    the decoder stage whose output level is < k).  It changes neither the
+    parameters nor the results.
     """
 
     in_channels: int
@@ -61,12 +71,20 @@ class UNetConfig:
     skip_final_activation: bool = False
     pool_type: str = "max"
     dtype: torch.dtype = torch.bfloat16
+    remat: Union[bool, int] = False
 
     @property
     def feature_maps(self) -> Tuple[int, ...]:
         if isinstance(self.f_maps, int):
             return create_feature_maps(self.f_maps, self.num_levels)
         return tuple(self.f_maps)
+
+    @property
+    def remat_levels(self) -> int:
+        """Levels whose stages are recomputed: the highest-resolution k."""
+        if self.remat is True:
+            return len(self.feature_maps)
+        return int(self.remat)
 
 
 class UNet3DBase(nn.Module):
@@ -115,12 +133,15 @@ class UNet3DBase(nn.Module):
                 "residual U-Net's sum join; use a larger patch or fewer levels"
             )
         x = x.to(cfg.dtype).contiguous(memory_format=CL3D)
+        k = cfg.remat_levels if torch.is_grad_enabled() else 0
         features = []
-        for encoder in self.encoders:
-            x = encoder(x)
+        for i, encoder in enumerate(self.encoders):
+            x = _run(encoder, i < k, x)
             features.append(x)
-        for decoder, skip in zip(self.decoders, features[-2::-1]):
-            x = decoder(skip, x)
+        n_dec = len(self.decoders)
+        for i, (decoder, skip) in enumerate(zip(self.decoders, features[-2::-1])):
+            # decoder stage i outputs at level n_dec - 1 - i
+            x = _run(decoder, n_dec - 1 - i < k, skip, x)
         x = F.conv3d(x, _conv_weight(self.final_conv.weight, cfg.dtype),
                      _cast(self.final_conv.bias, cfg.dtype))
         # fp32 logits: cheap (tiny channel dim) and stabilizes softmax
@@ -128,6 +149,14 @@ class UNet3DBase(nn.Module):
         if testing and not cfg.skip_final_activation:
             x = torch.sigmoid(x) if cfg.final_sigmoid else torch.softmax(x, dim=1)
         return x
+
+
+def _run(stage: nn.Module, remat: bool, *args: torch.Tensor) -> torch.Tensor:
+    """``stage(*args)``; with ``remat``, the backward recomputes the stage's
+    activations from its inputs instead of keeping them."""
+    if remat:
+        return checkpoint(stage, *args, use_reentrant=False, preserve_rng_state=False)
+    return stage(*args)
 
 
 @torch.no_grad()
@@ -164,6 +193,7 @@ def ResidualUNet3D(
     num_levels: int = 5,
     device: DeviceLike = None,
     generator: Optional[torch.Generator] = None,
+    remat: Union[bool, int] = False,
 ) -> UNet3DBase:
     """Residual 5-level 3D U-Net (reference model.py:113-213)."""
     cfg = UNetConfig(
@@ -177,5 +207,6 @@ def ResidualUNet3D(
         final_sigmoid=final_sigmoid,
         skip_final_activation=skip_final_activation,
         dtype=dtype,
+        remat=remat,
     )
     return UNet3DBase(cfg, device=device, generator=generator)

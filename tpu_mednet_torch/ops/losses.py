@@ -1,7 +1,7 @@
 """Segmentation losses and metrics on channels-first logits.
 
 Counterpart of ``tpu_mednet/ops/losses.py`` (reference
-``midasmednet/unet/loss.py:10-142``) for the segmentation task:
+``midasmednet/unet/loss.py:10-252``):
 
 - ``compute_per_channel_dice`` / ``dice_metric`` (loss.py:24-55)
 - ``expand_as_one_hot``                           (loss.py:58-88)
@@ -9,13 +9,16 @@ Counterpart of ``tpu_mednet/ops/losses.py`` (reference
 - ``ce_loss``                                     (loss.py:135-142; the
   reference's Softmax before CrossEntropyLoss is reproducible with
   ``double_softmax=True``, off by default as in the JAX package)
+- ``weighted_ce_loss``                            (loss.py:144-172)
+- ``bce_with_masking``                            (loss.py:175-202)
+- ``pixelwise_ce_loss``                           (loss.py:204-241)
 - ``mse_loss`` / ``l1_loss`` / ``landmark_loss``  (loss.py:243-252)
 - ``multitask_landmark_loss``                     (landmarks.py:125-134)
 
 Conventions: ``logits``/``probs`` are (N, C, X, Y, Z); integer ``labels``
 are (N, X, Y, Z); a one-hot ``target`` is (N, C, X, Y, Z).  Every reduction
-is computed in fp32.  The weighted/pixelwise CE and BCE losses are not
-ported yet.
+is computed in fp32.  No task calls the weighted, pixelwise and binary
+cross-entropies; they complete the reference's loss zoo.
 """
 
 from __future__ import annotations
@@ -126,6 +129,74 @@ def ce_loss(logits: torch.Tensor, labels: torch.Tensor, weight: Weight = None,
     picked = logp.gather(1, safe.unsqueeze(1)).squeeze(1)
     vw = valid.float() if w is None else w[safe] * valid
     return -(vw * picked).sum() / vw.sum().clamp_min(1e-12)
+
+
+def weighted_ce_loss(logits: torch.Tensor, target: torch.Tensor, weight: Weight = None,
+                     ignore_index: int = -1,
+                     target_one_hot_encoded: bool = True) -> torch.Tensor:
+    """Weighted cross-entropy with data-derived class weights (arXiv
+    1707.03237, reference loss.py:144-172): ``(1 - p_c) / p_c`` summed over
+    the softmax of the logits, without gradient, times ``weight`` where
+    given.  ``target`` is a one-hot (N, C, X, Y, Z) map (argmaxed first) or,
+    with ``target_one_hot_encoded=False``, an integer class map."""
+    probs = torch.softmax(logits.float(), dim=1)
+    flat = flatten_channels(probs)
+    class_weights = ((1.0 - flat).sum(-1) / flat.sum(-1)).detach()
+    w = _class_weight(weight, logits.shape[1], logits.device)
+    if w is not None:
+        class_weights = class_weights * w
+    if target_one_hot_encoded:
+        target = target.argmax(dim=1)
+    return ce_loss(logits, target, weight=class_weights, ignore_index=ignore_index)
+
+
+def bce_with_masking(logits: torch.Tensor, target: torch.Tensor,
+                     ignore_index: Optional[int] = -1, skip_last_target: bool = False,
+                     with_logits: bool = True) -> torch.Tensor:
+    """Element-wise binary cross-entropy, mean over every element (reference
+    ``BCELossWrapper``, loss.py:175-202): voxels whose target is
+    ``ignore_index`` are zeroed in input and target; ``skip_last_target``
+    drops the target's last channel.  ``with_logits=False`` takes
+    probabilities, clipped to [1e-12, 1 - 1e-12]."""
+    if skip_last_target:
+        target = target[:, :-1]
+    if logits.shape != target.shape:
+        raise ValueError(f"shape mismatch: {tuple(logits.shape)} vs {tuple(target.shape)}")
+    target = target.float()
+    x = logits.float()
+    if ignore_index is not None:
+        mask = (target != ignore_index).float()
+        x = x * mask
+        target = target * mask
+    if with_logits:
+        loss = x.clamp_min(0) - x * target + torch.log1p(torch.exp(-x.abs()))
+    else:
+        p = x.clamp(1e-12, 1 - 1e-12)
+        loss = -(target * torch.log(p) + (1 - target) * torch.log1p(-p))
+    return loss.mean()
+
+
+def pixelwise_ce_loss(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
+                      class_weights: Weight = None,
+                      ignore_index: Optional[int] = None) -> torch.Tensor:
+    """Cross-entropy weighted per voxel and per class (reference
+    loss.py:204-241): ``mean(-class_w * voxel_w * onehot * log_softmax)``
+    over every element of the (N, C, X, Y, Z) logits; ``weights`` is a
+    per-voxel map broadcastable to the (N, X, Y, Z) ``labels``."""
+    num_classes = logits.shape[1]
+    logp = torch.log_softmax(logits.float(), dim=1)
+    target = expand_as_one_hot(labels, num_classes, ignore_index=ignore_index)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=logits.device)
+    w = w.unsqueeze(1).expand(logits.shape)
+    if ignore_index is not None:
+        mask = (target != ignore_index).float()
+        logp = logp * mask
+        target = target * mask
+    cw = _class_weight(class_weights, num_classes, logits.device)
+    if cw is None:
+        cw = torch.ones(num_classes, dtype=torch.float32, device=logits.device)
+    w = w * cw.view(1, num_classes, *(1,) * (logits.dim() - 2))
+    return (-w * target * logp).mean()
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from tpu_mednet_torch._device import DeviceLike
+from tpu_mednet_torch.config import parse_remat
 from tpu_mednet_torch.models.unet import ResidualUNet3D, UNet3DBase
 from tpu_mednet_torch.ops import losses as L
 from tpu_mednet_torch.ops.heatmap import heatmap_argmax_coords
@@ -50,8 +51,8 @@ class LandmarkTask:
     @classmethod
     def from_hparams(cls, hparams, device: DeviceLike = None,
                      generator: Optional[torch.Generator] = None) -> "LandmarkTask":
-        """Build from a train_ldmks-style hparams namespace; as for
-        segmentation, ``packed`` and ``remat`` are ignored."""
+        """Build from a train_ldmks-style hparams namespace (``remat`` as
+        for segmentation; ``packed`` is ignored)."""
         model = ResidualUNet3D(
             in_channels=hparams.in_channels,
             out_channels=hparams.out_channels,
@@ -60,6 +61,7 @@ class LandmarkTask:
             dtype=torch.bfloat16 if getattr(hparams, "bf16", True) else torch.float32,
             device=device,
             generator=generator,
+            remat=parse_remat(getattr(hparams, "remat", False)),
         )
         return cls(model=model,
                    loss_regression_weight=list(hparams.loss_regression_weight),

@@ -24,6 +24,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from tpu_mednet_torch._device import DeviceLike
+from tpu_mednet_torch.config import parse_remat
 from tpu_mednet_torch.models.unet import ResidualUNet3D, UNet3DBase
 from tpu_mednet_torch.ops import losses as L
 
@@ -41,8 +42,9 @@ class SegmentationTask:
                      generator: Optional[torch.Generator] = None
                      ) -> "SegmentationTask":
         """Build from a train_seg-style hparams namespace (in_channels/
-        out_channels/fmaps/bf16/loss/loss_weight).  ``packed`` and ``remat``
-        change neither parameters nor results, so they are ignored."""
+        out_channels/fmaps/bf16/remat/loss/loss_weight).  ``packed`` changes
+        neither parameters nor results and has no layout here, so it is
+        ignored."""
         model = ResidualUNet3D(
             in_channels=hparams.in_channels,
             out_channels=hparams.out_channels,
@@ -51,6 +53,7 @@ class SegmentationTask:
             dtype=torch.bfloat16 if getattr(hparams, "bf16", True) else torch.float32,
             device=device,
             generator=generator,
+            remat=parse_remat(getattr(hparams, "remat", False)),
         )
         return cls(model=model, loss=getattr(hparams, "loss", "DICE"),
                    loss_weight=getattr(hparams, "loss_weight", None))

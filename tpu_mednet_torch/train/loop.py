@@ -21,6 +21,7 @@ visualizer, the profiler hook, and meshes (one device).
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import signal
 import threading
@@ -205,10 +206,13 @@ class Trainer:
         if nonfinite not in ("off", "skip", "terminate"):
             raise ValueError(f"nonfinite must be off/skip/terminate, got {nonfinite!r}")
         self.nonfinite = nonfinite
-        # the JAX Trainer widens a spatial transform to warp a landmark
-        # task's heatmap channels trilinearly (label_trilinear_channels);
-        # the port refuses spatial_3d, so its augmentations never resample
-        # a label and that hook has nothing to do here
+        # landmark labels carry continuous heatmap targets in their leading
+        # channels (heatmaps first, class map last): the spatial transform
+        # warps those linearly, like the image, not nearest
+        num_hm = int(getattr(task, "num_heatmaps", 0) or 0)
+        if (augment is not None and augment.wants_spatial() and num_hm
+                and not augment.label_trilinear_channels):
+            augment = dataclasses.replace(augment, label_trilinear_channels=num_hm)
         self.augment = augment
         # validation monitors the EMA weights (what gets deployed) when EMA is on
         self.train_step = make_train_step(

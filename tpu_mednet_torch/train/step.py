@@ -3,10 +3,10 @@
 Counterpart of ``tpu_mednet/train/step.py``.  Where the JAX package traces
 one jitted function and donates the state, the port runs the same sequence
 eagerly and updates the state in place: cast to the compute dtype, augment
-on the device (mirror flips move the label), forward, loss, ``backward``
-(through K1's backward kernels), then the update of ``train/optim.py``:
-accumulation, clipping, the schedule's LR, the ``torch.optim`` step and
-the EMA.  The metrics stay device tensors, so the default step waits for
+on the device (the spatial transform and mirror flips move the label),
+forward, loss, ``backward`` (through K1's backward kernels), then the
+update of ``train/optim.py``: accumulation, clipping, the schedule's LR,
+the ``torch.optim`` step and the EMA.  The metrics stay device tensors, so the default step waits for
 nothing.
 
 ``guard_nonfinite`` is the one exception: JAX gates the update inside the

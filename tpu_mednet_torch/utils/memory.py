@@ -49,13 +49,39 @@ it from above; the flagship's 192^3 device point from below).  At the
 guard's edge, the largest 4-input, 4-class cube it admits on the Gaussian
 stitch under the default budget (1264^3: estimate 78.506 of 78.561 GiB)
 fit, with a peak of 63.002 GiB reserved (ratio 1.246).
+
+The training half, ``unet_train_peak_bytes``, keeps the JAX package's
+structure (stored and recomputed stages, fp32 GroupNorm units of stored
+full-resolution stages, the logits, the parameters) and adds one term, the
+full-resolution units the backward holds beside the stored activations:
+its gradients and, under remat, the recomputed stage's activations (the
+JAX model folds that into its overhead; with ``TRAIN_WORK_UNITS`` 0 and
+JAX's two constants it is JAX's estimate).  Fit to
+``torch.cuda.max_memory_reserved`` of three train steps (Adam, mirror
+flips, bf16) by ``chip_memory_fit.py`` on the same card; GiB reserved
+(estimate / measured) at remat 0, 1 and all, after the inference section
+in the same process:
+
+    f_maps 32, 1 -> 2, batch 8 of 96^3      9.777 (1.218)  7.631 (1.095)  5.854 (1.227)
+                       batch 16             19.268 (1.213) 15.020 (1.082) 11.799 (1.178)
+                       batch 32             38.301 (1.208) 29.756 (1.077) 23.004 (1.188)
+    seg_brats_bf16, batch 2 of 128^3        6.043 (1.217)  4.621 (1.135)
+    landmarks (f_maps 64), batch 4 of 96^3  11.229 (1.186) 9.082 (1.075)
+
+The allocator's reserved peak moves with what ran before in the process
+(alone, the batch-32 points read 38.309, 28.439 and 23.795 GiB).  The
+port's K1 keeps no fp32 buffers across the backward, so ``GN_F32_UNITS``
+is 0; ``TRAIN_OVERHEAD`` and ``TRAIN_WORK_UNITS`` are the centre of the
+window that kept the first measured points and ``chip_smoke.py``'s
+batch-32 steps (38.340, 29.807 and 22.947 GiB at remat 0, 1 and all) in
+[1, 1.3], 7.5 % from each end.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -75,6 +101,14 @@ INFER_WORK_UNITS = 7.56
 # holds beside the forward: the activations, their weighted copy and the
 # allocator's cached blocks around them (fit on the card, module docstring)
 GAUSSIAN_WORK_UNITS = 4.0
+
+# the training half (unet_train_peak_bytes; fit on the card, module
+# docstring): the factor on the stored activations, fp32 GroupNorm units
+# per stored full-resolution conv, and full-resolution units the backward
+# holds beside the stored activations
+TRAIN_OVERHEAD = 1.25
+GN_F32_UNITS = 0.0
+TRAIN_WORK_UNITS = 13.5
 
 # fp32 patch batches at the model's output width that mirror TTA keeps
 # live beside the forward: the running sum, a flipped activation and its
@@ -107,6 +141,54 @@ def unet_infer_peak_bytes(batch: int, patch: Sequence[int],
                 for lvl, c in enumerate(f[:-1]))
     work = INFER_WORK_UNITS * _unit_bytes(batch, patch, 0, f[0], dtype_bytes)
     return int(skips + work)
+
+
+def unet_train_peak_bytes(batch: int, patch: Sequence[int], feature_maps: Sequence[int],
+                          in_channels: int = 1, out_channels: int = 3, n_params: int = 0,
+                          dtype_bytes: int = 2, block: str = "residual",
+                          remat: Union[bool, int] = 1) -> int:
+    """Peak device bytes of one train step (forward, backward, Adam) of the
+    residual U-Net, ``tpu_mednet/utils/memory.py:124-196``'s structure.
+
+    Stored for the backward: every stage's input; a stage that is not
+    recomputed (``remat``, ``models/unet.py``) also its conv outputs (3 per
+    residual stage) and, at full resolution, ``GN_F32_UNITS`` fp32 units
+    per conv; a recomputed decoder stage its previous stage's output.  Plus
+    the fp32 logits and the loss's copy of them.  Those activation bytes
+    are scaled by ``TRAIN_OVERHEAD``; ``TRAIN_WORK_UNITS`` full-resolution
+    units cover what the backward holds beside them (the gradients, and
+    the recomputed stage); parameters take ``12 + dtype_bytes`` bytes each.
+    """
+    if block != "residual":
+        raise NotImplementedError(
+            f"block {block!r}: only the residual family is ported (ROADMAP §1, "
+            "'the double/UNet3D family')")
+    f = list(feature_maps)
+    n_levels = len(f)
+    convs = 3
+    remat_k = n_levels if remat is True else int(remat)
+    act = 0.0
+    # encoder stage i consumes the level-(i-1) output and produces level i
+    for i, c in enumerate(f):
+        act += _unit_bytes(batch, patch, max(i - 1, 0), f[i - 1], dtype_bytes) \
+            if i else _unit_bytes(batch, patch, 0, in_channels, dtype_bytes)
+        if i >= remat_k:
+            act += convs * _unit_bytes(batch, patch, i, c, dtype_bytes)
+            if i == 0:
+                act += GN_F32_UNITS * convs * _unit_bytes(batch, patch, 0, c, 4)
+    # decoder stage j outputs at level n_levels - 2 - j
+    for j in range(n_levels - 1):
+        out_lvl = n_levels - 2 - j
+        if out_lvl >= remat_k:
+            act += (convs + 1) * _unit_bytes(batch, patch, out_lvl, f[out_lvl], dtype_bytes)
+            if out_lvl == 0:
+                act += GN_F32_UNITS * convs * _unit_bytes(batch, patch, 0, f[0], 4)
+        else:
+            act += _unit_bytes(batch, patch, out_lvl + 1, f[out_lvl + 1], dtype_bytes)
+    act += 2 * _unit_bytes(batch, patch, 0, out_channels, 4)
+    work = TRAIN_WORK_UNITS * _unit_bytes(batch, patch, 0, f[0], dtype_bytes)
+    params = n_params * (12 + dtype_bytes)
+    return int(act * TRAIN_OVERHEAD + work + params)
 
 
 def _padded_extent(img_size, patch_size, overlap) -> np.ndarray:
