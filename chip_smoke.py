@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from ``tpu_mednet_torch/csrc``, holds each
 kernel against its plain PyTorch version at the shapes of the main paths
 (K1's forward and backward at the five level shapes, K2 plain and indexed
-by subject), runs the full-width ResidualUNet3D forward on both paths,
+by subject, the sampler's image and label stores in one launch and each
+alone), runs the full-width ResidualUNet3D forward on both paths,
 prints one bf16 forward's device time by kernel (``torch.profiler``), and
 drives the two main paths with launch counts:
 
@@ -619,7 +620,7 @@ def profile_forward(torch, gn, model, dev, gen, reps=3):
     groups = {}
     for ms, _, name in rows:
         low = name.lower()
-        group = ("K1 groupnorm" if "gn_" in low else "K2 gather" if "gather" in low
+        group = ("K1 groupnorm" if "gn_" in low else "K2 gather" if "gather_stores" in low
                  else "cuDNN conv" if any(t in low for t in ("conv", "xmma", "gemm", "cudnn",
                                                              "cutlass", "dgrad", "wgrad"))
                  else "other")
@@ -871,30 +872,50 @@ def check_gn_backward(torch, gn, dev, gen, levels=LEVELS,
 
 def check_gather_indexed(torch, P, sampler, batch):
     """Indexed K2 on a training sampler's device stores (bf16 images, uint8
-    labels) at one batch of its own draws at its patch size: byte-equal to
-    plain."""
+    labels) at one batch of its own draws at its patch size: both stores in
+    one launch, as ``DevicePatchSampler.gather`` cuts them, and each store
+    alone through the same kernel, byte-equal to plain.  The fused bound
+    counts both outputs' bytes twice (read and written) and the windows'
+    16 bytes once; a device-to-device ``copy_`` of as many bytes is printed
+    beside it as a practical ceiling, not as the bound."""
     subj, corners = sampler.sample_indices(batch)
     patch = tuple(int(p) for p in sampler.patch_size)
-    res = {}
-    for name, store in (("image", sampler.images), ("label", sampler.labels)):
-        gather = lambda: P.extract_patches(store, corners, patch, subjects=subj)
-        got = gather()
+    stores = dict(image=sampler.images, label=sampler.labels)
+    fused = lambda: P.extract_patches_stores(tuple(stores.values()), corners, patch, subj)
+    launched = P.LAUNCHES
+    got = dict(zip(stores, fused()))
+    if P.LAUNCHES != launched + 1:
+        raise AssertionError(f"indexed gather: {P.LAUNCHES - launched} launches for one batch")
+    res, moved = {}, 0
+    for name, store in stores.items():
+        alone = lambda: P.extract_patches(store, corners, patch, subjects=subj)
         ref = P.extract_patches_plain(store, corners, patch, subjects=subj)
-        if got.shape != ref.shape or not torch.equal(got.view(-1).view(torch.uint8),
-                                                     ref.view(-1).view(torch.uint8)):
-            raise AssertionError(f"indexed gather {name}: not byte-equal to plain")
-        t_dev, kept, _ = kernel_ms(torch, gather, "gather", reps=20)
+        for how, out in (("fused", got[name]), ("alone", alone())):
+            if out.shape != ref.shape or not torch.equal(out.view(-1).view(torch.uint8),
+                                                         ref.view(-1).view(torch.uint8)):
+                raise AssertionError(f"indexed gather {name} ({how}): not byte-equal to plain")
+        t_dev, kept, _ = kernel_ms(torch, alone, "gather", reps=20)
         t_p = cuda_ms(lambda: P.extract_patches_plain(store, corners, patch, subjects=subj),
                       reps=3, warmup=1)
-        n_bytes = 2 * got.numel() * got.element_size() + 16 * len(corners)
-        res[name] = dict(ms=t_dev, plain_ms=t_p, bound=bound_ms(n_bytes, 0), kept=kept)
+        out_bytes = ref.numel() * ref.element_size()
+        moved += out_bytes
+        res[name] = dict(ms=t_dev, plain_ms=t_p, bound=bound_ms(2 * out_bytes + 16 * batch, 0),
+                         kept=kept)
         log(f"K2 indexed {name} store {tuple(store.shape)} {store.dtype} -> "
-            f"{tuple(got.shape)}: {t_dev:.4f} ms device (profiler kept {kept:g} of the "
+            f"{tuple(ref.shape)} alone: {t_dev:.4f} ms device (profiler kept {kept:g} of the "
             f"launches; bound {res[name]['bound']:.4f}); plain {t_p:.4f} ms; byte-equal")
-    return dict(ms=res["image"]["ms"] + res["label"]["ms"],
-                plain_ms=res["image"]["plain_ms"] + res["label"]["plain_ms"],
-                bound=res["image"]["bound"] + res["label"]["bound"], err=0.0,
-                kept=min(r["kept"] for r in res.values()), per_store=res)
+    t_dev, kept, _ = kernel_ms(torch, fused, "gather", reps=20)
+    src = torch.empty(moved, dtype=torch.uint8, device=sampler.images.device)
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(lambda: dst.copy_(src))  # back to back: the device's time
+    bound = bound_ms(2 * moved + 16 * batch, 0)
+    log(f"K2 indexed image + label stores, one launch: {t_dev:.4f} ms device (profiler kept "
+        f"{kept:g} of the launches; bound {bound:.4f}, {bound / t_dev:.1%} of it); the two "
+        f"stores alone {res['image']['ms']:.4f} + {res['label']['ms']:.4f} ms; a "
+        f"device-to-device copy_ of the same {moved} bytes {copy_ms:.4f} ms (events); "
+        f"byte-equal")
+    return dict(ms=t_dev, plain_ms=res["image"]["plain_ms"] + res["label"]["plain_ms"],
+                bound=bound, err=0.0, kept=kept, copy_ms=copy_ms, per_store=res)
 
 
 def check_train_parity(torch, gn, P, models, dev, gen):
@@ -950,7 +971,7 @@ def step_groups(rows):
             group = "K1 backward"
         elif "gn_" in low:
             group = "K1 forward"
-        elif "gather" in low:
+        elif "gather_stores" in low:  # not torch's scatter/gather kernels
             group = "K2 gather"
         elif "multi_tensor_apply" in low or "adam" in low:
             group = "Adam"
@@ -1028,7 +1049,7 @@ def run_training(torch, gn, P, dev):
     log_clocks("after the timed training steps")
     expected = {k: TRAIN_STEPS * v for k, v in dict(
         gn_moments=27, gn_apply=27, gn_bwd_reduce=27, gn_bwd_apply=27,
-        gather_patches=2).items()}
+        gather_patches=1).items()}
     log(f"training: launches {counts} over {TRAIN_STEPS} steps")
     if counts != expected:
         raise AssertionError(f"training launch counts {counts}, expected {expected}")
@@ -1150,6 +1171,7 @@ class CliRecorder:
         self.tag = None
         self.profiles, self.saves, self.stitches = {}, [], []
         self.snapshots, self.walls, self.samplers = {}, {}, []
+        self.batches = {}  # device-sampler batches by run
 
     def wrappers(self) -> contextlib.ExitStack:
         from tpu_mednet_torch.data import DevicePatchSampler
@@ -1204,9 +1226,16 @@ class CliRecorder:
                 return out
             return stitch
 
+        def counted_gather(orig):
+            def gather(self, subj, corners):
+                rec.batches[rec.tag] = rec.batches.get(rec.tag, 0) + 1
+                return orig(self, subj, corners)
+            return gather
+
         stack = contextlib.ExitStack()
         stack.enter_context(wrapped(Trainer, "train_epoch", profiled_epoch))
         stack.enter_context(wrapped(DevicePatchSampler, "__init__", captured))
+        stack.enter_context(wrapped(DevicePatchSampler, "gather", counted_gather))
         stack.enter_context(wrapped(CheckpointManager, "save", timed_save))
         stack.enter_context(wrapped(sliding_window, "predict_volumes", timed_stitch))
         stack.enter_context(wrapped(device_sliding, "predict_volumes_on_device",
@@ -1318,6 +1347,11 @@ def run_entry_points(torch, gn, P, grid_corners, dev):
             raise AssertionError(f"entry points: K1 forward launches {counts}")
         if not indexed or not plain or indexed + plain != counts["gather_patches"]:
             raise AssertionError(f"entry points: K2 launches {gather}")
+        # one indexed launch per device-sampler batch (images and labels
+        # together), none under the host sampler
+        if any(gather[t] != rec.batches.get(t, 0) for t in per_run if t not in predict_tags):
+            raise AssertionError(f"entry points: indexed K2 launches {gather}, device-sampler "
+                                 f"batches {rec.batches}")
         if any(per_run[t]["gn_moments"] == 0 for t in predict_tags):
             raise AssertionError(f"entry points: a predict run launched no K1: {per_run}")
 
@@ -1738,6 +1772,9 @@ def run_landmarks(torch, gn, P, grid_corners, dev):
             raise AssertionError(f"landmarks: K1 forward launches {counts}")
         if not indexed or not plain or indexed + plain != counts["gather_patches"]:
             raise AssertionError(f"landmarks: K2 launches {gather}")
+        if any(gather[t] != rec.batches.get(t, 0) for t in per_run if t not in predict_tags):
+            raise AssertionError(f"landmarks: indexed K2 launches {gather}, device-sampler "
+                                 f"batches {rec.batches}")
         if any(per_run[t]["gn_moments"] == 0 for t in predict_tags):
             raise AssertionError(f"landmarks: a predict run launched no K1: {per_run}")
 
@@ -2346,7 +2383,7 @@ def remat_surface(torch, gn, P, dev, sampler):
         state, step_ms, losses = timed_steps(torch, step, state, feed, SURFACE_STEPS)
         after = launch_counts(gn, P)
         per_step = {k: (after[k] - before[k]) / SURFACE_STEPS for k in after}
-        want = dict(k1_per_step(model.config.remat_levels), gather_patches=2)
+        want = dict(k1_per_step(model.config.remat_levels), gather_patches=1)
         reserved = torch.cuda.max_memory_reserved(dev)
         allocated = torch.cuda.max_memory_allocated(dev)
         est = memory.unet_train_peak_bytes(TRAIN_BATCH, PATCH, model.config.feature_maps, 1, 2,
@@ -2948,24 +2985,30 @@ def main(argv) -> int:
                                training_counts["gather_patches"]),
              max_abs_err=k2i["err"],
              ms=k2i["ms"], plain_ms=k2i["plain_ms"], bound_ms=k2i["bound"],
-             profiler_kept=k2i["kept"],
+             profiler_kept=k2i["kept"], per_store=k2i["per_store"], copy_ms=k2i["copy_ms"],
              library_ms=None,
              library_call="none: no one PyTorch call gathers N windows of N subjects at "
                           "host corners",
-             per=f"train step: images bf16 + labels uint8, {TRAIN_BATCH} windows of 96^3",
+             per=f"train step: images bf16 + labels uint8 in one launch, {TRAIN_BATCH} "
+                 "windows of 96^3 (per_store: each store alone through the same kernel; "
+                 "copy_ms: a device-to-device copy_ of the same bytes, a ceiling, not the "
+                 "bound)",
              entry_points_check=dict(
                  ms=entry_k2["check_128"]["ms"], plain_ms=entry_k2["check_128"]["plain_ms"],
                  bound_ms=entry_k2["check_128"]["bound"], max_abs_err=0.0,
                  profiler_kept=entry_k2["check_128"]["kept"],
-                 per=f"seg_organ device sampler: images bf16 + labels uint8, {ORGAN_BATCH} "
-                     "windows of 128^3"),
+                 per_store=entry_k2["check_128"]["per_store"],
+                 copy_ms=entry_k2["check_128"]["copy_ms"],
+                 per=f"seg_organ device sampler: images bf16 + labels uint8 in one launch, "
+                     f"{ORGAN_BATCH} windows of 128^3"),
              landmarks_check=dict(
                  ms=ldmk_k2["check"]["ms"], plain_ms=ldmk_k2["check"]["plain_ms"],
                  bound_ms=ldmk_k2["check"]["bound"], max_abs_err=0.0,
                  profiler_kept=ldmk_k2["check"]["kept"],
                  per_store=ldmk_k2["check"]["per_store"],
+                 copy_ms=ldmk_k2["check"]["copy_ms"],
                  per=f"landmark device sampler: images bf16 + 4-channel uint8 labels "
-                     f"(3 heatmaps + class map), {LDMK_BATCH} windows of 96^3"),
+                     f"(3 heatmaps + class map) in one launch, {LDMK_BATCH} windows of 96^3"),
              **common),
     ]
     log(smi.stdout.strip())  # again, so that the tail of a long log holds it

@@ -235,7 +235,21 @@ def test_group_norm_function_on_card_matches_plain_autograd(cuda_device):
 
 
 # indexed K2: stacked stores of bf16 images and uint8 labels, windows at
-# corners misaligned by 1-7 elements
+# corners misaligned by 1-7 elements and touching each store's last voxel;
+# each store alone and both in one launch
+def _fused(stores, corners, patch, subjects, out_dtypes=None):
+    """Both stores in one call, held byte for byte to the plain version, one
+    launch counted."""
+    launched = P.LAUNCHES
+    got = P.extract_patches_stores(stores, corners, patch, subjects, out_dtypes)
+    assert P.LAUNCHES == launched + 1
+    for out, store, dt in zip(got, stores, out_dtypes or [None] * len(stores)):
+        ref = P.extract_patches_plain(store, corners, patch, dt, subjects=subjects)
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        assert torch.equal(out.view(-1).view(torch.uint8), ref.view(-1).view(torch.uint8))
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.uint8])
 def test_indexed_gather_byte_equal_at_misaligned_corners(cuda_device, dtype):
@@ -250,13 +264,19 @@ def test_indexed_gather_byte_equal_at_misaligned_corners(cuda_device, dtype):
     ref = P.extract_patches_plain(store, corners, (16, 16, 16), subjects=subjects)
     assert got.dtype == dtype
     assert torch.equal(got.view(-1).view(torch.uint8), ref.view(-1).view(torch.uint8))
+    # the sampler's pair in one launch, the last window ending at the last voxel
+    other = torch.bfloat16 if dtype == torch.uint8 else torch.uint8
+    pair = (torch.rand((3, 30, 28, 40, 1), generator=g) * 255).to(other).to(cuda_device)
+    corners[-1] = [14, 12, 24]
+    _fused((store, pair), corners, (16, 16, 16), subjects)
 
 
 @pytest.mark.cuda
 def test_indexed_gather_of_four_channel_uint8_rows(cuda_device):
     """The landmark label store: 3 heatmaps + the class map per voxel, so a
     row of a 96-wide window is 384 B; z corners whose byte offset (4 z) is
-    not a multiple of 16 put every row at another 16-byte phase."""
+    not a multiple of 16 put every row at another 16-byte phase; alone and
+    fused with its bf16 image store."""
     g = torch.Generator().manual_seed(19)
     store = (torch.rand((3, 100, 98, 110, 4), generator=g) * 255).to(torch.uint8)
     store = store.to(cuda_device)
@@ -268,3 +288,37 @@ def test_indexed_gather_of_four_channel_uint8_rows(cuda_device):
     assert P.LAUNCHES == launched + 1
     assert torch.equal(got, P.extract_patches_plain(store, corners, (96, 96, 96),
                                                     subjects=subjects))
+    image = torch.randn((3, 100, 98, 110, 1), generator=g).to(torch.bfloat16).to(cuda_device)
+    _fused((image, store), corners, (96, 96, 96), subjects)
+
+
+# output rows of 1, 3, 17, 155 and 155 x 4 bytes (uint8) and 155 x 2 (bf16),
+# rows longer than a piece (fp32 -> bf16 at 1500 channels), and casts in
+# both stores of one launch
+_FUSED_CASES = {
+    "u8-row1": ((2, 9, 8, 7, 1), torch.uint8, None, (4, 5, 1)),
+    "u8-row3": ((2, 9, 8, 7, 3), torch.uint8, None, (4, 5, 1)),
+    "u8-row17": ((2, 9, 8, 23, 1), torch.uint8, None, (4, 5, 17)),
+    "u8-row155": ((2, 9, 8, 163, 1), torch.uint8, None, (4, 5, 155)),
+    "u8-row620": ((2, 9, 8, 163, 4), torch.uint8, None, (4, 5, 155)),
+    "bf16-row310": ((2, 9, 8, 163, 1), torch.bfloat16, None, (4, 5, 155)),
+    "f32-long-rows": ((2, 5, 4, 6, 1500), torch.float32, torch.bfloat16, (2, 3, 3)),
+    "f16-cast": ((2, 9, 8, 23, 3), torch.float16, torch.float32, (4, 5, 17)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_FUSED_CASES))
+def test_fused_gather_of_odd_rows_byte_equal(cuda_device, case):
+    """Each case's store fused with a bf16 -> f16 store of 2 channels: odd
+    row lengths, windows at both ends of each axis, one launch."""
+    shape, dtype, out_dtype, patch = _FUSED_CASES[case]
+    g = torch.Generator().manual_seed(20)
+    first = (torch.rand(shape, generator=g) * 255).to(dtype).to(cuda_device)
+    second = torch.randn((*shape[:-1], 2), generator=g).to(torch.bfloat16).to(cuda_device)
+    hi = [e - p for e, p in zip(shape[1:4], patch)]
+    corners = np.asarray([[0, 0, 0], hi, [hi[0], 0, hi[2]], [0, hi[1], min(1, hi[2])],
+                          [hi[0] // 2, hi[1] // 2, hi[2] // 2]], np.int32)
+    subjects = np.asarray([1, 0, 1, 1, 0], np.int32)
+    _fused((first, second), corners, patch, subjects, (out_dtype, torch.float16))
+    _fused((first,), corners, patch, subjects, (out_dtype,))

@@ -10,7 +10,8 @@ Counterpart of ``tpu_mednet/data/device_sampler.py``:
    corners (``data/sampling.py``, the same numpy draws in the same order
    as the JAX package, so one seed gives the same batches);
 3. K2 (``ops/patches.py``, indexed by subject) cuts the training patches
-   out of the device store: no per-step host-to-device volume traffic.
+   out of the image and label stores in one launch: no per-step
+   host-to-device volume traffic.
 
 With ``landmark_group`` the store holds each subject's (L, 3) landmark
 coordinates instead of heatmap volumes; after K2's label gather each
@@ -167,11 +168,11 @@ class DevicePatchSampler:
         return subj.astype(np.int32), corners
 
     def gather(self, subj: np.ndarray, corners: np.ndarray) -> Dict[str, torch.Tensor]:
-        """K2 on the device store: one launch for the images, one for the
-        labels; with landmarks, then the windows' heatmaps rendered in front
-        of the labels."""
-        data = patches.extract_patches(self.images, corners, self.patch_size, subjects=subj)
-        label = patches.extract_patches(self.labels, corners, self.patch_size, subjects=subj)
+        """K2 on the device store: one launch for the images and the labels;
+        with landmarks, then the windows' heatmaps rendered in front of the
+        labels."""
+        data, label = patches.extract_patches_stores((self.images, self.labels), corners,
+                                                     self.patch_size, subj)
         if self.landmarks is not None:
             label = torch.cat([self._render(subj, corners), label], dim=-1)
         return {"data": data.permute(0, 4, 1, 2, 3), "label": label.permute(0, 4, 1, 2, 3)}
