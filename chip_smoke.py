@@ -57,7 +57,21 @@ drives the two main paths with launch counts:
   card against the CPU and ``separable`` against ``exact``, then
   ``train_seg -c configs/seg_organ.yaml --remat 1`` and ``train_ldmks -c
   configs/landmarks.yaml`` with the spatial flags for two epochs each (the
-  landmark heatmaps warped linearly by the Trainer's hook).
+  landmark heatmaps warped linearly by the Trainer's hook);
+- tools (a child process too; ``python3 chip_smoke.py --tools <out.json>``
+  runs it alone): the quick start as users run it (``demo`` ->
+  ``train_seg`` / ``train_ldmks`` -> ``predict`` -> ``evaluate`` on the
+  demo's own configs), ``configs/seg_brats_bf16.yaml`` (f_maps 32) and
+  ``configs/landmarks.yaml`` (f_maps 64) trained 1 epoch on 160^3 demo
+  stores, predicted and scored, the interop round trip on both checkpoints
+  (``inspect_ckpt`` against the run's own files, ``export_torch`` ->
+  ``import_torch`` with the weights bit-equal, predictions from the
+  imported directory and from the ``.ckpt`` equal to the original's or
+  inside the tie band, printed which), ``pack`` of a NIfTI demo with
+  ``stats`` equal on both stores, with exact K1/K2 launches per training
+  step and predict batch and none in the host tools.  The analytic MFU of
+  the batch-32 step, the forward and the serving slice (``utils/flops.py``)
+  is printed beside their rates.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero without a result when CUDA is unavailable or the package is not
@@ -213,6 +227,22 @@ WARP_CHECK, WARP_TIE, WARP_IMAGE_REL = (2, 64), 1e-4, 1e-4
 SMALL_DEFORMATION = dict(elastic_sigma=1.0, rotate_deg=3.0)
 SEPARABLE_MEAN_REL, SEPARABLE_CORR = 0.05, 0.97
 MEMORY_RATIO = (1.0, 1.3)   # unet_train_peak_bytes / max_memory_reserved
+# tools phase: the quick start on the demo's own stores and configs (f_maps
+# 16, 32^3 patches, batch 2, 4 patches per subject, 2 epochs; predict tiles
+# of 32^3 with overlap 4, batch 4), then configs/seg_brats_bf16.yaml (f_maps
+# 32) and configs/landmarks.yaml (f_maps 64) for 1 epoch each on demo stores
+# of 160^3 (6 train, 2 val and 2 test subjects, the demo's split), predicted
+# at configs/predict.yaml's geometry; and a small NIfTI demo for pack/stats
+DEMO_TRAIN, DEMO_SIZE, FULL_SIZE = 6, 64, 160
+QUICK_EPOCHS, QUICK_GEOMETRY = 2, ((32, 32, 32), (4, 4, 4), 4)
+QUICK_STEPS = DEMO_TRAIN * 4 // 2 * QUICK_EPOCHS
+TOOLS_BRATS_STEPS = DEMO_TRAIN * 8 // 2
+TOOLS_LDMK_STEPS = DEMO_TRAIN * 10 // LDMK_BATCH
+TOOLS_NII_DEMO = ("--size", "48", "--train", "2", "--val", "1", "--test", "1")
+# the demo's landmarks.yaml leaves --loss_class_weight at its 2-entry
+# default, one short of the demo's 3 classes (ROADMAP §3)
+QUICK_CLASS_WEIGHTS = ("--loss_class_weight", "0.05", "1.0", "1.0")
+H100_BF16_FLOP_PER_S = 989e12   # dense, data sheet (SXM, 700 W)
 
 
 def log(msg: str) -> None:
@@ -1962,16 +1992,18 @@ def brats_predict_argv(root: Path, stitch: str, tta: bool, out: Path):
             f"prediction.tta={'true' if tta else 'false'}"]
 
 
-def n_tiles(shape):
-    return int(np.prod([-(-s // (p - 2 * o)) for s, p, o in zip(shape, PATCH, OVERLAP)]))
+def n_tiles(shape, patch=PATCH, overlap=OVERLAP):
+    return int(np.prod([-(-s // (p - 2 * o)) for s, p, o in zip(shape, patch, overlap)]))
 
 
-def stitch_batches(stitch, shapes):
-    """Forward batches of one predict call: per volume on the card, over the
-    concatenated tile stream on the host (``GridPatchSampler``)."""
+def stitch_batches(stitch, shapes, geometry=(PATCH, OVERLAP, BATCH)):
+    """Forward batches of one predict call at ``geometry`` (patch, overlap,
+    batch): per volume on the card, over the concatenated tile stream on
+    the host (``GridPatchSampler``)."""
+    patch, overlap, batch = geometry
     if stitch == "crop":
-        return -(-sum(n_tiles(s) for s in shapes) // BATCH)
-    return sum(-(-n_tiles(s) // BATCH) for s in shapes)
+        return -(-sum(n_tiles(s, patch, overlap) for s in shapes) // batch)
+    return sum(-(-n_tiles(s, patch, overlap) // batch) for s in shapes)
 
 
 def tta_band(torch, gn, P, task, vol, grid_corners, dev, flips=()):
@@ -2769,6 +2801,376 @@ def training_surface_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
                                             seconds=seconds))
 
 
+def tools_scores(label, result, truth, keys, n_classes):
+    """Check an ``evaluate`` result against what a model that outputs
+    nothing scores on the same truth: Dice finite and in [0, 1]; for a
+    segmentation model the foreground Dice above an all-background mask's;
+    for a landmark model (whose class head is auxiliary) every landmark's
+    mean error finite and below that of all-zero heatmaps (whose argmax is
+    voxel 0).  Returns the means printed."""
+    from tpu_mednet_torch.data import ZarrReader
+    from tpu_mednet_torch.data.readers import read_single_volume
+    from tpu_mednet_torch.utils.evaluation import (aggregate, landmark_errors,
+                                                   overlap_metrics, spacing_from_affine)
+
+    seg = result["mean"]["segmentation"]
+    dice = np.array([row["dice"] for row in seg], np.float64)
+    landmarks = "landmarks" in result["mean"]
+    with ZarrReader(truth) as r:
+        rows, hm_rows = [], []
+        for key in keys:
+            true = read_single_volume(r, key, "labels")[-1]
+            rows.append(overlap_metrics(np.zeros_like(true), true, n_classes))
+            if landmarks:
+                hm = read_single_volume(r, key, "heatmaps").astype(np.float32)
+                spacing = spacing_from_affine(
+                    r.get_data_attribute([key], "labels", "affine")[key])
+                hm_rows.append(landmark_errors(np.zeros_like(hm), hm, spacing=spacing))
+    background = np.array([row["dice"] for row in aggregate(rows)], np.float64)
+    out = dict(mean_dice=float(np.nanmean(dice)), foreground_dice=float(np.nanmean(dice[1:])),
+               all_background_foreground_dice=float(np.nanmean(background[1:])),
+               dice_by_class=dice.tolist())
+    finite = dice[~np.isnan(dice)]
+    if not (finite.size and ((finite >= 0) & (finite <= 1)).all()):
+        raise AssertionError(f"tools: {label}: evaluate Dice {dice.tolist()}")
+    if not landmarks and out["foreground_dice"] <= out["all_background_foreground_dice"]:
+        raise AssertionError(f"tools: {label}: foreground Dice {out['foreground_dice']}, an "
+                             f"all-background mask's {out['all_background_foreground_dice']}")
+    text = ""
+    if landmarks:
+        errs = np.array([row["voxels"] for row in result["mean"]["landmarks"]], np.float64)
+        zero = np.array([row["voxels"] for row in aggregate(hm_rows)], np.float64)
+        out.update(landmark_error_voxels=errs.tolist(),
+                   landmark_error_mm=[row["mm"] for row in result["mean"]["landmarks"]],
+                   all_zero_heatmap_error_voxels=zero.tolist())
+        if not (np.isfinite(out["landmark_error_mm"]).all() and (errs < zero).all()):
+            raise AssertionError(f"tools: {label}: landmark errors {errs.tolist()} voxels, "
+                                 f"all-zero heatmaps' {zero.tolist()}")
+        text = (f"; landmark error {[round(v, 3) for v in errs.tolist()]} voxels (all-zero "
+                f"heatmaps: {[round(v, 3) for v in zero.tolist()]}), "
+                f"{[round(v, 3) for v in out['landmark_error_mm']]} mm")
+    log(f"tools: {label}: evaluate over {result['n_subjects']} subjects, {result['n_classes']} "
+        f"classes: mean Dice {out['mean_dice']:.4f}, foreground {out['foreground_dice']:.4f} "
+        f"(an all-background mask: {out['all_background_foreground_dice']:.4f}); by class "
+        f"{[round(d, 4) for d in dice.tolist()]}{text}")
+    return out
+
+
+def tools_round_trip(torch, gn, P, grid_corners, dev, rec, name, model_dir, predict_argv,
+                     keys, images, n_heatmaps):
+    """The interop round trip on a trained checkpoint directory: inspect
+    (its parameter count and best-val record against the run's own files),
+    export to a reference ``.ckpt``, import that into a new directory
+    (weights bit-equal to the export's), then predict from both; their
+    outputs against the original directory's prediction (``pred.zarr``
+    beside ``model_dir``): byte-equal, else heatmaps within 1 and class
+    maps apart only inside the tie band of the original's weights."""
+    import contextlib
+    import io
+    from types import SimpleNamespace
+
+    from tpu_mednet_torch.cli import export_torch, import_torch, inspect_ckpt, predict
+    from tpu_mednet_torch.data import ZarrReader
+    from tpu_mednet_torch.tasks import LandmarkTask, SegmentationTask
+
+    root = model_dir.parent
+    gc.collect()
+    held = torch.cuda.memory_allocated(dev)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rec.cli(f"{name}_inspect", inspect_ckpt.main,
+                ["--checkpoint", str(model_dir), "--json"])
+    info = json.loads(text.getvalue().splitlines()[0])  # then rec.cli's own line
+    step = max(int(d.name) for d in model_dir.iterdir() if d.name.isdigit())
+    weights = torch.load(model_dir / str(step) / "model.pt", weights_only=True)["params"]
+    n_params = sum(v.numel() for v in weights.values())
+    best = json.loads(next((model_dir / "best").glob("*/hparams.json")).read_text())
+    if (info["model"]["params"] != n_params or info["best"] != best["_best_monitor"]
+            or info["latest_step"] != step):
+        raise AssertionError(f"tools: {name}: inspect {info} against {n_params} parameters, "
+                             f"best {best['_best_monitor']}, step {step}")
+    ckpt, imported = root / "X.ckpt", root / "imported"
+    rec.cli(f"{name}_export", export_torch.main,
+            ["--checkpoint", str(model_dir), "--output", str(ckpt)])
+    rec.cli(f"{name}_import", import_torch.main,
+            ["--checkpoint", str(ckpt), "--output", str(imported)])
+    if torch.cuda.memory_allocated(dev) > held:
+        raise AssertionError(f"tools: {name}: a host tool left card memory allocated")
+    exported = torch.load(ckpt, weights_only=False)["state_dict"]
+    got = torch.load(imported / str(step) / "model.pt", weights_only=True)["params"]
+    if not (sorted(got) == sorted(exported) == sorted(weights)
+            and all(torch.equal(got[k], exported[k]) and torch.equal(exported[k], weights[k])
+                    for k in weights)):
+        raise AssertionError(f"tools: {name}: the imported weights differ from the export")
+    outs = {"original": root / "pred.zarr"}
+    for tag, source in (("import", imported), ("ckpt", ckpt)):
+        outs[tag] = root / f"pred_{tag}.zarr"
+        rec.cli(f"{name}_predict_{tag}", predict.main, predict_argv(source, outs[tag]))
+    preds = {}
+    for tag, path in outs.items():
+        with ZarrReader(path) as r:
+            preds[tag] = dict(zip(keys, r.read(keys, "prediction", dtype=None)))
+    held_as, task = {}, None
+    for tag in ("import", "ckpt"):
+        held_as[tag] = "byte-equal"
+        for key in keys:
+            a, b = preds["original"][key], preds[tag][key]
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"tools: {name}: {tag} {key} {b.shape} {b.dtype}")
+            if np.array_equal(a, b):
+                continue
+            held_as[tag] = "tie band"
+            if task is None:
+                hp = json.loads((model_dir / str(step) / "hparams.json").read_text())
+                ns = SimpleNamespace(**{k: predict._coerce(v) for k, v in hp.items()})
+                task = (LandmarkTask if n_heatmaps else SegmentationTask).from_hparams(
+                    ns, device=dev)
+                task.model.load_state_dict(weights)
+            hm = int(np.abs(a[:-1].astype(np.int16) - b[:-1].astype(np.int16)).max(initial=0))
+            with torch.inference_mode():
+                margin, err = tie_band_margin(torch, gn, P, task.model, images[key],
+                                              grid_corners, dev, slice(n_heatmaps, None))
+            outside = int(((a[-1] != b[-1]) & (margin > 2 * err)).sum())
+            log(f"tools: {name}: {tag} {key}: class maps differ on "
+                f"{float((a[-1] != b[-1]).mean()):.6f} of voxels, outside the tie band on "
+                f"{outside}; heatmaps max |diff| {hm}")
+            if outside or hm > 1:
+                raise AssertionError(f"tools: {name}: {tag} {key} outside the tie band")
+    del task
+    log(f"tools: {name}: inspect {n_params} parameters, best {info['best']}; export, import "
+        f"(weights bit-equal); predict from the import: {held_as['import']}, from the .ckpt: "
+        f"{held_as['ckpt']} to the original's")
+    return dict(params=n_params, best=info["best"], step=step, held=held_as)
+
+
+def run_tools(torch, gn, P, grid_corners, dev):
+    """The user's tools around the card's training and prediction, each CLI
+    through ``main(argv)`` in this process (launches counted from 0): the
+    quick start (``demo`` -> ``train_seg`` / ``train_ldmks`` -> ``predict``
+    -> ``evaluate``) on the demo's own configs; ``train_seg -c
+    configs/seg_brats_bf16.yaml`` and ``train_ldmks -c configs/landmarks.yaml``
+    (paths overridden, 1 epoch) on demo stores of 160^3 written on the host
+    meanwhile, each predicted (``device`` stitch) and scored; the interop
+    round trip on both checkpoints (``tools_round_trip``); ``pack`` of a
+    NIfTI demo to zarr with ``stats`` equal on both, and ``evaluate`` of a
+    NIfTI prediction directory equal to its zarr one.  Then the exact K1/K2
+    launches of every run (none for the host tools)."""
+    import concurrent.futures
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_mednet_torch.cli import demo, evaluate, pack, predict, stats, train_ldmks, train_seg
+    from tpu_mednet_torch.data import ZarrReader
+    from tpu_mednet_torch.models import ResidualUNet3D
+
+    rec = CliRecorder(torch, gn, P, set(), lambda tag, sampler: False, "tools")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp, \
+            concurrent.futures.ThreadPoolExecutor(2) as pool:
+        root = Path(tmp)
+        q, b, lm, nii = root / "quick", root / "brats", root / "ldmk", root / "nii"
+        t0 = time.perf_counter()
+        # the 160^3 stores are written on the host while the quick start trains
+        full = {"brats": pool.submit(demo.main, [
+                    "--out", str(b), "--size", str(FULL_SIZE), "--modalities", "4",
+                    "--format", "zarr", "--log_level", "WARNING"]),
+                "ldmk": pool.submit(demo.main, [
+                    "--out", str(lm), "--size", str(FULL_SIZE), "--heatmaps", "3",
+                    "--classes", "2", "--format", "zarr", "--log_level", "WARNING"])}
+        scores, evals = {}, {}
+
+        def score(tag, pred, truth, keys, n_classes, *extra):
+            out = root / f"{tag}.json"
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rec.cli(tag, evaluate.main, ["--pred", str(pred), "--truth", str(truth),
+                                             "--subjects", str(truth.parent / "test.txt"),
+                                             "--json", str(out), "--log_level", "WARNING",
+                                             *extra])
+            evals[tag] = json.loads(out.read_text())
+            scores[tag] = tools_scores(tag, evals[tag], truth, keys, n_classes)
+
+        with rec.wrappers():
+            reset_counts(gn, P)
+            # a. the quick start as users run it
+            rec.cli("quick_demo", demo.main, ["--out", str(q), "--format", "zarr",
+                                              "--log_level", "WARNING"])
+            q_keys = (q / "test.txt").read_text().split()
+            for short, main, extra in (("seg", train_seg.main, ()),
+                                       ("ldmks", train_ldmks.main, QUICK_CLASS_WEIGHTS)):
+                yaml_name = "seg.yaml" if short == "seg" else "landmarks.yaml"
+                rec.cli(f"quick_{short}_train", main,
+                        ["-c", str(q / yaml_name), "--max_epochs", str(QUICK_EPOCHS), *extra])
+                rec.cli(f"quick_{short}_predict", predict.main,
+                        ["-c", str(q / f"predict_{short}.yaml"),
+                         f"prediction.data={q / f'pred_{short}.zarr'}"])
+                score(f"quick_{short}_evaluate", q / f"pred_{short}.zarr", q / "data.zarr",
+                      q_keys, 3, *(("--surface",) if short == "seg" else ()))
+            t_quick = time.perf_counter() - t0
+            for name, future in full.items():
+                if future.result() != 0:
+                    raise AssertionError(f"tools: demo of the {name} store failed")
+            t_demos = time.perf_counter() - t0
+            log(f"tools: quick start {t_quick:.1f} s; the 160^3 demo stores ready at "
+                f"{t_demos:.1f} s")
+
+            # b. full width: seg_brats_bf16 (f_maps 32) and landmarks.yaml (f_maps 64)
+            b_keys = (b / "test.txt").read_text().split()
+            l_keys = (lm / "test.txt").read_text().split()
+
+            def train_argv(config, d, model):
+                return ["-c", str(HERE / "configs" / config), "--data_path", str(d / "data.zarr"),
+                        "--train_set", str(d / "train.txt"), "--val_set", str(d / "val.txt"),
+                        "--model_dir", str(d / model), "--log_dir", str(d / model / "logs"),
+                        "--max_epochs", "1"]
+
+            def brats_argv(source, out):
+                return ["-c", str(HERE / "configs" / "predict.yaml"),
+                        f"base.data={b / 'data.zarr'}", f"prediction.test_set={b / 'test.txt'}",
+                        f"prediction.checkpoint={source}", f"prediction.data={out}",
+                        "prediction.stitch=device"]
+
+            def ldmk_argv(source, out):
+                return ["-c", str(HERE / "configs" / "predict.yaml"),
+                        f"base.data={lm / 'data.zarr'}", "base.sigma=[4, 4, 4]",
+                        f"prediction.test_set={lm / 'test.txt'}",
+                        f"prediction.checkpoint={source}", f"prediction.data={out}",
+                        "prediction.model=LandmarkNet", "prediction.stitch=device",
+                        f"prediction.landmarks={out.with_suffix('.json')}"]
+
+            rec.cli("brats_train", train_seg.main, train_argv("seg_brats_bf16.yaml", b, "model"))
+            rec.cli("brats_predict", predict.main, brats_argv(b / "model", b / "pred.zarr"))
+            score("brats_evaluate", b / "pred.zarr", b / "data.zarr", b_keys, 4,
+                  "--classes", "4", "--surface")
+            rec.cli("ldmk_train", train_ldmks.main, train_argv("landmarks.yaml", lm, "model"))
+            rec.cli("ldmk_predict", predict.main, ldmk_argv(lm / "model", lm / "pred.zarr"))
+            score("ldmk_evaluate", lm / "pred.zarr", lm / "data.zarr", l_keys, 2)
+            readout = json.loads((lm / "pred.json").read_text())
+            if sorted(readout) != sorted(l_keys) or any(
+                    len(v) != LDMK_HEATMAPS for v in readout.values()):
+                raise AssertionError(f"tools: landmark readout {readout}")
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # c. the interop round trip on both full-width checkpoints
+            images = {}
+            for d, keys in ((b, b_keys), (lm, l_keys)):
+                with ZarrReader(d / "data.zarr") as r:
+                    images.update({(d.name, k): v for k, v in
+                                   zip(keys, r.read(keys, "images", np.float16))})
+            trips = {}
+            for name, d, argv, keys, nh in (("brats", b, brats_argv, b_keys, 0),
+                                            ("ldmk", lm, ldmk_argv, l_keys, LDMK_HEATMAPS)):
+                trips[name] = tools_round_trip(
+                    torch, gn, P, grid_corners, dev, rec, name, d / "model", argv, keys,
+                    {k: images[d.name, k] for k in keys}, nh)
+                gc.collect()
+                torch.cuda.empty_cache()
+            if trips["ldmk"]["params"] != LDMK_PARAMS:
+                raise AssertionError(f"tools: the landmark model has {trips['ldmk']['params']} "
+                                     f"parameters, not {LDMK_PARAMS}")
+            brats_params = sum(p.numel() for p in ResidualUNet3D(
+                4, 4, f_maps=32, device="meta").parameters())
+            if trips["brats"]["params"] != brats_params:
+                raise AssertionError(f"tools: the seg_brats_bf16 model has "
+                                     f"{trips['brats']['params']} parameters, not {brats_params}")
+
+            # d. pack and stats on a small NIfTI demo; evaluate of a NIfTI prediction
+            rec.cli("nii_demo", demo.main, ["--out", str(nii), "--format", "nii",
+                                            *TOOLS_NII_DEMO, "--log_level", "WARNING"])
+            rec.cli("nii_pack", pack.main, ["--src", str(nii / "data.nii"),
+                                            "--dst", str(nii / "data.zarr"),
+                                            "--log_level", "WARNING"])
+            got_stats = {}
+            for src in ("data.nii", "data.zarr"):
+                text = io.StringIO()
+                with contextlib.redirect_stdout(text):
+                    rec.cli(f"stats_{src}", stats.main,
+                            ["--data", str(nii / src), "--heatmap_group", "heatmaps",
+                             "--json", str(nii / f"{src}.json"), "--log_level", "WARNING"])
+                got_stats[src] = json.loads((nii / f"{src}.json").read_text())
+                got_stats[src].pop("data")
+            if got_stats["data.nii"] != got_stats["data.zarr"]:
+                raise AssertionError(f"tools: stats differ on the packed store: {got_stats}")
+            rec.cli("pred_pack", pack.main, ["--src", str(q / "pred_seg.zarr"),
+                                             "--dst", str(q / "pred_seg.nii"),
+                                             "--log_level", "WARNING"])
+            score("quick_seg_evaluate_nii", q / "pred_seg.nii", q / "data.zarr", q_keys, 3,
+                  "--surface")
+            a, c = (json.dumps({k: v for k, v in evals[t].items() if k != "pred"}, sort_keys=True)
+                    for t in ("quick_seg_evaluate", "quick_seg_evaluate_nii"))
+            if a != c:
+                raise AssertionError("tools: evaluate of the NIfTI prediction differs from zarr")
+            log(f"tools: pack nii -> zarr: stats --json equal on both stores "
+                f"({got_stats['data.zarr']['images']['subjects']} subjects, "
+                f"{got_stats['data.zarr']['labels']['classes']} classes); evaluate of the "
+                "NIfTI prediction directory equal to the zarr one")
+            counts = launch_counts(gn, P)
+
+    # e. exact launches: K1 backward 27 a training step (the host sampler
+    # gathers no window on the card); K1 forward 27 and K2 1 a predict batch
+    per_run = rec.per_run(counts)
+    quick_batches = stitch_batches("device", [(DEMO_SIZE,) * 3] * 2, QUICK_GEOMETRY)
+    full_batches = stitch_batches("device", [(FULL_SIZE,) * 3] * 2)
+    expected = {}
+    for tag in per_run:
+        if tag.endswith("_train"):
+            steps = dict(quick_seg_train=QUICK_STEPS, quick_ldmks_train=QUICK_STEPS,
+                         brats_train=TOOLS_BRATS_STEPS, ldmk_train=TOOLS_LDMK_STEPS)[tag]
+            expected[tag] = dict(gn_bwd_reduce=27 * steps, gn_bwd_apply=27 * steps,
+                                 gather_patches=0)
+        elif "_predict" in tag:
+            n_b = quick_batches if tag.startswith("quick") else full_batches
+            expected[tag] = dict(gn_moments=27 * n_b, gn_apply=27 * n_b, gn_bwd_reduce=0,
+                                 gn_bwd_apply=0, gather_patches=n_b)
+        else:  # the host tools
+            expected[tag] = dict.fromkeys(counts, 0)
+    for tag, want in expected.items():
+        c = per_run[tag]
+        if any(c[k] != v for k, v in want.items()) or c["gn_moments"] != c["gn_apply"]:
+            raise AssertionError(f"tools: {tag} launched {c}, expected {want}")
+    seconds = time.perf_counter() - t0
+    log(f"tools: launches {counts}: K1 backward 27 a training step "
+        f"({QUICK_STEPS}, {QUICK_STEPS}, {TOOLS_BRATS_STEPS}, {TOOLS_LDMK_STEPS} steps), K1 "
+        f"forward 27 and K2 1 a predict batch ({quick_batches} batches a quick-start call, "
+        f"{full_batches} a full-width one), none in the host tools; {seconds:.1f} s")
+    return counts, dict(scores=scores, round_trip=trips, per_run=per_run,
+                        cli_seconds=rec.walls, stitches=rec.stitches,
+                        quick_start_seconds=t_quick, demo_stores_ready_seconds=t_demos,
+                        seconds=seconds)
+
+
+def tools_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
+    log_clocks("tools")
+    counts, tools = run_tools(torch, gn, P, grid_corners, dev)
+    return dict(counts=counts, tools=tools)
+
+
+def analytic_mfu(fwd, slice_, train) -> dict:
+    """The analytic model FLOPs (``utils/flops.py``: 3x the forward's
+    convolutions a train step) over the measured time, against the H100's
+    989 TFLOP/s bf16 dense: the batch-32 step, the 8 x 96^3 forward and the
+    serving slice's predict call.  A reading, not a check."""
+    from tpu_mednet_torch.utils.flops import unet_forward_flops, unet_train_step_flops
+
+    f_maps = [32 * 2**k for k in range(5)]
+    step = unet_train_step_flops(1, 2, f_maps, PATCH, TRAIN_BATCH)
+    tile = unet_forward_flops(1, 2, f_maps, PATCH)
+    tiles = sum(n_tiles(s) for _, s in SLICE_VOLUMES)
+    slice_s = len(SLICE_VOLUMES) * 60.0 / slice_["volumes_per_min"]
+    out = dict(train_step=step / (train["median_step_ms"] / 1e3) / H100_BF16_FLOP_PER_S,
+               forward=BATCH * tile / (fwd["fwd_ms"] / 1e3) / H100_BF16_FLOP_PER_S,
+               slice=tiles * tile / slice_s / H100_BF16_FLOP_PER_S,
+               train_step_tflop=step / 1e12, forward_tflop=BATCH * tile / 1e12)
+    log(f"analytic MFU against {H100_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 dense: "
+        f"train step {out['train_step']:.4f} ({out['train_step_tflop']:.3f} TFLOP at "
+        f"{train['patches_per_s']:.2f} patches/s), forward {out['forward']:.4f} "
+        f"({out['forward_tflop']:.3f} TFLOP in {fwd['fwd_ms']:.2f} ms), serving slice "
+        f"{out['slice']:.4f} ({tiles} tiles a call at {slice_['volumes_per_min']:.2f} "
+        "volumes/min)")
+    return out
+
+
 def run_child(flag: str, tag: str) -> dict:
     """A phase in a child process on the same card (it reuses the built
     library), which writes its results as JSON; it fails the run if the
@@ -2821,7 +3223,7 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     children = {"--landmarks": landmarks_phase, "--predict-surface": predict_surface_phase,
-                "--training-surface": training_surface_phase}
+                "--training-surface": training_surface_phase, "--tools": tools_phase}
     if argv[:1] and argv[0] in children:  # a child of run_child
         _build.build()
         out = children[argv[0]](torch, gn, P, _grid_corners, dev, gen)
@@ -2861,6 +3263,8 @@ def main(argv) -> int:
     train_counts, k2i, train = run_training(torch, gn, P, dev)
     torch.cuda.empty_cache()
 
+    mfu = analytic_mfu(fwd, slice_, train)
+
     # 8. the entry points at the seg_organ width, then the guard's cost
     probe_profiler(torch, dev)
     log_clocks("entry points")
@@ -2886,16 +3290,22 @@ def main(argv) -> int:
     training_all = run_child("--training-surface", "training_surface")
     training_counts = training_all["counts"]
 
+    # 12. the user's tools around training and prediction (the quick start,
+    # seg_brats_bf16 and landmarks.yaml from demo stores, the interop round
+    # trip, pack and stats), in a fresh process too
+    tools_all = run_child("--tools", "tools")
+    tools_counts = tools_all["counts"]
+
     def launches(name):
         by_path = dict(serving=counts[name], training=train_counts[name],
                        entry_points=entry_counts[name], landmarks=ldmk_counts[name],
                        predict_surface=surface_counts[name],
-                       training_surface=training_counts[name])
+                       training_surface=training_counts[name], tools=tools_counts[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
-    def gather_launches(path, entry, landmarks, surface, training_surface):
+    def gather_launches(path, entry, landmarks, surface, training_surface, tools):
         by_path = dict(serving=0, training=0, entry_points=entry, landmarks=landmarks,
-                       predict_surface=surface, training_surface=training_surface)
+                       predict_surface=surface, training_surface=training_surface, tools=tools)
         by_path[path] = counts["gather_patches"] if path == "serving" \
             else train_counts["gather_patches"]
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
@@ -2936,7 +3346,8 @@ def main(argv) -> int:
         dict(name="gather_patches", source="tpu_mednet_torch/csrc/patches.cu",
              replaces="tpu_mednet/ops/pallas/patches.py:95",
              **gather_launches("serving", entry_k2["plain"], ldmk_k2["plain"],
-                               surface_counts["gather_patches"], 0),
+                               surface_counts["gather_patches"], 0,
+                               tools_counts["gather_patches"]),
              max_abs_err=k2["err"],
              ms=k2["ms"], event_ms=k2["wrapper_ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound"], library_ms=None, profiler_kept=k2["kept"],
@@ -2982,7 +3393,7 @@ def main(argv) -> int:
              replaces="tpu_mednet/ops/pallas/patches.py:95 (and the sampler's gather, "
                       "tpu_mednet/data/device_sampler.py:171-190)",
              **gather_launches("training", entry_k2["indexed"], ldmk_k2["indexed"], 0,
-                               training_counts["gather_patches"]),
+                               training_counts["gather_patches"], 0),
              max_abs_err=k2i["err"],
              ms=k2i["ms"], plain_ms=k2i["plain_ms"], bound_ms=k2i["bound"],
              profiler_kept=k2i["kept"], per_store=k2i["per_store"], copy_ms=k2i["copy_ms"],
@@ -3022,6 +3433,15 @@ def main(argv) -> int:
     log(json.dumps({"predict_surface": surface_all["surface"],
                     "launches_by_run": surface_k2["per_run"]}))
     log(json.dumps({"training_surface": training_all["surface"]}))
+    tools = tools_all["tools"]
+    log(json.dumps({"tools": {k: tools[k] for k in (
+        "scores", "round_trip", "per_run", "cli_seconds", "quick_start_seconds",
+        "demo_stores_ready_seconds", "seconds")}}))
+    log(json.dumps({"tools_summary": dict(
+        evaluate_mean_dice={k: v["mean_dice"] for k, v in tools["scores"].items()},
+        round_trip={k: v["held"] for k, v in tools["round_trip"].items()},
+        launches=tools_counts, seconds=tools["seconds"])}))
+    log(json.dumps({"mfu": mfu}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

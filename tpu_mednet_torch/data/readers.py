@@ -12,7 +12,9 @@ bulk preload with timing telemetry, shape and ``affine`` queries.
   port's stdlib-only copy of the v2 format (``zarrlite``) where it is not.
 
 ``NiftiReader`` reads a directory of ``<group>/<key>.nii[.gz]`` volumes
-through the port's dependency-free ``utils/nifti.py``.
+through the port's dependency-free ``utils/nifti.py``.  ``read`` yields one
+volume at a time, so a caller that streams a group holds one volume;
+``dtype=None`` keeps the stored dtype (``read_single_volume``).
 """
 
 from __future__ import annotations
@@ -74,6 +76,9 @@ class DataReader:
 
     def read(self, subject_keys: Sequence[str], group: str,
              dtype=np.float16) -> Iterator[np.ndarray]:
+        """One volume per key, read when the iterator reaches it, cast to
+        ``dtype``; ``dtype=None`` keeps the stored dtype (the JAX readers'
+        ``dtype=None, preload=False``)."""
         raise NotImplementedError
 
     def read_data_to_memory(self, subject_keys: Sequence[str], group: str,
@@ -279,6 +284,12 @@ class MemoryReader(DataReader):
 
     def list_groups(self):
         return sorted(self.store.keys())
+
+
+def read_single_volume(reader: DataReader, key: str, group: str) -> np.ndarray:
+    """One subject's volume in its stored dtype (the host tools' idiom);
+    raises the reader's ``KeyError`` for a missing key or group."""
+    return np.asarray(next(iter(reader.read([key], group, dtype=None))))
 
 
 def open_reader(path, reader_cls=None) -> DataReader:

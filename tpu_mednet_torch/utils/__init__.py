@@ -1,6 +1,8 @@
 """Utilities of the port: the device-memory guard of the on-device
-stitches, NIfTI I/O, evaluation readouts, metrics logging and the weights
-bridge (``python -m tpu_mednet_torch.utils.export`` dumps stores to NIfTI)."""
+stitches, NIfTI I/O, evaluation metrics and readouts, metrics logging,
+analytic FLOPs, log-level parsing, the weights bridge from the JAX tree and
+the reference checkpoint interop (``torch_import``, ``torch_export``);
+``python -m tpu_mednet_torch.utils.export`` dumps stores to NIfTI."""
 
 from tpu_mednet_torch.utils.memory import (HBMBudgetError, check_stitch_budget,
                                            device_stitch_bytes, hbm_budget_bytes)

@@ -1,11 +1,10 @@
 """NIfTI-1 I/O without external dependencies.
 
-The port's own copy of the dependency-free part of
-``tpu_mednet/utils/nifti.py`` (the reference uses nibabel and a
-SimpleITK adapter, ``midasmednet/utils/nifti.py``): a minimal NIfTI-1
-reader and writer (``.nii`` / ``.nii.gz``, sform affine, common dtypes)
-and the ITK-metadata affine helpers.  The ``sitk_*`` helpers, which need
-SimpleITK, are not ported.
+The port's own copy of ``tpu_mednet/utils/nifti.py`` (the reference uses
+nibabel and a SimpleITK adapter, ``midasmednet/utils/nifti.py``): a
+minimal NIfTI-1 reader and writer (``.nii`` / ``.nii.gz``, sform affine,
+common dtypes), the ITK-metadata affine helpers, and ``sitk_make_affine``/``sitk_to_nifti``
+for SimpleITK images (SimpleITK is imported only by ``sitk_to_nifti``).
 """
 
 from __future__ import annotations
@@ -183,3 +182,22 @@ def ras_affine_from_meta(direction, spacing, origin) -> np.ndarray:
     utils/nifti.py:53); same here.
     """
     return _LPS_TO_RAS @ lps_affine_from_meta(direction, spacing, origin)
+
+
+def sitk_make_affine(simpleitk_image) -> np.ndarray:
+    """The RAS affine of a SimpleITK (LPS) image, as the reference's
+    ``make_affine`` (utils/nifti.py:39-54) builds it: ITK's index->point
+    map, then x and y flipped (``ras_affine_from_meta``).  Any object with
+    ``GetDirection``/``GetSpacing``/``GetOrigin`` will do."""
+    img = simpleitk_image
+    return ras_affine_from_meta(img.GetDirection(), img.GetSpacing(), img.GetOrigin())
+
+
+def sitk_to_nifti(simpleitk_image, out_path) -> None:
+    """Save a SimpleITK image as NIfTI with its RAS affine (the reference's
+    ``SimpleITKAsNibabel`` adapter); SimpleITK is imported here, so only
+    this call needs it."""
+    import SimpleITK as sitk
+
+    arr = sitk.GetArrayFromImage(simpleitk_image).transpose()
+    save_nifti(out_path, arr, sitk_make_affine(simpleitk_image))
