@@ -71,7 +71,23 @@ drives the two main paths with launch counts:
   ``stats`` equal on both stores, with exact K1/K2 launches per training
   step and predict batch and none in the host tools.  The analytic MFU of
   the batch-32 step, the forward and the serving slice (``utils/flops.py``)
-  is printed beside their rates.
+  is printed beside their rates;
+- deploy (a child process too; ``python3 chip_smoke.py --deploy
+  <out.json>`` runs it alone): the native batch loader (its g++ build
+  timed in the build step) with every batch of a seg_organ and a
+  landmark epoch equal to the numpy sampler's by a checksum on the card,
+  ``train_seg -c configs/seg_organ.yaml`` 2 epochs under the default
+  (auto -> native) and under ``--no_native_loader`` (native calls equal to
+  the batches drawn and 0, step 0's loss bit-equal, patches/s and idle
+  share of both) and ``train_ldmks -c configs/landmarks.yaml`` 1 epoch;
+  serving export through ``export_serving.main`` of both checkpoints
+  (seg_organ symbolic and pinned, the landmark model with ``--tta 0 2``),
+  each ``.pt2`` called in a fresh process that imports ``torch`` and
+  ``tpu_mednet_torch.ops`` only, against the eager ``make_serving_fn``
+  (byte-equal or inside the tie band), K1 launches per call exact, ms per
+  call beside the eager function's; the Trainer's profiler hook (a trace
+  naming K1, losses equal to an unprofiled run); and the dispatcher's
+  host time per K1 op call.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero without a result when CUDA is unavailable or the package is not
@@ -3146,6 +3162,515 @@ def tools_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
     return dict(counts=counts, tools=tools)
 
 
+# -- deploy: the native batch loader, serving export, the profiler hook ------
+
+DEPLOY_SEG_EPOCHS, DEPLOY_LDMK_EPOCHS = 2, 1
+DEPLOY_PROFILED = {("native", 1), ("numpy", 1)}
+DEPLOY_FLIPS = (0, 2)              # the landmark artifact's baked-in TTA
+DEPLOY_REPS, DEPLOY_WARMUP = 12, 3  # timed calls per turn (eager/artifact/artifact/eager),
+                                   # after warm-up calls
+DEPLOY_TOP = 8                     # device rows kept of each route's profiled call
+PROFILE_STEPS, PROFILE_RUN_STEPS = 2, 4
+DISPATCH_CALLS = 2000              # host-timed calls per turn of the dispatcher probe
+DISPATCH_SHAPE = (1, 32, 8, 8, 8)  # small: the loop is host-bound
+K1_TRACE_NAME = "gn_moments_kernel"  # K1's statistics kernel in a profiler trace
+SERVE_CHILD = r'''
+import json, sys
+import numpy as np
+import torch
+import tpu_mednet_torch.ops
+from tpu_mednet_torch.ops import groupnorm as gn
+
+spec = json.loads(sys.argv[1])
+dev = torch.device("cuda", 0)
+tiles = np.random.default_rng(spec["seed"]).normal(
+    size=(spec["tiles"], *spec["patch"], 1)).astype(np.float32)
+out = {}
+for name, path in spec["artifacts"].items():
+    prog = torch.export.load(path).module()
+    out[name] = {}
+    for n in (spec["tiles"], 1):
+        x = torch.from_numpy(tiles[:n]).to(dev)
+        before = [gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES, gn.BWD_REDUCE_LAUNCHES,
+                  gn.BWD_APPLY_LAUNCHES]
+        with torch.no_grad():
+            y = prog(x)
+        torch.cuda.synchronize()
+        after = [gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES, gn.BWD_REDUCE_LAUNCHES,
+                 gn.BWD_APPLY_LAUNCHES]
+        np.save(f"{spec['dir']}/{name}_{n}.npy", y.cpu().numpy())
+        out[name][str(n)] = [a - b for a, b in zip(after, before)]
+out["modules"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("tpu_mednet_torch", "tpu_mednet", "jax"))
+print(json.dumps(out))
+'''
+
+
+@contextlib.contextmanager
+def uncounted(gn, P):
+    """Launches inside the block (comparisons, probes) leave the counters as
+    they were."""
+    saved = launch_counts(gn, P)
+    try:
+        yield
+    finally:
+        gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES = saved["gn_moments"], saved["gn_apply"]
+        gn.BWD_REDUCE_LAUNCHES = saved["gn_bwd_reduce"]
+        gn.BWD_APPLY_LAUNCHES = saved["gn_bwd_apply"]
+        P.LAUNCHES = saved["gather_patches"]
+
+
+def device_checksum(torch, t) -> int:
+    """Checksum of a batch tensor's bytes, computed on the card: its
+    (N, X, Y, Z, C) words (fp32 bits or uint8 values) weighted by position."""
+    raw = t.permute(0, 2, 3, 4, 1).contiguous().view(-1)
+    words = (raw.view(torch.int32) if raw.dtype == torch.float32 else raw).to(torch.int64)
+    weights = torch.arange(words.numel(), device=t.device, dtype=torch.int64) % 65521 + 1
+    return int((words * weights).sum())
+
+
+def check_native_batches(torch, dev, root):
+    """One epoch of the seg_organ and the landmark training samplers, each
+    batch through ``device_prefetch`` at the Trainer's ``BUFFER_SIZE``:
+    the native pipeline (pinned pool) against the numpy sampler of the same
+    seed, batch by batch, by a checksum computed on the card.  A pinned
+    buffer reused before its copy ended would change the device bytes."""
+    from tpu_mednet_torch import native
+    from tpu_mednet_torch.data import PatchSampler
+    from tpu_mednet_torch.data.native_loader import NativeBatchPipeline
+    from tpu_mednet_torch.data.prefetch import BUFFER_SIZE, device_prefetch
+
+    out = {}
+    for name, store, keys, patch, batch, heatmaps, probs in (
+            ("seg_organ", "organs.zarr", ORGAN_SPLITS["train"], ORGAN_PATCH, ORGAN_BATCH,
+             None, [0.2] * ORGAN_CLASSES),
+            ("landmarks", "landmarks.zarr", LDMK_SPLITS["train"], PATCH, LDMK_BATCH,
+             "heatmaps", None)):
+        def sampler():
+            return PatchSampler(str(root / store), keys, 10, patch, heatmap_group=heatmaps,
+                                class_probabilities=probs, seed=0)
+
+        before = native.ASSEMBLE_CALLS
+        t = time.perf_counter()
+        pipe = NativeBatchPipeline(sampler(), pinned=True)
+        n, sums = 0, []
+        for a, b in zip(device_prefetch(pipe.batches(batch), dev),
+                        device_prefetch(sampler().batches(batch), dev)):
+            for k in ("data", "label"):
+                if a[k].shape != b[k].shape or a[k].device != dev:
+                    raise AssertionError(f"deploy: {name} batch {n} {k}: {a[k].shape} "
+                                         f"on {a[k].device} vs {b[k].shape}")
+                pair = (device_checksum(torch, a[k]), device_checksum(torch, b[k]))
+                if pair[0] != pair[1]:
+                    raise AssertionError(f"deploy: {name} batch {n} {k}: native checksum "
+                                         f"{pair[0]} vs numpy {pair[1]}")
+                sums.append(pair[0])
+            n += 1
+        calls = native.ASSEMBLE_CALLS - before
+        if n != len(keys) * 10 // batch or calls != n:
+            raise AssertionError(f"deploy: {name}: {n} batches, {calls} native calls")
+        out[name] = dict(batches=n, native_calls=calls, buffer_size=BUFFER_SIZE,
+                         seconds=time.perf_counter() - t, label_channels=int(a["label"].shape[1]))
+        log(f"deploy: native batches of {name}: {n} of {n} equal to the numpy sampler's by "
+            f"a device checksum (data and labels, {out[name]['label_channels']} label "
+            f"channels; BUFFER_SIZE {BUFFER_SIZE}) in {out[name]['seconds']:.2f} s")
+    return out
+
+
+def serving_band(torch, gn, P, task, x, flips):
+    """The plain path's top-2 margin of the class logits (of the averaged
+    class probabilities with ``flips``) on ``x`` (N, C, X, Y, Z), and max
+    |kernel - plain| of the same values."""
+    from tpu_mednet_torch.inference.common import tta_split_activations
+
+    nh = getattr(task, "num_heatmaps", 0)
+
+    def values():
+        if flips:
+            return tta_split_activations(task, x, flips)[:, nh:]
+        return task.model(x.to(task.model.config.dtype))[:, nh:].float()
+
+    with torch.no_grad():
+        got = values()
+        with plain_kernels(gn, P):
+            ref = values()
+    top2 = ref.topk(2, dim=1).values
+    return (top2[:, 0] - top2[:, 1]).cpu().numpy(), float((got - ref).abs().max())
+
+
+def compare_serving(name, got, want, band):
+    """uint8 (N, X, Y, Z, C') ``got`` against ``want``: byte-equal, else
+    heatmaps within 1 and class maps apart only inside the tie band."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"deploy: {name}: {got.shape} {got.dtype} vs {want.shape} "
+                             f"{want.dtype}")
+    if np.array_equal(got, want):
+        return "byte-equal"
+    margin, err = band
+    differ = got[..., -1] != want[..., -1]
+    outside = int((differ & (margin[:got.shape[0]] > 2 * err)).sum())
+    hm = int(np.abs(got[..., :-1].astype(np.int16) - want[..., :-1].astype(np.int16))
+             .max(initial=0))
+    log(f"deploy: {name}: class maps differ on {float(differ.mean()):.6f} of voxels, outside "
+        f"the tie band on {outside}; heatmaps max |diff| {hm}")
+    if outside or hm > 1:
+        raise AssertionError(f"deploy: {name}: outside the tie band")
+    return "tie band"
+
+
+def export_and_serve(torch, gn, P, dev, root, seg_dir, ldmk_dir):
+    """(b) ``export_serving.main(argv)`` on the two checkpoints the phase
+    wrote (seg_organ symbolic; landmarks.yaml with ``--tta 0 2``; seg_organ
+    pinned to ``BATCH``), each ``.pt2`` loaded and called in a fresh child
+    that imports ``torch`` and ``tpu_mednet_torch.ops`` only (8 tiles of
+    96^3 and 1), against the eager ``make_serving_fn`` of the same weights;
+    K1 launches per call; the artifact's and the eager function's ms per
+    8-tile call in this process, in turns."""
+    from types import SimpleNamespace
+
+    from tpu_mednet_torch.cli import export_serving
+    from tpu_mednet_torch.cli.predict import _coerce
+    from tpu_mednet_torch.inference import serving
+    from tpu_mednet_torch.tasks import LandmarkTask, SegmentationTask
+    from tpu_mednet_torch.train import load_for_inference
+
+    specs = {"seg": (seg_dir, (), ()), "ldmk": (ldmk_dir, DEPLOY_FLIPS,
+                                                ("--tta", *map(str, DEPLOY_FLIPS))),
+             "seg_pinned": (seg_dir, (), ("--batch_size", str(BATCH)))}
+    paths, exports = {}, {}
+    for name, (ckpt, _, extra) in specs.items():
+        paths[name] = root / f"{name}.pt2"
+        t = time.perf_counter()
+        rc = export_serving.main(["--checkpoint", str(ckpt), "--out", str(paths[name]),
+                                  "--patch_size", *map(str, PATCH), "--log_level", "WARNING",
+                                  *extra])
+        if rc != 0:
+            raise AssertionError(f"deploy: export {name} exited with {rc}")
+        exports[name] = dict(seconds=time.perf_counter() - t,
+                             bytes=paths[name].stat().st_size)
+        log(f"deploy: export_serving {name}: {exports[name]['seconds']:.2f} s, "
+            f"{exports[name]['bytes'] / 2**20:.1f} MiB .pt2")
+
+    # a fresh process: torch and the op registration only
+    t = time.perf_counter()
+    spec = dict(artifacts={k: str(paths[k]) for k in ("seg", "ldmk")}, seed=0, tiles=BATCH,
+                patch=list(PATCH), dir=str(root))
+    proc = subprocess.run([sys.executable, "-c", SERVE_CHILD, json.dumps(spec)], cwd=HERE,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"deploy: the serving child failed:\n{proc.stderr[-4000:]}")
+    child = json.loads(proc.stdout.splitlines()[-1])
+    child_seconds = time.perf_counter() - t
+    banned = [m for m in child["modules"] if m.split(".")[0] in ("jax", "tpu_mednet")
+              or m.split(".")[1:2] and m.split(".")[1] in ("models", "tasks", "train",
+                                                             "inference")]
+    if banned:
+        raise AssertionError(f"deploy: loading the artifacts imported {banned}")
+    log(f"deploy: serving child ({child_seconds:.1f} s) loaded both .pt2 with modules "
+        f"{child['modules']}")
+
+    tiles = np.random.default_rng(0).normal(size=(BATCH, *PATCH, 1)).astype(np.float32)
+    x = torch.from_numpy(tiles).to(dev)
+    out = dict(exports=exports, child_seconds=child_seconds)
+    child_counts = dict.fromkeys(("gn_moments", "gn_apply", "gn_bwd_reduce", "gn_bwd_apply",
+                                  "gather_patches"), 0)
+    for name in ("seg", "ldmk"):
+        ckpt, flips, _ = specs[name]
+        weights, hp = load_for_inference(ckpt)
+        ns = SimpleNamespace(**{k: _coerce(v) for k, v in hp.items()})
+        task = (LandmarkTask if name == "ldmk" else SegmentationTask).from_hparams(
+            ns, device=dev)
+        task.model.load_state_dict(weights)
+        eager = serving.make_serving_fn(task, flips)
+        forwards = 2 ** len(flips)
+        for n, launched in child[name].items():
+            if launched != [27 * forwards, 27 * forwards, 0, 0]:
+                raise AssertionError(f"deploy: {name} artifact at N={n} launched K1 "
+                                     f"{launched}, expected {27 * forwards} moments and "
+                                     "apply, no backward")
+            for key, v in zip(("gn_moments", "gn_apply", "gn_bwd_reduce", "gn_bwd_apply"),
+                              launched):
+                child_counts[key] += v
+        artifact = serving.load_exported(paths[name]).module()
+        with torch.no_grad(), uncounted(gn, P):
+            want = eager(x).cpu().numpy()
+            band = serving_band(torch, gn, P, task, x.permute(0, 4, 1, 2, 3), flips)
+        held = {}
+        for n in (BATCH, 1):
+            got = np.load(root / f"{name}_{n}.npy")
+            held[n] = compare_serving(f"{name} N={n}", got, want[:n], band)
+        before = launch_counts(gn, P)
+        with torch.no_grad():
+            here = artifact(x).cpu().numpy()
+        after = launch_counts(gn, P)
+        if (after["gn_moments"] - before["gn_moments"] != 27 * forwards
+                or after["gn_bwd_reduce"] != before["gn_bwd_reduce"]):
+            raise AssertionError(f"deploy: {name} artifact launches {before} -> {after}")
+        if not np.array_equal(here, np.load(root / f"{name}_{BATCH}.npy")):
+            raise AssertionError(f"deploy: {name}: the artifact differs between processes")
+        routes = dict(eager=lambda: eager(x), artifact=lambda: artifact(x))
+        turns, memory = [], {}
+        with torch.no_grad():
+            for fn in ("eager", "artifact", "artifact", "eager"):
+                torch.cuda.reset_peak_memory_stats(dev)
+                stats0 = torch.cuda.memory_stats(dev)
+                with uncounted(gn, P) if fn == "eager" else contextlib.nullcontext():
+                    turns.append((fn, cuda_ms(routes[fn], DEPLOY_REPS, DEPLOY_WARMUP)))
+                stats1 = torch.cuda.memory_stats(dev)
+                mem = memory.setdefault(fn, dict(max_reserved=0, max_allocated=0,
+                                                 device_allocs=0, alloc_retries=0))
+                mem["max_reserved"] = max(mem["max_reserved"],
+                                          torch.cuda.max_memory_reserved(dev))
+                mem["max_allocated"] = max(mem["max_allocated"],
+                                           torch.cuda.max_memory_allocated(dev))
+                for key, stat in (("device_allocs", "num_device_alloc"),
+                                  ("alloc_retries", "num_alloc_retries")):
+                    mem[key] += stats1.get(stat, 0) - stats0.get(stat, 0)
+            # one profiled call of each route: where the device time goes
+            breakdown = {}
+            with uncounted(gn, P):
+                for fn, call in routes.items():
+                    rows = sorted(device_rows(torch, call, 1), reverse=True)
+                    breakdown[fn] = dict(device_ms=sum(r[0] for r in rows),
+                                         records=sum(r[1] for r in rows),
+                                         top=[list(r) for r in rows[:DEPLOY_TOP]])
+        ms = {k: float(np.mean([v for f, v in turns if f == k])) for k in ("eager", "artifact")}
+        margin_min = float(band[0].min())
+        out[name] = dict(held={str(k): v for k, v in held.items()}, ms=ms, turns=turns,
+                         memory=memory, breakdown=breakdown,
+                         forwards=forwards, band_err=band[1], margin_min=margin_min,
+                         launches_per_call=27 * forwards,
+                         heatmaps=int(getattr(task, "num_heatmaps", 0)),
+                         params=sum(p.numel() for p in task.model.parameters()))
+        log(f"deploy: {name} artifact ({out[name]['params']} parameters, {forwards} "
+            f"forward(s) a call): N={BATCH} {held[BATCH]}, N=1 {held[1]} to the eager "
+            f"function; K1 {27 * forwards} moments + {27 * forwards} apply a call, no "
+            f"backward; ms per {BATCH} x 96^3 call: artifact {ms['artifact']:.2f}, eager "
+            f"{ms['eager']:.2f} (turns {[round(v, 2) for _, v in turns]}, {DEPLOY_REPS} "
+            f"calls each after {DEPLOY_WARMUP})")
+        for fn in routes:
+            log(f"deploy: {name} {fn}: peak reserved {memory[fn]['max_reserved'] / 2**30:.3f} "
+                f"GiB, allocated {memory[fn]['max_allocated'] / 2**30:.3f} GiB, "
+                f"{memory[fn]['device_allocs']} device allocations and "
+                f"{memory[fn]['alloc_retries']} retries over its turns; one profiled call "
+                f"{breakdown[fn]['device_ms']:.3f} ms of device time in "
+                f"{breakdown[fn]['records']:g} records, top "
+                f"{[(round(m, 3), c, k[:40]) for m, c, k in breakdown[fn]['top'][:4]]}")
+        del task, eager, artifact, weights, routes
+        torch.cuda.empty_cache()
+
+    pinned = serving.load_exported(paths["seg_pinned"]).module()
+    with torch.no_grad():
+        if pinned(x).shape != (BATCH, *PATCH, 1):
+            raise AssertionError("deploy: the pinned artifact's output shape")
+        try:
+            pinned(x[:1])
+        except Exception as exc:  # torch's guard: the batch axis is pinned
+            out["pinned_refusal"] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}"
+        else:
+            raise AssertionError(f"deploy: the artifact pinned to N={BATCH} ran at N=1")
+    log(f"deploy: the artifact pinned to N={BATCH} refuses N=1 ({out['pinned_refusal']})")
+    return out, child_counts
+
+
+def profile_hook(torch, gn, dev, root):
+    """(c) ``Trainer(profile_dir=...)`` over ``PROFILE_RUN_STEPS`` steps of
+    the seg_organ model on the host sampler with ``profile_steps=2``: the
+    trace file exists and names K1's kernels; the step losses equal an
+    unprofiled run of the same seeds."""
+    from types import SimpleNamespace
+
+    from tpu_mednet_torch.data import PatchSampler
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.train import Trainer
+
+    def fit(profile_dir):
+        hp = SimpleNamespace(in_channels=1, out_channels=ORGAN_CLASSES, fmaps=32, bf16=True)
+        task = SegmentationTask.from_hparams(hp, device=dev,
+                                             generator=torch.Generator().manual_seed(0))
+        sampler = PatchSampler(str(root / "organs.zarr"), ORGAN_SPLITS["train"], 10,
+                               ORGAN_PATCH, class_probabilities=[0.2] * ORGAN_CLASSES, seed=0)
+        trainer = Trainer(task, sampler, batch_size=ORGAN_BATCH, max_epochs=1,
+                          limit_train_batches=PROFILE_RUN_STEPS, profile_dir=profile_dir,
+                          profile_steps=PROFILE_STEPS)
+        losses, step = [], trainer.train_step
+
+        def recorded(state, arrays):
+            state, metrics = step(state, arrays)
+            losses.append(metrics["train_loss"])
+            return state, metrics
+
+        trainer.train_step = recorded
+        trainer.fit()
+        return [float(v) for v in losses]
+
+    t = time.perf_counter()
+    plain = fit(None)
+    prof_dir = root / "profile"
+    profiled = fit(str(prof_dir))
+    files = sorted(prof_dir.iterdir())
+    if len(files) != 1:
+        raise AssertionError(f"deploy: profile_dir holds {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = sorted(n for n in names if "gn_moments" in n or "gn_apply" in n)
+    steps = sum(e.get("name") == "train_step" for e in events if e.get("ph") == "X")
+    log(f"deploy: profiler hook: {files[0].name} ({files[0].stat().st_size / 2**20:.1f} MiB, "
+        f"{len(events)} events, {steps} train_step spans) names K1 as {kernels}; "
+        f"losses unprofiled {plain}, profiled {profiled}")
+    if not any(K1_TRACE_NAME in k for k in kernels):
+        raise AssertionError("deploy: the profiler trace names no K1 kernel")
+    if profiled != plain:
+        raise AssertionError("deploy: profiling changed the step losses")
+    return dict(file=files[0].name, bytes=files[0].stat().st_size, events=len(events),
+                train_step_spans=steps, k1_kernels=kernels, losses=plain,
+                seconds=time.perf_counter() - t)
+
+
+def dispatcher_cost(torch, gn, dev):
+    """Host microseconds per K1 forward call through the custom op and
+    through its wrapper called directly (as ``GroupNormFunction`` does in
+    training), at a small shape (the loop is host-bound), in turns
+    op/direct/direct/op; the difference is the dispatcher's added host time
+    per call, which only the no-grad route (serving, export) pays."""
+    x = torch.randn(DISPATCH_SHAPE, device=dev, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+    c = DISPATCH_SHAPE[1]
+    w, b = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    mean, mul, _ = gn.group_norm_moments(x, GROUPS, w, 1e-5)
+    calls = dict(
+        moments_op=lambda: torch.ops.tpu_mednet_torch.gn_moments(x, GROUPS, w, 1e-5),
+        moments_direct=lambda: gn.group_norm_moments(x, GROUPS, w, 1e-5),
+        apply_op=lambda: torch.ops.tpu_mednet_torch.gn_apply(x, mean, mul, b, None, "e"),
+        apply_direct=lambda: gn.group_norm_apply(x, mean, mul, b, None, "e"),
+        group_norm=lambda: gn.group_norm(x, GROUPS, w, b, act="e"))
+
+    def host_us(fn):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / DISPATCH_CALLS * 1e6
+
+    us = {k: [] for k in calls}
+    for kernel in ("moments", "apply"):
+        for route in ("op", "direct", "direct", "op"):
+            us[f"{kernel}_{route}"].append(host_us(calls[f"{kernel}_{route}"]))
+    us["group_norm"].append(host_us(calls["group_norm"]))
+    out = {k: float(np.mean(v)) for k, v in us.items()}
+    out["moments_added"] = out["moments_op"] - out["moments_direct"]
+    out["apply_added"] = out["apply_op"] - out["apply_direct"]
+    log(f"deploy: host us per K1 forward call at {DISPATCH_SHAPE} bf16 ({DISPATCH_CALLS} "
+        f"calls a turn): moments op {out['moments_op']:.2f} vs direct "
+        f"{out['moments_direct']:.2f} (+{out['moments_added']:.2f}), apply op "
+        f"{out['apply_op']:.2f} vs direct {out['apply_direct']:.2f} "
+        f"(+{out['apply_added']:.2f}); group_norm (both, no grad) {out['group_norm']:.2f}")
+    return out
+
+
+def run_deploy(torch, gn, P, dev):
+    """The deploy slice, launches counted from 0: (a) the native batch
+    loader (``check_native_batches``; ``train_seg -c configs/seg_organ.yaml``
+    2 epochs under the default, auto -> native, then under
+    ``--no_native_loader``, and ``train_ldmks -c configs/landmarks.yaml`` 1
+    epoch, through ``main(argv)``: native calls equal to the batches drawn,
+    none without it, step 0's loss bit-equal across the routes, K1's
+    launches exact); (b) serving export (``export_and_serve``); (c) the
+    profiler hook (``profile_hook``); then the dispatcher's host cost, not
+    counted."""
+    import tempfile
+
+    from tpu_mednet_torch import native
+    from tpu_mednet_torch.cli import train_ldmks, train_seg
+    from tpu_mednet_torch.train import Trainer
+
+    rec = CliRecorder(torch, gn, P, DEPLOY_PROFILED, lambda tag, sampler: False, "deploy")
+    drawn, calls = {}, {}
+
+    def counted(orig):
+        def _batches(self, sampler, shuffle):
+            for batch in orig(self, sampler, shuffle):
+                drawn[rec.tag] = drawn.get(rec.tag, 0) + 1
+                yield batch
+        return _batches
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_") as tmp:
+        root = Path(tmp)
+        write_organ_store(root)
+        write_landmark_store(root)
+        log(f"deploy: seeded organ and landmark stores in {time.perf_counter() - t0:.1f} s")
+        batches = check_native_batches(torch, dev, root)
+
+        reset_counts(gn, P)
+        with rec.wrappers(), wrapped(Trainer, "_batches", counted):
+            for tag, main, argv in (
+                    ("native", train_seg.main, organ_train_argv(
+                        root, "seg_native", "--max_epochs", str(DEPLOY_SEG_EPOCHS))),
+                    ("numpy", train_seg.main, organ_train_argv(
+                        root, "seg_numpy", "--max_epochs", str(DEPLOY_SEG_EPOCHS),
+                        "--no_native_loader")),
+                    ("ldmk", train_ldmks.main, ldmk_train_argv(
+                        root, "ldmk", DEPLOY_LDMK_EPOCHS))):
+                before = native.ASSEMBLE_CALLS
+                rec.cli(tag, main, argv)
+                calls[tag] = native.ASSEMBLE_CALLS - before
+        train_counts = launch_counts(gn, P)
+        per_run = rec.per_run(train_counts)
+        steps = dict(native=ORGAN_STEPS_PER_EPOCH * DEPLOY_SEG_EPOCHS,
+                     numpy=ORGAN_STEPS_PER_EPOCH * DEPLOY_SEG_EPOCHS,
+                     ldmk=LDMK_STEPS_PER_EPOCH * DEPLOY_LDMK_EPOCHS)
+        for tag, c in per_run.items():
+            if (c["gn_bwd_reduce"] != 27 * steps[tag] or c["gn_bwd_apply"] != 27 * steps[tag]
+                    or c["gn_moments"] != c["gn_apply"] or c["gather_patches"]):
+                raise AssertionError(f"deploy: {tag} launched {c}, expected 27 K1 backward "
+                                     f"launches a step over {steps[tag]} steps, no K2")
+        log(f"deploy: native calls by run {calls}, batches drawn {drawn}")
+        if calls["native"] != drawn["native"] or calls["ldmk"] != drawn["ldmk"] \
+                or calls["numpy"] != 0:
+            raise AssertionError(f"deploy: native calls {calls} against batches {drawn}")
+        metrics = {tag: read_metrics(root / d / "logs" / "metrics.jsonl") for tag, d in (
+            ("native", "seg_native"), ("numpy", "seg_numpy"), ("ldmk", "ldmk"))}
+        first = {tag: next(r["train_loss"] for r in m if "train_loss" in r)
+                 for tag, m in metrics.items()}
+        pps = {tag: [r["patches_per_sec"] for r in m if "patches_per_sec" in r]
+               for tag, m in metrics.items()}
+        idle = {tag: p["idle_share"] for tag, p in rec.profiles.items()}
+        log(f"deploy: step 0 loss native {first['native']!r}, numpy {first['numpy']!r}; "
+            f"patches/s by epoch {pps}; idle share of epoch 1 {idle} (kept "
+            f"{ {t: p['profiler_kept'] for t, p in rec.profiles.items()} })")
+        if first["native"] != first["numpy"]:
+            raise AssertionError("deploy: step 0's loss differs between the native and the "
+                                 "numpy route")
+
+        serve, child_counts = export_and_serve(torch, gn, P, dev, root, root / "seg_native",
+                                               root / "ldmk")
+        prof = profile_hook(torch, gn, dev, root)
+        counts = launch_counts(gn, P)
+        with uncounted(gn, P):
+            dispatch = dispatcher_cost(torch, gn, dev)
+    for k, v in child_counts.items():
+        counts[k] += v
+    if counts["gather_patches"]:
+        raise AssertionError(f"deploy: K2 launched {counts['gather_patches']} times")
+    seconds = time.perf_counter() - t0
+    log(f"deploy: launches {counts} (the serving child's {child_counts} included); the phase "
+        f"in {seconds:.1f} s")
+    return counts, dict(batches=batches, native_calls=calls, drawn=drawn, per_run=per_run,
+                        step0_loss=first, patches_per_s=pps, idle_share=idle,
+                        profiles=rec.profiles, walls=rec.walls, serving=serve, profile=prof,
+                        dispatcher_us=dispatch, seconds=seconds)
+
+
+def deploy_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
+    log_clocks("deploy")
+    counts, deploy = run_deploy(torch, gn, P, dev)
+    return dict(counts=counts, deploy=deploy)
+
+
 def analytic_mfu(fwd, slice_, train) -> dict:
     """The analytic model FLOPs (``utils/flops.py``: 3x the forward's
     convolutions a train step) over the measured time, against the H100's
@@ -3223,17 +3748,25 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     children = {"--landmarks": landmarks_phase, "--predict-surface": predict_surface_phase,
-                "--training-surface": training_surface_phase, "--tools": tools_phase}
+                "--training-surface": training_surface_phase, "--tools": tools_phase,
+                "--deploy": deploy_phase}
     if argv[:1] and argv[0] in children:  # a child of run_child
         _build.build()
         out = children[argv[0]](torch, gn, P, _grid_corners, dev, gen)
         Path(argv[1]).write_text(json.dumps(out))
         return 0
 
-    # 2. build
+    # 2. build: the CUDA kernels, then the native batch loader's host library
     t0 = time.perf_counter()
     lib = _build.build()
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    from tpu_mednet_torch import native
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()[0]
+    t0 = time.perf_counter()
+    native_lib = native.build()
+    native_build = dict(compiler=gxx, seconds=time.perf_counter() - t0, library=native_lib.name)
+    log(f"build: {native_lib.name} ({gxx}) in {native_build['seconds']:.2f} s")
     log_clocks("after the build")
     for line in _build.BUILD_LOG.splitlines():
         if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -3296,16 +3829,24 @@ def main(argv) -> int:
     tools_all = run_child("--tools", "tools")
     tools_counts = tools_all["counts"]
 
+    # 13. the deploy slice: the native batch loader on the card's training
+    # paths, serving export (torch.export artifacts through K1's custom ops)
+    # and the Trainer's profiler hook, in a fresh process too
+    deploy_all = run_child("--deploy", "deploy")
+    deploy_counts = deploy_all["counts"]
+
     def launches(name):
         by_path = dict(serving=counts[name], training=train_counts[name],
                        entry_points=entry_counts[name], landmarks=ldmk_counts[name],
                        predict_surface=surface_counts[name],
-                       training_surface=training_counts[name], tools=tools_counts[name])
+                       training_surface=training_counts[name], tools=tools_counts[name],
+                       deploy=deploy_counts[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
-    def gather_launches(path, entry, landmarks, surface, training_surface, tools):
+    def gather_launches(path, entry, landmarks, surface, training_surface, tools, deploy=0):
         by_path = dict(serving=0, training=0, entry_points=entry, landmarks=landmarks,
-                       predict_surface=surface, training_surface=training_surface, tools=tools)
+                       predict_surface=surface, training_surface=training_surface, tools=tools,
+                       deploy=deploy)
         by_path[path] = counts["gather_patches"] if path == "serving" \
             else train_counts["gather_patches"]
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
@@ -3347,7 +3888,8 @@ def main(argv) -> int:
              replaces="tpu_mednet/ops/pallas/patches.py:95",
              **gather_launches("serving", entry_k2["plain"], ldmk_k2["plain"],
                                surface_counts["gather_patches"], 0,
-                               tools_counts["gather_patches"]),
+                               tools_counts["gather_patches"],
+                               deploy_counts["gather_patches"]),
              max_abs_err=k2["err"],
              ms=k2["ms"], event_ms=k2["wrapper_ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound"], library_ms=None, profiler_kept=k2["kept"],
@@ -3441,6 +3983,16 @@ def main(argv) -> int:
         evaluate_mean_dice={k: v["mean_dice"] for k, v in tools["scores"].items()},
         round_trip={k: v["held"] for k, v in tools["round_trip"].items()},
         launches=tools_counts, seconds=tools["seconds"])}))
+    deploy = deploy_all["deploy"]
+    log(json.dumps({"deploy": deploy, "native_build": native_build}))
+    log(json.dumps({"deploy_summary": dict(
+        native_build=native_build, native_calls=deploy["native_calls"],
+        batches_drawn=deploy["drawn"], step0_loss=deploy["step0_loss"],
+        patches_per_s=deploy["patches_per_s"], idle_share=deploy["idle_share"],
+        serving={k: deploy["serving"][k] for k in ("seg", "ldmk", "exports", "pinned_refusal")},
+        profile={k: deploy["profile"][k] for k in ("file", "k1_kernels", "train_step_spans")},
+        dispatcher_us=deploy["dispatcher_us"], launches=deploy_counts,
+        seconds=deploy["seconds"])}))
     log(json.dumps({"mfu": mfu}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

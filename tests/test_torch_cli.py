@@ -263,15 +263,18 @@ def test_predict_refuses_the_wrong_task(run, tmp_path):
         predict.main(_predict_argv(run, "crop", None, "prediction.checkpoint_step=best"))
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--gpus", "2"], "Multi-GPU"),
-    (["--spatial_shards", "2"], "Multi-GPU"),
-    (["--native_loader"], "native loader"),
-    (["--neptune_project", "p"], "Neptune"),
-])
-def test_train_refuses_what_waits(run, tmp_path, extra, match):
+@pytest.mark.parametrize("extra,error,match", [
+    (["--gpus", "2"], NotImplementedError, "Multi-GPU"),
+    (["--spatial_shards", "2"], NotImplementedError, "Multi-GPU"),
+    (["--native_loader"], RuntimeError, "native loader requested but unavailable"),
+    (["--neptune_project", "p"], NotImplementedError, "Neptune"),
+], ids=["extra0-Multi-GPU", "extra1-Multi-GPU", "extra2-native loader", "extra3-Neptune"])
+def test_train_refuses_what_waits(run, tmp_path, monkeypatch, extra, error, match):
+    """The modes that wait raise; ``--native_loader`` (ported) requires the
+    native pipeline and raises where its library is unavailable."""
+    monkeypatch.setenv("TPU_MEDNET_NO_NATIVE", "1")
     argv = _train_argv(run, "--max_epochs", "1", "--model_dir", str(tmp_path / "m"), *extra)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         train_seg.main(argv)
 
 

@@ -221,11 +221,14 @@ def test_predict_guards(run, extra, match):
     (["--loss_regression_weight", "0.1", "0.1", "--out_channels", "4"], SystemExit,
      "3 heatmap channels"),
     (["--gpus", "2"], NotImplementedError, "Multi-GPU"),
-    (["--native_loader"], NotImplementedError, "native loader"),
+    (["--native_loader"], RuntimeError, "native loader requested but unavailable"),
     (["--neptune_project", "p"], NotImplementedError, "Neptune"),
 ], ids=["landmarks_need_device_sampler", "heatmaps_vs_out_channels", "store_vs_config",
         "gpus", "native_loader", "neptune"])
-def test_train_ldmks_refuses(run, tmp_path, extra, error, match):
+def test_train_ldmks_refuses(run, tmp_path, monkeypatch, extra, error, match):
+    # --native_loader requires the native pipeline: refused where its
+    # library is unavailable
+    monkeypatch.setenv("TPU_MEDNET_NO_NATIVE", "1")
     argv = _train_argv(run, "--max_epochs", "1", "--model_dir", str(tmp_path / "m"), *extra)
     with pytest.raises(error, match=match):
         train_ldmks.main(argv)

@@ -10,8 +10,9 @@ reference (``AugmentConfig()`` when no ``--aug_*`` flag is given).  Exit
 code 3 when training stops on non-finite values.  It runs on CUDA unless
 ``--device cpu`` is given.
 
-Not ported: more than one GPU, the native batch pipeline, Neptune and the
-MIP sample visualizer (``--log_vis_mip`` is accepted and ignored).
+The host sampler runs through the native batch pipeline unless
+``--no_native_loader``.  Not ported: more than one GPU, Neptune and the MIP
+sample visualizer (``--log_vis_mip`` is accepted and ignored).
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ resume) and exit codes (3 when training stops on non-finite values), then
 sampler -> task -> Trainer -> checkpoints.  It runs on CUDA unless
 ``--device cpu`` is given.
 
-Not ported: more than one GPU (``--gpus``/``--spatial_shards`` above 1),
-the native batch pipeline (``--native_loader``), Neptune
+The host sampler runs through the native batch pipeline unless
+``--no_native_loader`` (``--native_loader`` requires it).  Not ported: more
+than one GPU (``--gpus``/``--spatial_shards`` above 1), Neptune
 (``--neptune_project``) and the MIP sample visualizer.
 """
 

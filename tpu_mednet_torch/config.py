@@ -132,8 +132,10 @@ def add_common_train_args(parser: argparse.ArgumentParser) -> None:
                         help="spatial partitioning (one shard is ported; more raise)")
     parser.add_argument("--native_loader", dest="native_loader",
                         action="store_true", default=None,
-                        help="require the native (C++) batch pipeline: not "
-                             "ported, raises; default: the numpy sampler")
+                        help="require the native (C++) batch pipeline "
+                             "(tpu_mednet_torch/native); default: auto-enable "
+                             "when available — batches are byte-identical "
+                             "to the numpy path")
     parser.add_argument("--no_native_loader", dest="native_loader",
                         action="store_false",
                         help="force the numpy batch pipeline")

@@ -5,7 +5,11 @@ the host sampler and puts each batch on the device ahead of use, so the
 train step does not wait on the host (double buffering).  On CUDA each
 batch goes from pinned memory with ``non_blocking=True`` on a copy stream
 of its own; the consumer's stream waits for that copy's event before it
-uses the batch, so the copy overlaps the previous step's kernels.
+uses the batch, so the copy overlaps the previous step's kernels.  A batch
+already in pinned memory (the native pipeline's pool,
+``data/native_loader.py``) is copied as it is, and a callable it carries
+under ``ON_COPIED`` is called with the copy's event, so its buffer is
+reused only after the copy has ended.
 """
 
 from __future__ import annotations
@@ -19,13 +23,16 @@ import torch
 _SENTINEL = object()
 BUFFER_SIZE = 2                # batches in flight: double buffering
 ARRAY_KEYS = ("data", "label")  # the entries moved to the device
+ON_COPIED = "on_copied"         # a batch's hook that takes its copy's CUDA event
 
 
 def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A channels-last (N, C, X, Y, Z) CPU tensor to ``device``, through its
     contiguous (N, X, Y, Z, C) buffer in pinned memory."""
     buf = t.permute(0, 2, 3, 4, 1)
-    return buf.pin_memory().to(device, non_blocking=True).permute(0, 4, 1, 2, 3)
+    if not buf.is_pinned():
+        buf = buf.pin_memory()
+    return buf.to(device, non_blocking=True).permute(0, 4, 1, 2, 3)
 
 
 def device_prefetch(host_iter: Iterator[Dict[str, object]],
@@ -40,6 +47,7 @@ def device_prefetch(host_iter: Iterator[Dict[str, object]],
 
     def put(batch):
         out = dict(batch)
+        on_copied = out.pop(ON_COPIED, None)
         if stream is None:
             for k in ARRAY_KEYS:
                 if k in out:
@@ -49,7 +57,10 @@ def device_prefetch(host_iter: Iterator[Dict[str, object]],
             for k in ARRAY_KEYS:
                 if k in out:
                     out[k] = _to_device(out[k], device)
-            return out, stream.record_event()
+            copied = stream.record_event()
+        if on_copied is not None:
+            on_copied(copied)
+        return out, copied
 
     def producer():
         try:
@@ -62,7 +73,7 @@ def device_prefetch(host_iter: Iterator[Dict[str, object]],
             return
         q.put(_SENTINEL)
 
-    thread = threading.Thread(target=producer, daemon=True)
+    thread = threading.Thread(target=producer, daemon=True, name="tpu-mednet-prefetch")
     thread.start()
     try:
         while True:

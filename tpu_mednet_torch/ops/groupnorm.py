@@ -12,6 +12,16 @@ pass for dx (and the residual's gradient).  ``group_norm`` ties them into a
 ``torch.autograd.Function``.  On a CPU tensor their plain PyTorch versions
 below run instead, and any other device raises.
 
+The forward pair is registered as two ``torch.library`` custom ops,
+``tpu_mednet_torch::gn_moments`` and ``tpu_mednet_torch::gn_apply``
+(each calls its wrapper below: the kernel on CUDA, the plain version on
+the CPU; a fake implementation with the real one's shapes, dtypes and
+strides), so ``torch.export`` can trace a model through K1 and an
+exported artifact calls the kernels by name (``inference/serving.py``);
+importing this module registers them.  ``group_norm`` goes through the
+ops where nothing needs a gradient (serving, export); under autograd
+``GroupNormFunction`` calls the wrappers without the dispatcher.
+
 Activations are logical (N, C, D, H, W) stored ``channels_last_3d``, i.e.
 physically (N, S, C) with S = D*H*W.
 """
@@ -22,6 +32,7 @@ import ctypes
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch import Tensor
 
 from tpu_mednet_torch.ops import _build
 
@@ -189,7 +200,7 @@ def _group_norm_moments_cuda(x, num_groups, weight, eps):
     gamma = weight.float().contiguous()
     if gamma.shape != (c,) or gamma.device != x.device:
         raise ValueError("group_norm_moments: weight must be (C,) on x's device")
-    out = torch.empty((3, n, c), dtype=torch.float32, device=x.device)
+    out = [torch.empty((n, c), dtype=torch.float32, device=x.device) for _ in range(3)]
     if n == 0 or c == 0:
         return GroupNormStats(*out)
     plan = plan_moments(n, s, c, x.element_size(), x.data_ptr() % 16 == 0,
@@ -219,6 +230,19 @@ def group_norm_moments(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
     if x.device.type == "cpu":
         return group_norm_moments_plain(x, num_groups, weight, eps)
     return _group_norm_moments_cuda(x, num_groups, weight, eps)
+
+
+@torch.library.custom_op("tpu_mednet_torch::gn_moments", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _gn_moments_op(x: Tensor, num_groups: int, weight: Tensor,
+                   eps: float) -> Tuple[Tensor, Tensor, Tensor]:
+    return tuple(group_norm_moments(x, num_groups, weight, eps))
+
+
+@_gn_moments_op.register_fake
+def _gn_moments_fake(x, num_groups, weight, eps):
+    n, c = x.shape[:2]
+    return tuple(x.new_empty((n, c), dtype=torch.float32) for _ in range(3))
 
 
 # -- normalize + affine (+ residual) (+ act) --------------------------------
@@ -276,6 +300,18 @@ def group_norm_apply(x: torch.Tensor, mean_c: torch.Tensor, mul_c: torch.Tensor,
     if x.device.type == "cpu":
         return group_norm_apply_plain(x, mean_c, mul_c, bias, residual, act)
     return _group_norm_apply_cuda(x, mean_c, mul_c, bias, residual, act)
+
+
+@torch.library.custom_op("tpu_mednet_torch::gn_apply", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _gn_apply_op(x: Tensor, mean_c: Tensor, mul_c: Tensor, bias: Tensor,
+                 residual: Optional[Tensor], act: Optional[str]) -> Tensor:
+    return group_norm_apply(x, mean_c, mul_c, bias, residual, act)
+
+
+@_gn_apply_op.register_fake
+def _gn_apply_fake(x, mean_c, mul_c, bias, residual, act):
+    return torch.empty_like(x, memory_format=CL3D)
 
 
 def group_norm_plain(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
@@ -445,5 +481,15 @@ def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
                act: Optional[str] = None) -> torch.Tensor:
     """GroupNorm (+ residual add) (+ nonlinearity) of a channels_last_3d
     activation, differentiable: the moments kernel, then the apply kernel;
-    the backward kernels under autograd."""
-    return GroupNormFunction.apply(x, weight, bias, residual, num_groups, eps, act)
+    the backward kernels under autograd.  Where no input needs a gradient
+    the forward goes through the two custom ops, which ``torch.export``
+    traces; under autograd ``GroupNormFunction`` calls the wrappers
+    directly, so training pays no dispatcher time."""
+    if x.device.type != "cpu":
+        _build.require_cuda(x, "group_norm")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias, residual)):
+        return GroupNormFunction.apply(x, weight, bias, residual, num_groups, eps, act)
+    ops = torch.ops.tpu_mednet_torch
+    mean, mul, _ = ops.gn_moments(x, num_groups, weight, float(eps))
+    return ops.gn_apply(x, mean, mul, bias, residual, act)

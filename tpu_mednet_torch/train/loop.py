@@ -4,23 +4,30 @@ Counterpart of ``tpu_mednet/train/loop.py`` (the pytorch-lightning
 ``Trainer`` runtime the reference delegates to, train_seg.py:122-132), on
 one device: a plain loop around the port's train and eval steps with
 
-- host samplers fed through ``device_prefetch`` (pinned memory, a copy
-  stream, double buffering) and ``DevicePatchSampler`` batches used as
-  they come;
+- host ``PatchSampler``s routed through the native batch pipeline
+  (``data/native_loader.py``: the C++ crop/convert/transpose into pinned
+  buffers) as the JAX Trainer does, ``native_loader`` None = auto, True =
+  require, False = the numpy sampler, and fed through ``device_prefetch``
+  (a copy stream, double buffering); ``DevicePatchSampler`` batches used
+  as they come;
 - checkpoints every epoch (``keep_checkpoints`` retained), the best-val
   checkpoint under ``<model_dir>/best``, resume from ``step //
   steps_per_epoch``, graceful preemption (``PreemptionGuard``);
 - early stopping, the plateau schedule, the non-finite policies, and
-  JSONL/TensorBoard scalars under the reference's names.
+  JSONL/TensorBoard scalars under the reference's names;
+- the profiler hook: with ``profile_dir``, steps 1 to ``profile_steps`` of
+  epoch 0 are traced with ``torch.profiler`` (CPU and CUDA), each under
+  ``record_function("train_step")``, into a Chrome trace under
+  ``profile_dir`` (no CLI flag sets it, as in the JAX package).
 
 Metrics stay on the device: the loop reads them every ``log_every``
 steps, and validation sums them on the device and reads them once per
-epoch.  Not ported: the native (C++) batch pipeline, the MIP sample
-visualizer, the profiler hook, and meshes (one device).
+epoch.  Not ported: the MIP sample visualizer and meshes (one device).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import signal
@@ -32,6 +39,8 @@ from typing import Dict, Optional
 import torch
 
 from tpu_mednet_torch.data.device_sampler import DevicePatchSampler
+from tpu_mednet_torch.data.native_loader import make_batch_source
+from tpu_mednet_torch.data.patch_sampler import PatchSampler
 from tpu_mednet_torch.data.prefetch import device_prefetch
 from tpu_mednet_torch.models.unet import create_feature_maps
 from tpu_mednet_torch.ops.augment import AugmentConfig
@@ -146,22 +155,32 @@ class Trainer:
         nonfinite: str = "off",
         track_grad_norm: bool = False,
         keep_checkpoints: int = 3,
+        profile_dir: Optional[str] = None,
+        profile_steps: int = 5,
     ):
-        if native_loader:
-            raise NotImplementedError(
-                "the native (C++) batch pipeline is not ported to tpu_mednet_torch "
-                "(ROADMAP §1, 'native loader'); drop --native_loader to use the "
-                "numpy sampler, whose batches are the same")
         self.task = task
         self.device = next(task.model.parameters()).device
-        self.train_sampler = train_sampler
-        self.val_sampler = val_sampler
+
+        # host PatchSamplers go through the native batch pipeline (fused C++
+        # crop/convert/transpose into pinned buffers for the card), as in the
+        # JAX Trainer: byte-identical batches, so only a throughput knob
+        def route(s):
+            if native_loader is not False and isinstance(s, PatchSampler):
+                return make_batch_source(s, use_native=native_loader,
+                                         pinned=self.device.type == "cuda")
+            return s
+
+        self.train_sampler = route(train_sampler)
+        self.val_sampler = route(val_sampler) if val_sampler is not None else None
         self.batch_size = batch_size
         self.max_epochs = max_epochs
         self.learning_rate = learning_rate
         self.seed = seed
         self.log_every = log_every
         self.hparams = hparams
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
+        self._profiler = None
         self._preempt: Optional[PreemptionGuard] = None
 
         self.metrics = MetricsLogger(log_dir) if log_dir else None
@@ -335,11 +354,17 @@ class Trainer:
                     break
                 if self.limit_train_batches and n_batches >= self.limit_train_batches:
                     break
+                if self.profile_dir and epoch == 0 and n_batches == 1:
+                    self._start_profile()  # skip step 0 (first calls), trace steady steps
                 arrays = {"data": batch["data"], "label": batch["label"]}
-                self.state, metrics = self.train_step(self.state, arrays)
+                with (torch.profiler.record_function("train_step") if self._profiler is not None
+                      else contextlib.nullcontext()):
+                    self.state, metrics = self.train_step(self.state, arrays)
                 if self.nonfinite != "off":
                     nf = metrics["nonfinite"]
                     nonfinite_acc = nf if nonfinite_acc is None else nonfinite_acc + nf
+                if self._profiler is not None and n_batches >= self.profile_steps:
+                    self._stop_profile(n_batches)
                 if n_batches % self.log_every == 0:
                     scalars = {k: float(v) for k, v in metrics.items()}  # waits
                     scalars["lr"] = read_current_lr(self.optim, self.state.optimizer,
@@ -351,6 +376,12 @@ class Trainer:
         finally:
             if hasattr(batches, "close"):
                 batches.close()
+            if self._profiler is not None:
+                # the epoch ended (too few batches, preempted, or raised) before
+                # the traced window closed: never leave a trace open
+                logger.warning("profile trace closed at epoch end after %d steps "
+                               "(profile_steps=%d)", n_batches, self.profile_steps)
+                self._stop_profile(n_batches - 1)
         if nonfinite_acc is not None and n_batches:
             n_bad = int(float(nonfinite_acc))
             if n_bad:
@@ -381,6 +412,26 @@ class Trainer:
             if self.metrics:
                 self.metrics.log_scalars(self.state.step, {"patches_per_sec": pps})
         return last_metrics
+
+    def _start_profile(self) -> None:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=activities)
+        self._profiler.start()
+
+    def _stop_profile(self, last_step: int) -> None:
+        """Wait for the traced steps' device work, stop the profiler and
+        write its Chrome trace under ``profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        out = Path(self.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"train_steps_1-{last_step}.pt.trace.json"
+        prof.export_chrome_trace(str(path))
+        logger.info("profile trace of steps 1-%d -> %s", last_step, path)
 
     def val_epoch(self, epoch: int) -> Dict[str, float]:
         if self.val_sampler is None:
