@@ -33,12 +33,20 @@ f_maps 32 with 1 input channel and 2 classes at batch 8, 16 and 32 of
 96^3 with remat 0, 1 and all; of ``configs/seg_brats_bf16.yaml``'s model
 (4 inputs, 4 classes, Dice) at batch 2 of 128^3 and of
 ``configs/landmarks.yaml``'s ``LandmarkTask`` (f_maps 64, 3 heatmaps and 2
-classes) at batch 4 of 96^3, each with remat 0 and 1.  After
-``empty_cache`` and ``reset_peak_memory_stats``, three steps; then
-``max_memory_reserved`` against the estimate with the module's
-constants, printed with the estimate's terms (the stored activations, the
-fp32 GroupNorm units, the full-resolution unit and the parameters) from
-which the constants are fit.
+classes) at batch 4 of 96^3, each with remat 0 and 1; and of ``UNet3D``
+(the ``double`` family at its defaults: f_maps 64, 4 levels, order
+``gcr``; 1 input channel, 3 classes) at batch 4, 8 and 16 of 96^3 with
+remat 0 and 1.  After ``empty_cache`` and ``reset_peak_memory_stats``,
+three steps; then ``max_memory_reserved`` against the estimate with the
+module's constants, printed with the estimate's terms (the stored
+activations, the fp32 GroupNorm units, the double family's join
+temporaries, the full-resolution unit and the parameters) from which the
+constants are fit.  ``--train-only`` runs this half alone; ``--double-only``
+runs its UNet3D points and the inference half's UNet3D points alone:
+``UNet3D(1, 3)`` in orders ``gcr`` and ``cbr`` through both stitches, one
+volume of 192^3 and 320^3 (n_tta 1) and of 192^3 (n_tta 8), each against
+the guard's estimate with its double-family terms, with the windows of
+``JOIN_INFER_UNITS`` and ``NORM_FIRST_UNITS`` that keep them all in [1, 1.3].
 
 It exits non-zero where a ratio leaves [1, 1.3] or the edge volume does
 not fit.
@@ -62,10 +70,12 @@ PATCH, OVERLAP, BATCH = (96, 96, 96), (16, 16, 16), 8
 TTAS = ((), (0, 1, 2))
 RATIO = (1.0, 1.3)
 # training points: (name, input channels, classes, heatmaps, f_maps, patch,
-# batches, remat settings)
-TRAIN_MODELS = (("f_maps 32, 1 -> 2", 1, 2, 0, 32, (96, 96, 96), (8, 16, 32), (0, 1, True)),
-                ("seg_brats_bf16", 4, 4, 0, 32, (128, 128, 128), (2,), (0, 1)),
-                ("landmarks", 1, 2, 3, 64, (96, 96, 96), (4,), (0, 1)))
+# batches, remat settings, block)
+TRAIN_MODELS = (("f_maps 32, 1 -> 2", 1, 2, 0, 32, (96, 96, 96), (8, 16, 32), (0, 1, True),
+                 "residual"),
+                ("seg_brats_bf16", 4, 4, 0, 32, (128, 128, 128), (2,), (0, 1), "residual"),
+                ("landmarks", 1, 2, 3, 64, (96, 96, 96), (4,), (0, 1), "residual"),
+                ("UNet3D gcr", 1, 3, 0, 64, (96, 96, 96), (4, 8, 16), (0, 1), "double"))
 TRAIN_STEPS = 3
 
 
@@ -86,7 +96,8 @@ def main(argv) -> int:
     from tpu_mednet_torch.utils import memory
 
     out_path = Path(argv[argv.index("--out") + 1]) if "--out" in argv else None
-    train_only = "--train-only" in argv
+    double_only = "--double-only" in argv
+    train_only = "--train-only" in argv or double_only
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
@@ -101,8 +112,10 @@ def main(argv) -> int:
     rng = np.random.default_rng(0)
     points = []
     if train_only:
-        train = train_fit(torch, dev, memory, ResidualUNet3D)
-        result = dict(card=smi, train=train, ok=train["ok"])
+        double = infer_double_fit(torch, dev, memory, kw, rng) if double_only else None
+        train = train_fit(torch, dev, memory, double_only)
+        result = dict(card=smi, train=train, ok=train["ok"] and (double or {}).get("ok", True),
+                      infer_double=double)
         print(json.dumps({k: v for k, v in train.items() if k != "points"}), flush=True)
         if out_path is not None:
             out_path.parent.mkdir(parents=True, exist_ok=True)
@@ -173,11 +186,12 @@ def main(argv) -> int:
     edge = guard_edge(torch, dev, rng, kw, memory, ResidualUNet3D, SegmentationTask,
                       MemoryReader, predict_volumes_weighted_on_device)
     ok = ok and edge["fits"] and RATIO[0] <= edge["ratio"] <= RATIO[1]
-    train = train_fit(torch, dev, memory, ResidualUNet3D)
+    double = infer_double_fit(torch, dev, memory, kw, rng)
+    train = train_fit(torch, dev, memory)
     result = dict(card=smi, infer_work_units=memory.INFER_WORK_UNITS,
                   tta_work_units=memory.TTA_WORK_UNITS, least_infer_work_units=work,
-                  least_tta_work_units=tta, ok=ok and train["ok"], edge=edge, points=points,
-                  train=train)
+                  least_tta_work_units=tta, ok=ok and train["ok"] and double["ok"], edge=edge,
+                  points=points, infer_double=double, train=train)
     print(json.dumps({k: v for k, v in result.items() if k not in ("points", "train")}),
           flush=True)
     print(json.dumps({k: v for k, v in train.items() if k != "points"}), flush=True)
@@ -187,37 +201,124 @@ def main(argv) -> int:
     return 0 if ok else 1
 
 
+def infer_double_fit(torch, dev, memory, kw, rng):
+    """The HBM guard's double-family term: ``UNet3D(1, 3)`` at its defaults
+    in orders ``gcr`` and ``cbr`` (seeded weights, bf16) through both
+    on-device stitches, one volume of 192^3 and 320^3 with n_tta 1 and of
+    192^3 with n_tta 8: peak reserved memory against the estimate, and the
+    window of ``JOIN_INFER_UNITS`` and of ``NORM_FIRST_UNITS`` (each with
+    the other as it is) that keeps every point in [1, 1.3]."""
+    from tpu_mednet_torch.data import MemoryReader
+    from tpu_mednet_torch.inference import (predict_volumes_on_device,
+                                            predict_volumes_weighted_on_device)
+    from tpu_mednet_torch.models import UNet3D
+    from tpu_mednet_torch.tasks import SegmentationTask
+
+    stitches = {"device": predict_volumes_on_device,
+                "gaussian": predict_volumes_weighted_on_device}
+    points = []
+    for order in ("gcr", "cbr"):
+        model = UNet3D(1, 3, layer_order=order, dtype=torch.bfloat16, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+        task = SegmentationTask(model=model)
+        fmaps = model.config.feature_maps
+        params_b = memory.param_bytes(model)
+        join = memory._unit_bytes(BATCH, PATCH, 0, fmaps[0] + fmaps[1], 2)
+        first = memory.norm_before_conv(order)
+        warm = {"images": {"w": rng.standard_normal((1, 96, 96, 96), np.float32)
+                           .astype(np.float16)}}
+        for fn in stitches.values():
+            fn(task, None, ["w"], reader=MemoryReader(warm), **kw)
+        for size, tta in ((192, ()), (320, ()), (192, (0, 1, 2))):
+            vol = rng.standard_normal((1, size, size, size), np.float32).astype(np.float16)
+            for stitch, fn in stitches.items():
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                fn(task, None, ["v"], reader=MemoryReader({"images": {"v": vol}}),
+                   tta_flips=tta, **kw)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                reserved = torch.cuda.max_memory_reserved(dev)
+                n_tta = 2 ** len(tta)
+                est, _ = memory.device_stitch_bytes(
+                    (size,) * 3, PATCH, OVERLAP, BATCH, 1, 1, fmaps, stitch=stitch,
+                    params_bytes=params_b, n_tta=n_tta, acc_channels=3, block="double",
+                    layer_order=order)
+                rest = est - (memory.JOIN_INFER_UNITS
+                              + (memory.NORM_FIRST_UNITS if first else 0.0)) * join
+                points.append(dict(order=order, stitch=stitch, size=size, n_tta=n_tta,
+                                   reserved=reserved, estimate=est, ratio=est / reserved,
+                                   rest=rest, join=join, norm_first=first,
+                                   seconds=seconds))
+                print(f"infer UNet3D {order} {stitch:8s} {size}^3 n_tta {n_tta}: "
+                      f"max_memory_reserved {reserved / 2**30:.3f} GiB, estimate "
+                      f"{est / 2**30:.3f} GiB, ratio {est / reserved:.3f}; {seconds:.2f} s",
+                      flush=True)
+            del vol
+        del model, task
+    # the window of each constant with the other as it is
+    windows = {}
+    for name, sel in (("JOIN_INFER_UNITS", lambda p: True),
+                      ("NORM_FIRST_UNITS", lambda p: p["norm_first"])):
+        held = [p for p in points if sel(p)]
+        windows[name] = [getattr(memory, name) + max(
+                             (RATIO[0] * p["reserved"] - p["estimate"]) / p["join"]
+                             for p in held),
+                         getattr(memory, name) + min(
+                             (RATIO[1] * p["reserved"] - p["estimate"]) / p["join"]
+                             for p in held)]
+    ok = all(RATIO[0] <= p["ratio"] <= RATIO[1] for p in points)
+    print(f"inference, UNet3D: JOIN_INFER_UNITS {memory.JOIN_INFER_UNITS}, NORM_FIRST_UNITS "
+          f"{memory.NORM_FIRST_UNITS}; each one's window with the other as it is, keeping "
+          f"every point in {list(RATIO)}: " + ", ".join(
+              f"{k} [{lo:.3f}, {hi:.3f}]" for k, (lo, hi) in windows.items())
+          + f"; every ratio in {list(RATIO)}: {ok}", flush=True)
+    return dict(ok=ok, join_infer_units=memory.JOIN_INFER_UNITS,
+                norm_first_units=memory.NORM_FIRST_UNITS, windows=windows, points=points)
+
+
 def train_terms(memory, **kw):
     """The estimate's terms at one point: the stored activations (bytes
     before the overhead factor), the bytes of one fp32 GroupNorm unit per
-    stored full-resolution conv, and the parameters' bytes."""
-    consts = ("TRAIN_OVERHEAD", "GN_F32_UNITS", "TRAIN_WORK_UNITS")
+    stored full-resolution conv, the double family's join temporaries and
+    the parameters' bytes."""
+    consts = ("TRAIN_OVERHEAD", "DOUBLE_OVERHEAD", "GN_F32_UNITS", "TRAIN_WORK_UNITS",
+              "JOIN_UNITS")
     saved = [getattr(memory, c) for c in consts]
     try:
-        def est(overhead, gn, params):
-            memory.TRAIN_OVERHEAD, memory.GN_F32_UNITS, memory.TRAIN_WORK_UNITS = overhead, gn, 0.0
+        def est(overhead, gn, join, params):
+            (memory.TRAIN_OVERHEAD, memory.DOUBLE_OVERHEAD, memory.GN_F32_UNITS,
+             memory.TRAIN_WORK_UNITS, memory.JOIN_UNITS) = overhead, overhead, gn, 0.0, join
             return memory.unet_train_peak_bytes(**{**kw, "n_params": params})
-        act = est(1.0, 0.0, 0)
-        return dict(activations=act, gn_f32_unit=est(1.0, 1.0, 0) - act,
-                    params=est(0.0, 0.0, kw["n_params"]))
+        act = est(1.0, 0.0, 0.0, 0)
+        return dict(activations=act, gn_f32_unit=est(1.0, 1.0, 0.0, 0) - act,
+                    join=est(0.0, 0.0, 1.0, 0), params=est(0.0, 0.0, 0.0, kw["n_params"]))
     finally:
         for c, v in zip(consts, saved):
             setattr(memory, c, v)
 
 
-def train_fit(torch, dev, memory, ResidualUNet3D):
+def train_fit(torch, dev, memory, double_only=False):
     """Peak reserved memory of the train step at every ``TRAIN_MODELS``
-    point against ``unet_train_peak_bytes``."""
+    point (the UNet3D points alone with ``double_only``) against
+    ``unet_train_peak_bytes``."""
     import dataclasses
 
+    from tpu_mednet_torch.models import ResidualUNet3D, UNet3D
     from tpu_mednet_torch.ops.augment import AugmentConfig
     from tpu_mednet_torch.tasks import LandmarkTask, SegmentationTask
     from tpu_mednet_torch.train import create_train_state, make_train_step
 
     points = []
-    for name, c_in, classes, heatmaps, f_maps, patch, batches, remats in TRAIN_MODELS:
-        model = ResidualUNet3D(c_in, classes + heatmaps, f_maps=f_maps, dtype=torch.bfloat16,
-                               device=dev, generator=torch.Generator().manual_seed(0))
+    for (name, c_in, classes, heatmaps, f_maps, patch, batches, remats,
+         block) in TRAIN_MODELS:
+        if double_only and block != "double":
+            continue
+        build = UNet3D if block == "double" else ResidualUNet3D
+        model = build(c_in, classes + heatmaps, f_maps=f_maps, dtype=torch.bfloat16,
+                      device=dev, generator=torch.Generator().manual_seed(0))
         task = (LandmarkTask(model=model, loss_regression_weight=[0.015] * heatmaps)
                 if heatmaps else SegmentationTask(model=model, loss="DICE"))
         n_params = sum(p.numel() for p in model.parameters())
@@ -248,7 +349,8 @@ def train_fit(torch, dev, memory, ResidualUNet3D):
                 reserved = torch.cuda.max_memory_reserved(dev)
                 allocated = torch.cuda.max_memory_allocated(dev)
                 kw = dict(batch=batch, patch=patch, feature_maps=fmaps, in_channels=c_in,
-                          out_channels=classes + heatmaps, n_params=n_params, remat=remat)
+                          out_channels=classes + heatmaps, n_params=n_params, remat=remat,
+                          block=block)
                 est = memory.unet_train_peak_bytes(**kw)
                 terms = train_terms(memory, **kw)
                 points.append(dict(model=name, batch=batch, remat=str(remat).lower(),
@@ -267,9 +369,12 @@ def train_fit(torch, dev, memory, ResidualUNet3D):
     ok = all(RATIO[0] <= p["ratio"] <= RATIO[1] for p in points)
     print(f"training: every ratio in {list(RATIO)}: {ok} (TRAIN_OVERHEAD "
           f"{memory.TRAIN_OVERHEAD}, GN_F32_UNITS {memory.GN_F32_UNITS}, TRAIN_WORK_UNITS "
-          f"{memory.TRAIN_WORK_UNITS})", flush=True)
+          f"{memory.TRAIN_WORK_UNITS}, DOUBLE_OVERHEAD {memory.DOUBLE_OVERHEAD}, JOIN_UNITS "
+          f"{memory.JOIN_UNITS})", flush=True)
     return dict(ok=ok, train_overhead=memory.TRAIN_OVERHEAD, gn_f32_units=memory.GN_F32_UNITS,
-                train_work_units=memory.TRAIN_WORK_UNITS, points=points)
+                train_work_units=memory.TRAIN_WORK_UNITS,
+                double_overhead=memory.DOUBLE_OVERHEAD, join_units=memory.JOIN_UNITS,
+                points=points)
 
 
 def guard_edge(torch, dev, rng, kw, memory, ResidualUNet3D, SegmentationTask, MemoryReader,

@@ -89,6 +89,22 @@ drives the two main paths with launch counts:
   naming K1, losses equal to an unprofiled run); and the dispatcher's
   host time per K1 op call.
 
+- unet3d (a child process too; ``python3 chip_smoke.py --unet3d
+  <out.json>`` runs it alone): K1 at every GroupNorm shape of
+  ``UNet3D(1, 3)`` in order ``gcr`` (one channel in one group at the
+  input, the 192/384/768-channel concatenations; bf16, batch 8 of 96^3)
+  and at one channel a group (``configs/seg_tiny.yaml``'s 8 in 8, the
+  input in fp32), each against its plain version and bitwise repeatable;
+  the gcr model's forward (kernel vs plain, K1's share), one train step's
+  parity and the bench-style step at batch 8 through ``DevicePatchSampler``
+  (exact launches, patches/s, peak memory against the double branch of
+  ``unet_train_peak_bytes``, a falling loss); the ``cbr`` model's running
+  statistics (kernel vs plain path, remat 1 and all against 0, a guarded
+  non-finite step); both models served in eval mode through the
+  ``device`` and ``crop`` stitches; ``Trainer.fit`` of the cbr model from
+  Python with a checkpoint restored bit for bit; ``chip_memory_fit.py``'s
+  UNet3D points; ``train_seg -c configs/seg_tiny.yaml`` for 1 epoch.
+
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero without a result when CUDA is unavailable or the package is not
 beside it.
@@ -259,6 +275,28 @@ TOOLS_NII_DEMO = ("--size", "48", "--train", "2", "--val", "1", "--test", "1")
 # default, one short of the demo's 3 classes (ROADMAP §3)
 QUICK_CLASS_WEIGHTS = ("--loss_class_weight", "0.05", "1.0", "1.0")
 H100_BF16_FLOP_PER_S = 989e12   # dense, data sheet (SXM, 700 W)
+# UNet3D phase: UNet3D(1, 3) at its defaults (f_maps 64, 4 levels, order gcr:
+# a GroupNorm in front of each of its 14 convolutions) and the same model in
+# cbr (BatchNorm after each), bf16, batch 8 of 96^3
+U3_CLASSES, U3_BATCH, U3_PARAMS = 3, 8, 16_318_821
+# the gcr forward's GroupNorms: (channels, groups, extent, how many); the
+# input's one channel in one group, the decoders' concatenations at 768,
+# 384 and 192 channels
+U3_GN_SHAPES = ((1, 1, 96, 1), (32, 8, 96, 1), (64, 8, 48, 2), (128, 8, 24, 2),
+                (256, 8, 12, 2), (768, 8, 24, 1), (256, 8, 24, 1), (384, 8, 48, 1),
+                (128, 8, 48, 1), (192, 8, 96, 1), (64, 8, 96, 1))
+# one channel a group beyond the model: configs/seg_tiny.yaml's level 0 (8
+# channels in 8 groups, batch 1 of 64^3) in both dtypes, the C = 1 input in fp32
+U3_EXTRA_CASES = (("c8_g8_seg_tiny_bf16", 8, 8, 64, 1, "bf16"),
+                  ("c8_g8_seg_tiny_fp32", 8, 8, 64, 1, "fp32"),
+                  ("c1_g1_fp32", 1, 1, 96, 8, "fp32"))
+U3_WARMUP, U3_STEPS, U3_FIXED_STEPS, U3_BN_STEPS = 2, 6, 6, 3
+U3_VOLUME = (160, 160, 160)
+# the crop and device stitches run the same tiles in other batches: two bf16
+# ulps of a logit of 4-8 at least
+U3_TIE_FLOOR = 2.0 ** -5
+U3_TRAINER_PATCH, U3_TRAINER_BATCH, U3_TRAINER_SAMPLES = (96, 96, 96), 4, 5
+TINY_SHAPE = (64, 64, 64)
 
 
 def log(msg: str) -> None:
@@ -289,14 +327,21 @@ def bound_ms(nbytes: float, flops: float) -> float:
 @contextlib.contextmanager
 def plain_kernels(gn, P):
     """Route GroupNorm to its plain forward (differentiated by torch
-    autograd) and K2 to its plain version (comparisons only)."""
-    saved = (gn.group_norm, P.extract_patches)
+    autograd) and K2 to its plain version, also where the device sampler
+    cuts its stores (comparisons only)."""
+    def stores_plain(stores, corners, patch_size, subjects, out_dtypes=None):
+        dts = out_dtypes or [None] * len(stores)
+        return [P.extract_patches_plain(st, corners, patch_size, out_dtype=dt,
+                                        subjects=subjects) for st, dt in zip(stores, dts)]
+
+    saved = (gn.group_norm, P.extract_patches, P.extract_patches_stores)
     gn.group_norm = gn.group_norm_plain
     P.extract_patches = P.extract_patches_plain
+    P.extract_patches_stores = stores_plain
     try:
         yield
     finally:
-        gn.group_norm, P.extract_patches = saved
+        gn.group_norm, P.extract_patches, P.extract_patches_stores = saved
 
 
 def launch_counts(gn, P):
@@ -3671,6 +3716,627 @@ def deploy_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
     return dict(counts=counts, deploy=deploy)
 
 
+# -- the UNet3D phase --------------------------------------------------------------
+
+def u3_model(torch, dev, order, out_channels=U3_CLASSES):
+    """``UNet3D(1, out_channels)`` at its defaults in ``order``, bf16,
+    seeded weights."""
+    from tpu_mednet_torch.models import UNet3D
+
+    return UNet3D(1, out_channels, layer_order=order, dtype=torch.bfloat16, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+
+
+def check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt_name, reps=5):
+    """K1's four kernels at one GroupNorm shape of the ``gcr`` order (no
+    fused nonlinearity, no residual: the convolution follows the
+    GroupNorm): moments to rtol 1e-5, apply within one ulp, the backward
+    within ``backward_errors``' bounds, each bitwise equal from call to
+    call; device ms per call of each kernel beside its bound, its plain
+    version and the PyTorch call of the same function."""
+    import torch.nn.functional as F
+
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dt_name]
+    shape = (batch, e, e, e, c)
+    x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype).permute(0, 4, 1, 2, 3)
+    dy = torch.randn(shape, generator=gen, device=dev).to(dtype).permute(0, 4, 1, 2, 3)
+    w = torch.rand(c, generator=gen, device=dev) + 0.5
+    b = torch.rand(c, generator=gen, device=dev) - 0.5
+    tag = f"K1 C={c} groups={groups} {dt_name} {tuple(x.shape)}"
+    moments = lambda: gn.group_norm_moments(x, groups, w, 1e-5)
+    stats, again = moments(), moments()
+    plain = gn.group_norm_moments_plain(x, groups, w, 1e-5)
+    for got, ref in zip(stats, plain):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+    apply = lambda: gn.group_norm_apply(x, stats.mean, stats.mul, b)
+    y, y2 = apply(), apply()
+    y_p = gn.group_norm_apply_plain(x, stats.mean, stats.mul, b)
+    diff = (y.float() - y_p.float()).abs()
+    tol = torch.full_like(diff, 1e-5) if dtype == torch.float32 else bf16_ulp(y_p)
+    bwd = lambda: gn.group_norm_backward(x, dy, stats.mean, stats.rstd, w, b, groups)
+    grads, grads2 = bwd(), bwd()
+    errs, ok = backward_errors(torch, grads, gn.group_norm_backward_plain(
+        x, dy, stats.mean, stats.rstd, w, b, groups))
+    repeat = (all(torch.equal(u, v) for u, v in zip(stats, again)) and torch.equal(y, y2)
+              and all(u is None or torch.equal(u, v) for u, v in zip(grads, grads2)))
+    if not (bool((diff <= tol).all()) and ok and repeat):
+        raise AssertionError(f"{tag}: apply max|err| {float(diff.max())}, backward {errs}, "
+                             f"bitwise repeatable {repeat}")
+    m_err = max(float((u - v).abs().max()) for u, v in zip(stats, plain))
+    del again, y2, grads, grads2, plain, y_p, diff, tol
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = gn.plan_moments(batch, e**3, c, x.element_size(), x.data_ptr() % 16 == 0, sms)
+    n_el, esz = x.numel(), x.element_size()
+    t = {name: kernel_ms(torch, fn, name, reps=reps)[:2] for name, fn in (
+        ("gn_moments", moments), ("gn_apply", apply), ("gn_bwd_reduce", bwd),
+        ("gn_bwd_apply", bwd))}
+    small = 6 * batch * c * 4 + 2 * c * 4
+    out = dict(
+        c=c, groups=groups, extent=e, batch=batch, dtype=dt_name, bulk=plan.bulk,
+        blocks_per_sample=plan.blocks, moments_err=m_err, apply_err=float(
+            (y.float() - gn.group_norm_apply_plain(x, stats.mean, stats.mul, b).float())
+            .abs().max()), bwd_err=max(errs.values()),
+        moments_ms=t["gn_moments"][0], apply_ms=t["gn_apply"][0],
+        reduce_ms=t["gn_bwd_reduce"][0], bwd_apply_ms=t["gn_bwd_apply"][0],
+        kept=min(k for _, k in t.values()),
+        moments_bound=bound_ms(n_el * esz + 3 * batch * c * 4 + c * 4, 3 * n_el),
+        apply_bound=bound_ms(2 * n_el * esz + (2 * batch * c + c) * 4, 3 * n_el),
+        reduce_bound=bound_ms(2 * n_el * esz + small, 12 * n_el),
+        bwd_apply_bound=bound_ms(3 * n_el * esz + small, 14 * n_el),
+        moments_plain_ms=cuda_ms(lambda: gn.group_norm_moments_plain(x, groups, w, 1e-5),
+                                 reps=2, warmup=1),
+        apply_plain_ms=cuda_ms(lambda: gn.group_norm_apply_plain(x, stats.mean, stats.mul, b),
+                               reps=2, warmup=1),
+        bwd_plain_ms=cuda_ms(lambda: gn.group_norm_backward_plain(
+            x, dy, stats.mean, stats.rstd, w, b, groups), reps=2, warmup=1),
+        moments_library_ms=cuda_ms(lambda: torch.var_mean(x, dim=(2, 3, 4), correction=0),
+                                   reps=5),
+        library_ms=cuda_ms(lambda: F.group_norm(x, groups, w.to(dtype), b.to(dtype), 1e-5),
+                           reps=5))
+    xg = x.detach().requires_grad_()
+    wg = w.to(dtype, copy=True).requires_grad_()
+    bg = b.to(dtype, copy=True).requires_grad_()
+    yl = F.group_norm(xg, groups, wg, bg, 1e-5)
+    out["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(yl, (xg, wg, bg), dy,
+                                                                retain_graph=True),
+                                    reps=2, warmup=1)
+    log(f"{tag}: bulk={plan.bulk} {plan.blocks} blocks/sample; moments "
+        f"{out['moments_ms']:.4f} ms device (bound {out['moments_bound']:.4f}, plain "
+        f"{out['moments_plain_ms']:.4f}, torch.var_mean {out['moments_library_ms']:.4f}), apply "
+        f"{out['apply_ms']:.4f} (bound {out['apply_bound']:.4f}, plain "
+        f"{out['apply_plain_ms']:.4f}, F.group_norm {out['library_ms']:.4f}), backward reduce "
+        f"{out['reduce_ms']:.4f} (bound {out['reduce_bound']:.4f}) and apply "
+        f"{out['bwd_apply_ms']:.4f} (bound {out['bwd_apply_bound']:.4f}; plain "
+        f"{out['bwd_plain_ms']:.4f}, F.group_norm autograd {out['bwd_library_ms']:.4f}); "
+        f"profiler kept {out['kept']:g}; max|err| moments {m_err:.3g}, apply "
+        f"{out['apply_err']:.3g}, backward {out['bwd_err']:.3g}; bitwise repeatable")
+    return out
+
+
+def u3_gn(torch, gn, dev, gen):
+    """K1 at every GroupNorm shape of the ``gcr`` UNet3D's forward (bf16,
+    batch 8 of 96^3: C = 1 in one group, the 192/384/768-channel
+    concatenations), summed per forward and per step; then one channel a
+    group beyond it (``U3_EXTRA_CASES``)."""
+    cases = {}
+    keys = ("moments_ms", "apply_ms", "reduce_ms", "bwd_apply_ms", "moments_bound",
+            "apply_bound", "reduce_bound", "bwd_apply_bound", "moments_plain_ms",
+            "apply_plain_ms", "bwd_plain_ms", "moments_library_ms", "library_ms",
+            "bwd_library_ms")
+    per = dict.fromkeys(keys, 0.0)
+    per.update(kept=1.0, moments_err=0.0, apply_err=0.0, bwd_err=0.0)
+    for c, groups, e, count in U3_GN_SHAPES:
+        r = check_gn_case(torch, gn, dev, gen, c, groups, e, U3_BATCH, "bf16")
+        cases[f"c{c}_e{e}_bf16"] = r
+        for k in keys:
+            per[k] += count * r[k]
+        for k in ("moments_err", "apply_err", "bwd_err"):
+            per[k] = max(per[k], r[k])
+        per["kept"] = min(per["kept"], r["kept"])
+        torch.cuda.empty_cache()
+    n_gn = sum(n for *_, n in U3_GN_SHAPES)
+    log(f"K1 per gcr UNet3D bf16 forward of batch {U3_BATCH} ({n_gn} GroupNorms): moments "
+        f"{per['moments_ms']:.4f} ms device (bound {per['moments_bound']:.4f}), apply "
+        f"{per['apply_ms']:.4f} (bound {per['apply_bound']:.4f}); per step, backward reduce "
+        f"{per['reduce_ms']:.4f} (bound {per['reduce_bound']:.4f}), apply "
+        f"{per['bwd_apply_ms']:.4f} (bound {per['bwd_apply_bound']:.4f})")
+    for name, c, groups, e, batch, dt in U3_EXTRA_CASES:
+        cases[name] = check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt)
+    return dict(per_forward=per, cases=cases, n_gn=n_gn)
+
+
+def u3_parity(torch, gn, P, model, dev, gen):
+    """One bf16 train step's loss and gradients, kernel path against plain
+    path: the loss within ``PARITY_REL``, and every parameter's max |dg|
+    within it times the model's largest max |g| (the residual model's
+    check holds each against its own max; in the gcr order the input
+    side's gradients are cancelling sums, the one-channel GroupNorm's scale
+    3.5e-7 of the largest in fp32 and bf16 rounding noise at 1e-2 of it,
+    which no bound on its own scale can hold).  Each parameter's ratio to
+    its own max is printed beside it."""
+    from tpu_mednet_torch.tasks import SegmentationTask
+
+    x = torch.randn((PARITY_BATCH, 1, *PATCH), generator=gen, device=dev)
+    label = torch.zeros((PARITY_BATCH, 1, *PATCH), dtype=torch.uint8, device=dev)
+    label[:, :, 20:70, 30:80, 10:60] = 1
+    label[:, :, 70:90, 30:80, 10:60] = 2
+    x = x + label
+    task = SegmentationTask(model=model, loss="DICE")
+    model.train()
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = task.loss_fn(model(x), {"label": label})
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.float().clone()
+                                      for k, p in model.named_parameters()}
+
+    loss, g = grads()
+    with plain_kernels(gn, P):
+        loss_p, g_p = grads()
+    model.zero_grad(set_to_none=True)
+    top = max(float(v.abs().max()) for v in g_p.values())
+    diff = {k: float((g[k] - g_p[k]).abs().max()) for k in g}
+    own = {k: diff[k] / float(g_p[k].abs().max()) for k in g}
+    worst = max(diff, key=diff.get)
+    log(f"UNet3D gcr train parity bf16 batch {PARITY_BATCH}: loss kernel {loss:.6f} plain "
+        f"{loss_p:.6f}; max over {len(diff)} parameters of max|dg| / the largest max|g| "
+        f"({top:.3g}) {diff[worst] / top:.3g} ({worst}; bound {PARITY_REL['bf16']}); the "
+        "largest ratios to their own max|g| " + ", ".join(
+            f"{k} {own[k]:.3g}" for k in sorted(own, key=own.get)[-4:]))
+    if abs(loss - loss_p) > PARITY_REL["bf16"] or diff[worst] > PARITY_REL["bf16"] * top:
+        raise AssertionError("UNet3D train parity: kernel path disagrees with plain path")
+    return dict(loss=loss, loss_plain=loss_p, worst_param=worst, worst_rel=diff[worst] / top,
+                own_rel=own)
+
+
+def u3_forward(torch, gn, P, model, dev, gen, counts):
+    """The gcr model's bf16 forward of 8 x 96^3 in eval mode: kernel path
+    against plain path (logits within ``FWD_BF16_REL``, argmax apart only
+    inside the tie band), 14 moments and 14 apply launches, ms per forward
+    and K1's share of its device time."""
+    x = torch.randn((U3_BATCH, 1, *PATCH), generator=gen, device=dev)
+    model.eval()
+    with torch.inference_mode():
+        before = launch_counts(gn, P)
+        y = model(x)
+        add_counts(counts, before, launch_counts(gn, P))
+        per = {k: launch_counts(gn, P)[k] - before[k] for k in before}
+        want = dict(gn_moments=14, gn_apply=14, gn_bwd_reduce=0, gn_bwd_apply=0,
+                    gather_patches=0)
+        if per != want:
+            raise AssertionError(f"UNet3D forward launches {per}, expected {want}")
+        with plain_kernels(gn, P):
+            y_p = model(x)
+            t_plain = cuda_ms(lambda: model(x), reps=2, warmup=1)
+        t_fwd = cuda_ms(lambda: model(x), reps=5, warmup=1)
+        err = float((y - y_p).abs().max())
+        scale = float(y_p.abs().max())
+        top2 = y_p.topk(2, dim=1).values
+        margin = top2[:, 0] - top2[:, 1]
+        flips = y.argmax(dim=1) != y_p.argmax(dim=1)
+        outside = int((flips & (margin > 2 * err)).sum())
+        rows, kept = profile_kept(torch, gn, lambda: model(x), 2)
+    busy = sum(ms for ms, _, name in rows if not name.startswith(("Memcpy", "Memset")))
+    k1 = sum(ms for ms, _, name in rows if "gn_" in name)
+    conv = sum(ms for ms, _, name in rows if any(
+        t in name.lower() for t in ("conv", "xmma", "gemm", "cudnn", "cutlass")))
+    log(f"UNet3D gcr forward bf16 {tuple(y.shape)}: max|kernel - plain| {err:.3g} (bound "
+        f"{FWD_BF16_REL} x max|logit| {scale:.3g}); argmax flips {float(flips.float().mean()):.6f}"
+        f", outside the tie band {outside}; {t_fwd:.2f} ms per forward (plain path "
+        f"{t_plain:.2f}); device {busy:.3f} ms: K1 {k1:.3f} ({100 * k1 / max(busy, 1e-9):.1f}%),"
+        f" cuDNN {conv:.3f} ({100 * conv / max(busy, 1e-9):.1f}%); profiler kept {kept:g}")
+    if not (torch.isfinite(y).all() and err <= FWD_BF16_REL * scale and not outside):
+        raise AssertionError("UNet3D forward: kernel path disagrees with plain path")
+    return dict(fwd_ms=t_fwd, fwd_plain_ms=t_plain, err=err, device_ms=busy, k1_ms=k1,
+                cudnn_ms=conv, k1_share=k1 / max(busy, 1e-9), profiler_kept=kept)
+
+
+def add_counts(total, before, after):
+    for k in after:
+        total[k] = total.get(k, 0) + after[k] - before[k]
+
+
+def u3_training(torch, gn, P, dev, model, sampler, counts):
+    """The gcr model's bf16 train step (Dice, Adam 1e-3, mirror flips) at
+    batch 8 of 96^3 fed by ``DevicePatchSampler``: exact launches (14 of
+    each K1 kernel and one indexed K2 a step), patches/s, peak reserved
+    memory against the double branch of ``unet_train_peak_bytes``, device
+    time by group, and a falling loss on one fixed batch."""
+    from tpu_mednet_torch.ops.augment import AugmentConfig
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.train import create_train_state, make_train_step
+    from tpu_mednet_torch.utils import memory
+
+    task = SegmentationTask(model=model, loss="DICE")
+    n_params = sum(p.numel() for p in model.parameters())
+    state = create_train_state(model, learning_rate=1e-3, seed=0)
+    step = make_train_step(task, augment=AugmentConfig(mirror_axes=(1, 2, 3)))
+    feed = endless_batches(sampler, U3_BATCH)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(U3_WARMUP):
+        state, _ = step(state, next(feed))
+    before = launch_counts(gn, P)
+    state, step_ms, losses = timed_steps(torch, step, state, feed, U3_STEPS)
+    after = launch_counts(gn, P)
+    add_counts(counts, before, after)
+    per = {k: (after[k] - before[k]) / U3_STEPS for k in after}
+    want = dict(gn_moments=14, gn_apply=14, gn_bwd_reduce=14, gn_bwd_apply=14,
+                gather_patches=1)
+    reserved = torch.cuda.max_memory_reserved(dev)
+    est = memory.unet_train_peak_bytes(U3_BATCH, PATCH, model.config.feature_maps, 1,
+                                       U3_CLASSES, n_params, block="double", remat=False)
+    median = float(np.median(step_ms))
+    rows, kept = profile_kept(torch, gn, lambda: step(state, next(feed)), 2)
+    busy = sum(ms for ms, _, _ in rows)
+    groups = step_groups(rows)
+    fixed = next(feed)
+    plain_step = make_train_step(task)
+    fixed_losses = [float(plain_step(state, fixed)[1]["train_loss"])
+                    for _ in range(U3_FIXED_STEPS)]
+    log(f"UNet3D gcr training bf16 batch {U3_BATCH} of 96^3: steps "
+        f"{' '.join(f'{t:.2f}' for t in step_ms)} ms; median {median:.2f} ms = "
+        f"{U3_BATCH / median * 1e3:.2f} patches/s; launches per step {per}; "
+        f"max_memory_reserved {reserved / 2**30:.3f} GiB, unet_train_peak_bytes "
+        f"{est / 2**30:.3f} GiB (ratio {est / reserved:.3f}); losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}; device {busy:.3f} ms a step (profiler kept "
+        f"{kept:g}): " + ", ".join(f"{g} {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)"
+                                   for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
+        + f"; fixed batch {' '.join(f'{v:.4f}' for v in fixed_losses)}")
+    if per != want:
+        raise AssertionError(f"UNet3D training launches per step {per}, expected {want}")
+    if not (all(np.isfinite(losses + fixed_losses)) and fixed_losses[-1] < fixed_losses[0]):
+        raise AssertionError("UNet3D training: a non-finite loss, or the loss on a fixed "
+                             "batch did not fall")
+    if not MEMORY_RATIO[0] <= est / reserved <= MEMORY_RATIO[1]:
+        raise AssertionError(f"UNet3D training: estimate / reserved {est / reserved:.3f} "
+                             f"outside {list(MEMORY_RATIO)}")
+    return dict(patches_per_s=U3_BATCH / median * 1e3, step_ms=step_ms, losses=losses,
+                fixed_batch_losses=fixed_losses, max_memory_reserved=reserved, estimate=est,
+                ratio=est / reserved, device_ms_per_step=busy, groups=groups,
+                idle_share=idle_share(busy, median, kept), profiler_kept=kept,
+                launches_per_step=per)
+
+
+def u3_stats(model):
+    from tpu_mednet_torch.models.blocks import batch_stat_buffers
+
+    return [t.detach().clone() for t in batch_stat_buffers(model)]
+
+
+def u3_batchnorm(torch, gn, P, dev, counts):
+    """The ``cbr`` model at the same width, training steps of batch 8 of
+    96^3 (the device sampler's indexed K2 is the path's one kernel):
+    running statistics of the kernel path against the plain path (another
+    sampler of the same seed, cut by K2's plain version); remat 1 and all
+    against remat 0 under deterministic cuDNN (bit-equal after one step:
+    the recompute moves nothing; after three within the parity bound); a
+    forced non-finite step under the guard leaves them bit-equal."""
+    import dataclasses
+
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.train import create_train_state, make_train_step
+
+    def run(remat=False, plain=False, steps=U3_BN_STEPS):
+        model = u3_model(torch, dev, "cbr")
+        model.config = dataclasses.replace(model.config, remat=remat)
+        state = create_train_state(model, learning_rate=1e-3, seed=0)
+        step = make_train_step(SegmentationTask(model=model, loss="DICE"))
+        feed = endless_batches(seeded_train_sampler(dev), U3_BATCH)
+        stats, losses = [], []
+        with plain_kernels(gn, P) if plain else contextlib.nullcontext():
+            for _ in range(steps):
+                before = launch_counts(gn, P)
+                state, m = step(state, next(feed))
+                if not plain:
+                    add_counts(counts, before, launch_counts(gn, P))
+                losses.append(float(m["train_loss"]))
+                stats.append(u3_stats(model))
+        return model, state, stats, losses
+
+    def rel(a, b):
+        return max(float((u - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                   for u, v in zip(a, b))
+
+    model, state, stats, losses = run()
+    _, _, stats_p, losses_p = run(plain=True)
+    kernel_vs_plain = rel(stats[-1], stats_p[-1])
+    moved = max(float((u - v).abs().max())
+                for u, v in zip(stats[-1], u3_stats(u3_model(torch, dev, "cbr"))))
+    log(f"UNet3D cbr training bf16 batch {U3_BATCH}: losses {losses} (plain path {losses_p}); "
+        f"running statistics after {U3_BN_STEPS} steps, kernel path vs plain path max "
+        f"|diff| / max|plain| {kernel_vs_plain:.3g} (bound {PARITY_REL['bf16']}); max |moved| "
+        f"from their init {moved:.3g}")
+    if kernel_vs_plain > PARITY_REL["bf16"] or not moved > 0:
+        raise AssertionError("UNet3D cbr: running statistics of the kernel path disagree")
+    remat = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = run()[2]
+        for name, r in (("1", 1), ("all", True)):
+            got = run(remat=r)[2]
+            first = all(torch.equal(u, v) for u, v in zip(got[0], ref[0]))
+            last = all(torch.equal(u, v) for u, v in zip(got[-1], ref[-1]))
+            remat[name] = dict(first_step_bit_equal=first, last_step_bit_equal=last,
+                               last_rel=rel(got[-1], ref[-1]))
+            log(f"UNet3D cbr remat {name} vs 0 (deterministic cuDNN): running statistics "
+                f"bit-equal after step 1 {first}, after step {U3_BN_STEPS} {last} (max rel "
+                f"{remat[name]['last_rel']:.3g}, bound {PARITY_REL['bf16']})")
+            if not first or remat[name]["last_rel"] > PARITY_REL["bf16"]:
+                raise AssertionError(f"UNet3D cbr remat {name}: the running statistics "
+                                     "moved otherwise than at remat 0")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    guard_step = make_train_step(SegmentationTask(model=model, loss="DICE"),
+                                 guard_nonfinite=True)
+    bad = next(endless_batches(seeded_train_sampler(dev), U3_BATCH))
+    bad["data"][0, 0, 0, 0, 0] = float("nan")
+    before_stats, before_step = u3_stats(model), state.step
+    state, m = guard_step(state, bad)
+    held = all(torch.equal(u, v) for u, v in zip(u3_stats(model), before_stats))
+    log(f"UNet3D cbr non-finite guard: nonfinite {float(m['nonfinite'])}, step "
+        f"{before_step} -> {state.step}, running statistics bit-equal {held}")
+    if not (float(m["nonfinite"]) == 1.0 and state.step == before_step and held):
+        raise AssertionError("UNet3D cbr: a skipped step moved the running statistics")
+    return model, dict(losses=losses, losses_plain=losses_p, kernel_vs_plain=kernel_vs_plain,
+                       remat=remat, guard_held=held)
+
+
+def u3_serving(torch, gn, P, models, grid_corners, dev, counts):
+    """Both models in eval mode through ``predict_volumes_on_device``
+    (``device``) and ``predict_volumes`` (``crop``) at the
+    ``configs/predict.yaml`` geometry on two seeded 160^3 volumes: exact
+    launches, class maps of the two stitches apart only inside the tie band
+    (twice the kernel-vs-plain logit difference, at least ``U3_TIE_FLOOR``),
+    volumes/min, and the device stitch's peak reserved memory against the
+    HBM guard's estimate."""
+    from tpu_mednet_torch.data import MemoryReader
+    from tpu_mednet_torch.inference import predict_volumes, predict_volumes_on_device
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.utils import memory
+
+    rng = np.random.default_rng(3)
+    store, attrs = {"images": {}}, {"images": {}}
+    for key in ("u0", "u1"):
+        vol = rng.normal(0.0, 0.5, size=(1, *U3_VOLUME)).astype(np.float16)
+        vol[0, 40:100, 50:110, 30:90] += 2.0
+        store["images"][key] = vol
+        attrs["images"][key] = {"affine": np.eye(4)}
+    keys = list(store["images"])
+    kw = dict(patch_size=list(PATCH), patch_overlap=list(OVERLAP), batch_size=BATCH, device=dev)
+    # the device stitch batches each volume's tiles, the crop stitch the
+    # stream of both volumes' tiles
+    n_batches = dict(device=len(keys) * -(-n_tiles(U3_VOLUME) // BATCH),
+                     crop=-(-len(keys) * n_tiles(U3_VOLUME) // BATCH))
+    out = {}
+    for order, model in models.items():
+        task = SegmentationTask(model=model)
+        fns = {"device": lambda: predict_volumes_on_device(
+                   task, None, keys, reader=MemoryReader(store, attrs), **kw),
+               "crop": lambda: predict_volumes(task, None, keys,
+                                               reader=MemoryReader(store, attrs), **kw)}
+        res, walls = {}, {}
+        for stitch, fn in fns.items():
+            fn()  # warm-up
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = launch_counts(gn, P)
+            t0 = time.perf_counter()
+            res[stitch] = fn()
+            walls[stitch] = [time.perf_counter() - t0]
+            after = launch_counts(gn, P)
+            add_counts(counts, before, after)
+            if stitch == "device":
+                reserved = torch.cuda.max_memory_reserved(dev)
+            per = {k: after[k] - before[k] for k in after}
+            k1 = 14 * n_batches[stitch] if order == "gcr" else 0
+            want = dict(gn_moments=k1, gn_apply=k1, gn_bwd_reduce=0, gn_bwd_apply=0,
+                        gather_patches=n_batches[stitch] if stitch == "device" else 0)
+            if per != want:
+                raise AssertionError(f"UNet3D {order} {stitch}: launches {per}, expected {want}")
+            for _ in range(2):
+                before = launch_counts(gn, P)
+                t0 = time.perf_counter()
+                fn()
+                walls[stitch].append(time.perf_counter() - t0)
+                add_counts(counts, before, launch_counts(gn, P))
+        est, _ = memory.device_stitch_bytes(U3_VOLUME, PATCH, OVERLAP, BATCH, 1, 1,
+                                            model.config.feature_maps, stitch="device",
+                                            params_bytes=memory.param_bytes(model),
+                                            acc_channels=U3_CLASSES, block="double",
+                                            layer_order=order)
+        agreement = {}
+        for key in keys:
+            a, b = np.asarray(res["device"][key]), np.asarray(res["crop"][key])
+            if a.shape != (1, *U3_VOLUME) or a.dtype != np.uint8 or a.max() >= U3_CLASSES:
+                raise AssertionError(f"UNet3D {order} serving: bad mask {a.shape} {a.dtype}")
+            with torch.inference_mode():
+                margin, err = tie_band_margin(torch, gn, P, model, store["images"][key],
+                                              grid_corners, dev)
+            band = max(2 * err, U3_TIE_FLOOR)
+            flips = a[0] != b[0]
+            outside = int((flips & (margin > band)).sum())
+            agreement[key] = float(1 - flips.mean())
+            log(f"UNet3D {order} serving {key} {U3_VOLUME}: device and crop class maps "
+                f"differ on {flips.mean():.6f} of voxels, outside the tie band ({band:.3g}) on "
+                f"{outside}; max|kernel - plain| logit {err:.3g}")
+            if outside:
+                raise AssertionError(f"UNet3D {order} serving {key}: the stitches disagree "
+                                     "outside the tie band")
+        vpm = {s: len(keys) / float(np.median(w)) * 60.0 for s, w in walls.items()}
+        out[order] = dict(volumes_per_min=vpm, seconds=walls, agreement=agreement,
+                          device_reserved=reserved, guard_estimate=est,
+                          guard_ratio=est / reserved, n_batches=n_batches)
+        log(f"UNet3D {order} serving: volumes/min device {vpm['device']:.2f}, crop "
+            f"{vpm['crop']:.2f} ({len(keys)} volumes a call, 3 calls each); the device "
+            f"stitch's peak reserved {reserved / 2**30:.3f} GiB, the HBM guard's estimate "
+            f"of one volume {est / 2**30:.3f} GiB (ratio {est / reserved:.3f}; its fit, "
+            "chip_memory_fit.py --double-only, is of one volume alone in a process)")
+    return out
+
+
+def u3_trainer(torch, gn, P, dev, root, counts, serve_counts):
+    """``Trainer.fit`` of ``SegmentationTask(model=UNet3D(1, 5, "cbr"))``
+    from Python on the seeded organ store (host sampler, 96^3 patches,
+    batch 4, 2 epochs), a ``--resume``-style restore of its last checkpoint
+    into a fresh model (running statistics and weights bit-equal), and
+    ``predict_volumes_on_device`` from the restored model equal to the
+    trained model's."""
+    import json
+
+    from tpu_mednet_torch.data import PatchSampler, ZarrReader
+    from tpu_mednet_torch.inference import predict_volumes_on_device
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.train import CheckpointManager, Trainer, create_train_state
+
+    write_organ_store(root)
+    data = root / "organs.zarr"
+    sampler = lambda keys, seed, probs: PatchSampler(
+        data, keys, U3_TRAINER_SAMPLES, U3_TRAINER_PATCH, class_probabilities=probs, seed=seed)
+    model = u3_model(torch, dev, "cbr", ORGAN_CLASSES)
+    task = SegmentationTask(model=model, loss="DICE")
+    trainer = Trainer(task, sampler(ORGAN_SPLITS["train"], 0, [0.2] * ORGAN_CLASSES),
+                      val_sampler=sampler(ORGAN_SPLITS["val"], 1, None),
+                      batch_size=U3_TRAINER_BATCH, max_epochs=2, model_dir=str(root / "u3"),
+                      log_dir=str(root / "u3" / "logs"), log_every=1,
+                      hparams={"fmaps": list(model.config.feature_maps)})
+    before = launch_counts(gn, P)
+    t0 = time.perf_counter()
+    state = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    after = launch_counts(gn, P)
+    add_counts(counts, before, after)
+    records = [json.loads(line) for line in
+               (root / "u3" / "logs" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    val = [r["val_loss"] for r in records if "val_loss" in r]
+    fresh = u3_model(torch, dev, "cbr", ORGAN_CLASSES)
+    fresh.config = model.config
+    restored, _ = CheckpointManager(root / "u3").restore(create_train_state(fresh, seed=1))
+    a, b = model.state_dict(), restored.model.state_dict()
+    bit_equal = sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+    n_stats = sum(1 for k in a if "running_" in k)
+    test = ORGAN_SPLITS["test"]
+    kw = dict(patch_size=list(PATCH), patch_overlap=list(OVERLAP), batch_size=BATCH, device=dev)
+    before = launch_counts(gn, P)
+    masks = [predict_volumes_on_device(SegmentationTask(model=m), data, test, **kw)
+             for m in (model, restored.model)]
+    add_counts(serve_counts, before, launch_counts(gn, P))
+    with ZarrReader(data) as r:
+        labels = dict(zip(test, r.read(test, "labels", np.uint8)))
+    same = all(np.array_equal(np.asarray(masks[0][k]), np.asarray(masks[1][k])) for k in test)
+    dice = {k: [float(2 * ((np.asarray(masks[1][k])[0] == c) & (labels[k][0] == c)).sum()
+                      / max(1, (np.asarray(masks[1][k])[0] == c).sum()
+                            + (labels[k][0] == c).sum())) for c in range(1, ORGAN_CLASSES)]
+            for k in test}
+    per = {k: after[k] - before[k] for k in after}
+    log(f"UNet3D cbr Trainer.fit: {state.step} steps, 2 epochs in {fit_s:.2f} s; train losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}; val_loss {val}; launches {per}; restored "
+        f"state ({n_stats} running statistics) bit-equal {bit_equal}; masks from the restored "
+        f"model equal the trained model's {same}; Dice by class "
+        + "; ".join(f"{k} {' '.join(f'{d:.3f}' for d in v)}" for k, v in dice.items()))
+    steps = 2 * (len(ORGAN_SPLITS["train"]) * U3_TRAINER_SAMPLES // U3_TRAINER_BATCH)
+    if not (state.step == steps and bit_equal and same and n_stats == 28
+            and all(np.isfinite(losses + val))):
+        raise AssertionError("UNet3D Trainer: steps, restore or prediction failed")
+    return dict(steps=state.step, fit_seconds=fit_s, losses=losses, val_loss=val,
+                restored_bit_equal=bit_equal, masks_equal=same, dice=dice)
+
+
+def u3_seg_tiny(torch, gn, P, root, counts):
+    """``train_seg -c configs/seg_tiny.yaml`` (BASELINE config 1: f_maps 8,
+    so 8 channels in 8 groups at level 0) for 1 epoch through the CLI's
+    ``main(argv)`` on a seeded 64^3 store, the paths and the epoch count
+    overridden."""
+    from tpu_mednet_torch.cli import train_seg
+    from tpu_mednet_torch.data import zarrlite
+
+    rng = np.random.default_rng(4)
+    z = zarrlite.open(str(root / "tiny.zarr"), mode="w")
+    lbl = np.zeros(TINY_SHAPE, np.uint8)
+    lbl[16:44, 20:48, 12:40] = 1
+    img = (rng.normal(0.0, 0.5, size=TINY_SHAPE) + lbl).astype(np.float32)
+    z.require_group("images").create_dataset("t0", data=img[None], compressor=None)
+    z.require_group("labels").create_dataset("t0", data=lbl[None], compressor=None)
+    (root / "tiny.txt").write_text("t0\n")
+    argv = ["-c", str(HERE / "configs" / "seg_tiny.yaml"), "--data_path",
+            str(root / "tiny.zarr"), "--train_set", str(root / "tiny.txt"), "--val_set",
+            str(root / "tiny.txt"), "--model_dir", str(root / "tiny"), "--log_dir",
+            str(root / "tiny" / "logs"), "--max_epochs", "1"]
+    before = launch_counts(gn, P)
+    t0 = time.perf_counter()
+    rc = train_seg.main(argv)
+    seconds = time.perf_counter() - t0
+    after = launch_counts(gn, P)
+    add_counts(counts, before, after)
+    per = {k: after[k] - before[k] for k in after}
+    log(f"seg_tiny: train_seg rc {rc} in {seconds:.2f} s; launches {per}")
+    # 4 patches of the one subject at batch 1: 4 steps of 27 GroupNorms
+    if rc != 0 or per["gn_bwd_reduce"] != 4 * 27 or per["gn_moments"] < 4 * 27:
+        raise AssertionError(f"seg_tiny: rc {rc}, launches {per}")
+    return dict(seconds=seconds, launches=per)
+
+
+def unet3d_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
+    """The UNet3D family: K1 at its shapes, the gcr and cbr models at full
+    width trained and served, the Trainer from Python, the memory fit's
+    UNet3D points and configs/seg_tiny.yaml; launches of the main paths
+    counted from 0."""
+    import tempfile
+
+    import chip_memory_fit
+    from tpu_mednet_torch.utils import memory
+
+    log_clocks("unet3d")
+    t0 = time.perf_counter()
+    k1 = u3_gn(torch, gn, dev, gen)
+    torch.cuda.empty_cache()
+    reset_counts(gn, P)
+    # launches of the main paths: training (the device sampler's indexed K2)
+    # and serving (the device stitch's K2) apart
+    counts = dict.fromkeys(launch_counts(gn, P), 0)
+    serve_counts = dict(counts)
+    gcr = u3_model(torch, dev, "gcr")
+    n_params = sum(p.numel() for p in gcr.parameters())
+    log(f"UNet3D(1, {U3_CLASSES}) gcr parameters: {n_params}")
+    if n_params != U3_PARAMS:
+        raise AssertionError(f"expected {U3_PARAMS} parameters")
+    fwd = u3_forward(torch, gn, P, gcr, dev, gen, serve_counts)
+    parity = u3_parity(torch, gn, P, gcr, dev, gen)
+    train = u3_training(torch, gn, P, dev, gcr, seeded_train_sampler(dev), counts)
+    torch.cuda.empty_cache()
+    cbr, bn = u3_batchnorm(torch, gn, P, dev, counts)
+    torch.cuda.empty_cache()
+    serving = u3_serving(torch, gn, P, {"gcr": gcr, "cbr": cbr}, grid_corners, dev,
+                         serve_counts)
+    del gcr, cbr
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_unet3d_") as tmp:
+        trainer = u3_trainer(torch, gn, P, dev, Path(tmp), counts, serve_counts)
+        torch.cuda.empty_cache()
+        tiny = u3_seg_tiny(torch, gn, P, Path(tmp), counts)
+    torch.cuda.empty_cache()
+    fit = chip_memory_fit.train_fit(torch, dev, memory, double_only=True)
+    if not fit["ok"]:
+        raise AssertionError("UNet3D memory fit: a ratio outside [1, 1.3]")
+    seconds = time.perf_counter() - t0
+    total = {k: counts[k] + serve_counts[k] for k in counts}
+    log(f"unet3d: launches {total} (training {counts}, serving {serve_counts}); "
+        f"{seconds:.1f} s")
+    return dict(counts=total, gather_serving=serve_counts["gather_patches"],
+                gather_indexed=counts["gather_patches"], gn=k1, unet3d=dict(
+                    forward=fwd, parity=parity, training=train, batchnorm=bn, serving=serving,
+                    trainer=trainer, seg_tiny=tiny, memory_fit=fit["points"],
+                    seconds=seconds))
+
+
 def analytic_mfu(fwd, slice_, train) -> dict:
     """The analytic model FLOPs (``utils/flops.py``: 3x the forward's
     convolutions a train step) over the measured time, against the H100's
@@ -3749,7 +4415,7 @@ def main(argv) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     children = {"--landmarks": landmarks_phase, "--predict-surface": predict_surface_phase,
                 "--training-surface": training_surface_phase, "--tools": tools_phase,
-                "--deploy": deploy_phase}
+                "--deploy": deploy_phase, "--unet3d": unet3d_phase}
     if argv[:1] and argv[0] in children:  # a child of run_child
         _build.build()
         out = children[argv[0]](torch, gn, P, _grid_corners, dev, gen)
@@ -3835,27 +4501,59 @@ def main(argv) -> int:
     deploy_all = run_child("--deploy", "deploy")
     deploy_counts = deploy_all["counts"]
 
+    # 14. the UNet3D family (DoubleConv, concat join) and BatchNorm orders:
+    # K1 at its shapes, gcr and cbr trained and served at full width, the
+    # Trainer from Python, the memory fit's UNet3D points, seg_tiny.yaml
+    u3_all = run_child("--unet3d", "unet3d")
+    u3_counts = u3_all["counts"]
+
     def launches(name):
         by_path = dict(serving=counts[name], training=train_counts[name],
                        entry_points=entry_counts[name], landmarks=ldmk_counts[name],
                        predict_surface=surface_counts[name],
                        training_surface=training_counts[name], tools=tools_counts[name],
-                       deploy=deploy_counts[name])
+                       deploy=deploy_counts[name], unet3d=u3_counts[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
-    def gather_launches(path, entry, landmarks, surface, training_surface, tools, deploy=0):
+    def gather_launches(path, entry, landmarks, surface, training_surface, tools, deploy=0,
+                        unet3d=0):
         by_path = dict(serving=0, training=0, entry_points=entry, landmarks=landmarks,
                        predict_surface=surface, training_surface=training_surface, tools=tools,
-                       deploy=deploy)
+                       deploy=deploy, unet3d=unet3d)
         by_path[path] = counts["gather_patches"] if path == "serving" \
             else train_counts["gather_patches"]
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     b16, bwd = k1["bf16"], k1b["bf16"]
     l16, lbwd = k1_ldmk["bf16"], k1b_ldmk["bf16"]
+    # K1's UNet3D shapes: per gcr forward (moments, apply) or step (the
+    # backward), and the C = 1 input's own call
+    k1_keys = dict(gn_moments=("moments_ms", "moments_plain_ms", "moments_bound",
+                               "moments_library_ms", "moments_err"),
+                   gn_apply=("apply_ms", "apply_plain_ms", "apply_bound", "library_ms",
+                             "apply_err"),
+                   gn_bwd_reduce=("reduce_ms", "bwd_plain_ms", "reduce_bound",
+                                  "bwd_library_ms", "bwd_err"),
+                   gn_bwd_apply=("bwd_apply_ms", "bwd_plain_ms", "bwd_apply_bound",
+                                 "bwd_library_ms", "bwd_err"))
+
+    def u3_checks(name):
+        ms, plain, bound, lib, err = k1_keys[name]
+        step = name.startswith("gn_bwd")
+        n_gn = u3_all["gn"]["n_gn"]
+        row = lambda r, per: dict(ms=r[ms], plain_ms=r[plain], bound_ms=r[bound],
+                                  library_ms=r[lib], max_abs_err=r[err],
+                                  profiler_kept=r["kept"], per=per)
+        return dict(unet3d_check=row(u3_all["gn"]["per_forward"], (
+                        f"gcr UNet3D bf16 {'train step' if step else 'forward'} of batch "
+                        f"{U3_BATCH}, {n_gn} calls")),
+                    c1_check=row(u3_all["gn"]["cases"]["c1_e96_bf16"],
+                                 f"one call at C = 1 in one group (the gcr input), batch "
+                                 f"{U3_BATCH} of 96^3, bf16, the register route"))
     common = dict(route="cuda", bound_by="bytes", ok=True)
     kernels = [
         dict(name="gn_moments", source="tpu_mednet_torch/csrc/groupnorm.cu",
+             **u3_checks("gn_moments"),
              replaces="tpu_mednet/ops/pallas/groupnorm.py:94",
              **launches("gn_moments"), max_abs_err=b16["moments_err"],
              ms=b16["moments_ms"], event_ms=b16["moments_event_ms"],
@@ -3871,6 +4569,7 @@ def main(argv) -> int:
                                   per=f"f_maps-64 bf16 forward of batch {LDMK_BATCH}, 27 calls"),
              **common),
         dict(name="gn_apply", source="tpu_mednet_torch/csrc/groupnorm.cu",
+             **u3_checks("gn_apply"),
              replaces="tpu_mednet/ops/pallas/groupnorm.py:94",
              **launches("gn_apply"), max_abs_err=b16["apply_err"],
              ms=b16["apply_ms"], event_ms=b16["apply_event_ms"],
@@ -3889,7 +4588,7 @@ def main(argv) -> int:
              **gather_launches("serving", entry_k2["plain"], ldmk_k2["plain"],
                                surface_counts["gather_patches"], 0,
                                tools_counts["gather_patches"],
-                               deploy_counts["gather_patches"]),
+                               deploy_counts["gather_patches"], u3_all["gather_serving"]),
              max_abs_err=k2["err"],
              ms=k2["ms"], event_ms=k2["wrapper_ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound"], library_ms=None, profiler_kept=k2["kept"],
@@ -3898,6 +4597,7 @@ def main(argv) -> int:
              per="one batch of 8 tiles of 96^3, f16 -> bf16",
              brats_check=surface_k2["brats_check"], **common),
         dict(name="gn_bwd_reduce", source="tpu_mednet_torch/csrc/groupnorm.cu",
+             **u3_checks("gn_bwd_reduce"),
              replaces="tpu_mednet/ops/pallas/groupnorm.py:149-175 (custom VJP of the "
                       "kernel at :94) with the normalize chain's autodiff",
              **launches("gn_bwd_reduce"), max_abs_err=bwd["err"],
@@ -3915,6 +4615,7 @@ def main(argv) -> int:
                                       "27 calls"),
              **common),
         dict(name="gn_bwd_apply", source="tpu_mednet_torch/csrc/groupnorm.cu",
+             **u3_checks("gn_bwd_apply"),
              replaces="tpu_mednet/ops/pallas/groupnorm.py:149-175 (custom VJP of the "
                       "kernel at :94) with the normalize chain's autodiff",
              **launches("gn_bwd_apply"), max_abs_err=bwd["err"],
@@ -3935,7 +4636,8 @@ def main(argv) -> int:
              replaces="tpu_mednet/ops/pallas/patches.py:95 (and the sampler's gather, "
                       "tpu_mednet/data/device_sampler.py:171-190)",
              **gather_launches("training", entry_k2["indexed"], ldmk_k2["indexed"], 0,
-                               training_counts["gather_patches"], 0),
+                               training_counts["gather_patches"], 0, 0,
+                               u3_all["gather_indexed"]),
              max_abs_err=k2i["err"],
              ms=k2i["ms"], plain_ms=k2i["plain_ms"], bound_ms=k2i["bound"],
              profiler_kept=k2i["kept"], per_store=k2i["per_store"], copy_ms=k2i["copy_ms"],
@@ -3993,6 +4695,17 @@ def main(argv) -> int:
         profile={k: deploy["profile"][k] for k in ("file", "k1_kernels", "train_step_spans")},
         dispatcher_us=deploy["dispatcher_us"], launches=deploy_counts,
         seconds=deploy["seconds"])}))
+    u3 = u3_all["unet3d"]
+    log(json.dumps({"unet3d": u3, "gn_cases": u3_all["gn"]["cases"]}))
+    log(json.dumps({"unet3d_summary": dict(
+        forward_ms=u3["forward"]["fwd_ms"], k1_share=u3["forward"]["k1_share"],
+        patches_per_s=u3["training"]["patches_per_s"],
+        train_reserved_gib=u3["training"]["max_memory_reserved"] / 2**30,
+        train_estimate_ratio=u3["training"]["ratio"],
+        volumes_per_min={k: v["volumes_per_min"] for k, v in u3["serving"].items()},
+        guard_ratio={k: v["guard_ratio"] for k, v in u3["serving"].items()},
+        memory_fit_ratios=[round(pt["ratio"], 4) for pt in u3["memory_fit"]],
+        launches=u3_counts, seconds=u3["seconds"])}))
     log(json.dumps({"mfu": mfu}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -79,6 +79,16 @@ _MOMENT_CASES = {
     # group; fp32 rows of 4096 B fill all 256 consumers, 4 rows a stage
     "c1024-fp32": ((4, 1024, 6, 6, 6), torch.float32, 0, 8, True),
     "c1024-bf16": ((4, 1024, 6, 6, 6), torch.bfloat16, 0, 8, True),
+    # UNet3D's input GroupNorm (order gcr): one channel in one group, rows
+    # of 2 or 4 bytes on the register route, every thread on the channel
+    "c1-g1-bf16": ((2, 1, 12, 12, 12), torch.bfloat16, 0, 1, False),
+    "c1-g1-fp32": ((2, 1, 12, 12, 12), torch.float32, 0, 1, False),
+    "c1-g1-many-blocks": ((2, 1, 64, 64, 64), torch.bfloat16, 0, 1, False),
+    # configs/seg_tiny.yaml's 8 channels in 8 groups: one channel a group
+    "c8-g8-bf16": ((2, 8, 10, 12, 14), torch.bfloat16, 0, 8, True),
+    "c8-g8-fp32": ((2, 8, 10, 12, 14), torch.float32, 0, 8, True),
+    # UNet3D's deepest concatenation: 768 bf16 channels, 1536-byte rows
+    "c768-concat-bf16": ((2, 768, 6, 6, 6), torch.bfloat16, 0, 8, True),
 }
 
 
@@ -114,6 +124,41 @@ def test_gn_moments_kernel_is_deterministic(cuda_device):
     for u, v in zip(first, second):
         assert torch.equal(u, v)
     assert int(gn._TICKETS[a.device].abs().sum()) == 0
+
+
+# (shape, dtype, groups): the apply kernel's scalar and vector routes at
+# one channel a group and at UNet3D's concatenations
+_APPLY_CASES = {
+    "c1-g1-bf16": ((2, 1, 12, 12, 12), torch.bfloat16, 1),
+    "c1-g1-fp32": ((2, 1, 12, 12, 12), torch.float32, 1),
+    "c8-g8-bf16": ((2, 8, 10, 12, 14), torch.bfloat16, 8),
+    "c8-g8-fp32": ((2, 8, 10, 12, 14), torch.float32, 8),
+    "c192-concat-bf16": ((2, 192, 8, 8, 8), torch.bfloat16, 8),
+    "c768-concat-bf16": ((2, 768, 6, 6, 6), torch.bfloat16, 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("act", [None, "r"])
+@pytest.mark.parametrize("case", list(_APPLY_CASES))
+def test_gn_apply_kernel_matches_plain_on_card(cuda_device, case, act, residual):
+    shape, dtype, groups = _APPLY_CASES[case]
+    x = _activation(shape, dtype, cuda_device, 21)
+    r = _activation(shape, dtype, cuda_device, 22) if residual else None
+    c = shape[1]
+    g = torch.Generator().manual_seed(23)
+    w = (torch.rand(c, generator=g) + 0.5).to(cuda_device)
+    b = (torch.rand(c, generator=g) - 0.5).to(cuda_device)
+    mean, mul, _ = gn.group_norm_moments_plain(x, groups, w, 1e-5)
+    launched = gn.APPLY_LAUNCHES
+    y = gn.group_norm_apply(x, mean, mul, b, residual=r, act=act)
+    assert gn.APPLY_LAUNCHES == launched + 1
+    y_p = gn.group_norm_apply_plain(x, mean, mul, b, residual=r, act=act)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
+    else:
+        assert bool(((y.float() - y_p.float()).abs() <= _bf16_ulp(y_p.float())).all())
 
 
 # K2 cases: (volume shape, volume dtype, patch, corners) with corners
@@ -187,6 +232,12 @@ _BWD_CASES = {
     "many-blocks": ((2, 32, 40, 40, 40), torch.bfloat16, 0, 8),
     "c1024-fp32": ((4, 1024, 6, 6, 6), torch.float32, 0, 8),
     "c1024-bf16": ((4, 1024, 6, 6, 6), torch.bfloat16, 0, 8),
+    "c1-g1-bf16": ((2, 1, 12, 12, 12), torch.bfloat16, 0, 1),
+    "c1-g1-fp32": ((2, 1, 12, 12, 12), torch.float32, 0, 1),
+    "c1-g1-many-blocks": ((2, 1, 64, 64, 64), torch.bfloat16, 0, 1),
+    "c8-g8-bf16": ((2, 8, 10, 12, 14), torch.bfloat16, 0, 8),
+    "c8-g8-fp32": ((2, 8, 10, 12, 14), torch.float32, 0, 8),
+    "c768-concat-bf16": ((2, 768, 6, 6, 6), torch.bfloat16, 0, 8),
 }
 
 

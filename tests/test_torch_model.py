@@ -116,14 +116,21 @@ def test_validate_order(order, match):
 
 
 def test_group_count_and_unported_options():
+    """BatchNorm orders and the double family are ported (``tests/test_torch_batchnorm.py``,
+    ``tests/test_torch_unet3d.py``); the TPU's packed layout is not, and an
+    unknown family is refused."""
     assert blocks.group_count(4, 8) == 1
     assert blocks.group_count(32, 8) == 8
     with pytest.raises(ValueError):
         blocks.group_count(12, 8)
-    with pytest.raises(NotImplementedError):
-        blocks.ConvLayer(4, 8, order="cbr", device="cpu")
-    with pytest.raises(NotImplementedError):
-        TorchUNet3DBase(TorchUNetConfig(1, 2, block="double"), device="cpu")
+    assert isinstance(blocks.ConvLayer(4, 8, order="cbr", device="cpu").batchnorm,
+                      blocks.BatchNorm)
+    assert TorchUNet3DBase(TorchUNetConfig(1, 2, f_maps=4, num_levels=2, block="double"),
+                           device="cpu").config.block == "double"
+    with pytest.raises(ValueError, match="block must be"):
+        TorchUNet3DBase(TorchUNetConfig(1, 2, block="triple"), device="cpu")
+    with pytest.raises(TypeError):
+        TorchUNetConfig(1, 2, packed=True)
 
 
 @pytest.mark.parametrize("order", ["cge", "cgr", "gcr", "crg"])

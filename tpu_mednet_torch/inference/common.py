@@ -179,7 +179,8 @@ def budget_split(task, shapes, subject_keys, patch_size, patch_overlap, batch_si
             cfg.in_channels, getattr(task, "num_heatmaps", 0) + 1, cfg.feature_maps,
             stitch=stitch, dtype_bytes=torch.finfo(cfg.dtype).bits // 8,
             params_bytes=params_b, n_tta=n_tta, budget_bytes=hbm_budget, guard=hbm_guard,
-            acc_channels=cfg.out_channels, device=device)
+            acc_channels=cfg.out_channels, device=device, block=cfg.block,
+            layer_order=cfg.layer_order)
         (fit if ok else spill).append(key)
     return fit, spill
 
@@ -216,6 +217,7 @@ def predict_on_device(
     """
     dev = resolve_device(device)
     check_model_device(task, dev)
+    task.model.eval()  # BatchNorm on its running statistics
     out_c = getattr(task, "num_heatmaps", 0) + 1
     owns = reader is None
     r = reader if reader is not None else open_reader(data_path, reader_cls)

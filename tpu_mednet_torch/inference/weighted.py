@@ -165,6 +165,7 @@ def predict_volumes_weighted(
     average (heatmap channels averaged, then clipped to 0..255)."""
     dev = resolve_device(device)
     check_model_device(task, dev)
+    task.model.eval()  # BatchNorm on its running statistics
     num_heatmaps = getattr(task, "num_heatmaps", 0)
     sampler = GridPatchSampler(data_path, subject_keys, patch_size, patch_overlap,
                                out_channels=num_heatmaps + 1, image_group=image_group,

@@ -1,10 +1,13 @@
-"""Models of the port: the residual 3D U-Net and its blocks."""
+"""Models of the port: the 3D U-Net family (residual and UNet3D) and its blocks."""
 
+from tpu_mednet_torch.models.blocks import DoubleConv, FinalConv
 from tpu_mednet_torch.models.unet import (
     ResidualUNet3D,
+    UNet3D,
     UNet3DBase,
     UNetConfig,
     create_feature_maps,
 )
 
-__all__ = ["ResidualUNet3D", "UNet3DBase", "UNetConfig", "create_feature_maps"]
+__all__ = ["DoubleConv", "FinalConv", "ResidualUNet3D", "UNet3D", "UNet3DBase", "UNetConfig",
+           "create_feature_maps"]

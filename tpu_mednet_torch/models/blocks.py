@@ -1,25 +1,32 @@
-"""3D U-Net building blocks (residual family) as ``nn.Module``s.
+"""3D U-Net building blocks as ``nn.Module``s.
 
 Counterpart of ``tpu_mednet/models/blocks.py``: the order-string DSL,
-``ConvLayer``, ``ExtResNetBlock``, ``EncoderStage`` and the residual-join
-``DecoderStage``.  Modules take logical (N, C, D, H, W) tensors stored
-``channels_last_3d``.  Parameters are fp32; the forward computes in the
-stage's ``dtype`` (bf16 by default), as the flax modules do.
+``ConvLayer`` (GroupNorm ``g`` or BatchNorm ``b``), ``DoubleConv``,
+``ExtResNetBlock``, ``EncoderStage``, ``DecoderStage`` with either join
+(nearest resize + concatenation for ``double``, transposed conv + sum for
+``residual``) and ``FinalConv``.  Modules take logical (N, C, D, H, W)
+tensors stored ``channels_last_3d``.  Parameters are fp32; the forward
+computes in the stage's ``dtype`` (bf16 by default), as the flax modules
+do.
 
 Module names equal the torch reference's (``conv``, ``groupnorm``,
-``basic_module``, ``upsample``), so a reference state dict strict-loads
+``batchnorm``, ``basic_module``, ``SingleConv1``/``SingleConv2``,
+``upsample``), so a reference state dict strict-loads
 (``tpu_mednet/utils/torch_import.py:28-37``).
 
 Every ``g`` runs through K1 (``ops/groupnorm.py``), forward and backward;
 a nonlinearity right after ``g`` fuses into K1's apply kernel, and in
 ``ExtResNetBlock`` conv3's GroupNorm also takes the residual add and the
-final nonlinearity.  Conv,
-transposed conv and pooling go to ``torch.nn.functional`` (cuDNN), as the
-JAX package left them to XLA.
+final nonlinearity.  Conv, transposed conv, pooling, the nearest resize
+and BatchNorm's normalization go to ``torch.nn.functional`` (cuDNN), as
+the JAX package left them to XLA; BatchNorm's running statistics follow
+flax's update (``BatchNorm``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import List, Optional, Tuple
 
 import torch
@@ -96,15 +103,92 @@ class GroupNorm(nn.Module):
                              self.eps, residual=residual, act=act)
 
 
+_RECOMPUTE = threading.local()
+
+
+def batch_stats_frozen() -> bool:
+    """True inside ``freeze_batch_stats`` on this thread."""
+    return getattr(_RECOMPUTE, "frozen", False)
+
+
+@contextlib.contextmanager
+def freeze_batch_stats():
+    """BatchNorms in training mode leave their running statistics alone on
+    this thread: the backward's recompute of a rematerialized stage runs
+    under it, so a step moves them once, as JAX's ``nn.remat`` does."""
+    prev = batch_stats_frozen()
+    _RECOMPUTE.frozen = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.frozen = prev
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over (N, D, H, W)
+    with the torch reference's names (``weight``, ``bias``,
+    ``running_mean``, ``running_var``, ``num_batches_tracked``).
+
+    Training mode normalizes by the batch's statistics (``F.batch_norm``,
+    biased variance) and moves the running ones by flax's rule, which is
+    not ``nn.BatchNorm3d``'s: ``r = 0.9 r + 0.1 s`` with the *biased* batch
+    variance (torch's update takes the unbiased one).  The batch statistics
+    come out of the same ``F.batch_norm`` call, as its running buffers at
+    momentum 1; the unbiased variance is rescaled by (n - 1) / n.  Eval
+    mode normalizes by the running statistics.  ``num_batches_tracked``
+    exists for strict loading only: flax keeps no count and the momentum
+    is fixed, so it stays 0 and a loaded count is dropped, as the JAX
+    package's import drops it.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9,
+                 device=None):
+        super().__init__()
+        self.num_features = num_features
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("running_mean", torch.zeros(num_features, device=device))
+        self.register_buffer("running_var", torch.ones(num_features, device=device))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long, device=device))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+        self.num_batches_tracked.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                             self.bias, False, 0.0, self.eps)
+            return y.contiguous(memory_format=CL3D)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        if not batch_stats_frozen():
+            n = x.numel() // x.shape[1]
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
+        return y.contiguous(memory_format=CL3D)
+
+
+def batch_stat_buffers(model: nn.Module) -> List[torch.Tensor]:
+    """Every BatchNorm's running mean and variance in ``model``."""
+    return [t for m in model.modules() if isinstance(m, BatchNorm)
+            for t in (m.running_mean, m.running_var)]
+
+
 class ConvLayer(nn.Module):
     """One conv 'layer' described by an order string (e.g. ``'cge'``).
 
     The reference's ``SingleConv``/``create_conv`` (components.py:12-90): a
-    3D convolution composed, in order, with an optional GroupNorm and a
-    nonlinearity.  The conv carries a bias only when no norm is present
-    (components.py:43); a norm before the conv normalizes the input
-    channels, after it the output channels.  BatchNorm (``b``) is not
-    ported yet.
+    3D convolution composed, in order, with an optional GroupNorm or
+    BatchNorm and a nonlinearity.  The conv carries a bias only when no
+    norm is present (components.py:43); a norm before the conv normalizes
+    the input channels, after it the output channels.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
@@ -112,19 +196,18 @@ class ConvLayer(nn.Module):
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         validate_order(order)
-        if "b" in order:
-            raise NotImplementedError("BatchNorm orders ('b') are not ported yet")
-        if any(order.count(ch) > 1 for ch in "cg"):
+        if any(order.count(ch) > 1 for ch in "cgb"):
             raise ValueError(f"order {order!r} repeats a conv or norm")
         self.dtype = dtype
         self.padding = padding
-        # plan: ('c', None) | ('g', fused act or None) | ('a', act)
+        norm = "g" in order or "b" in order
+        # plan: ('c', None) | ('g', fused act or None) | ('b', None) | ('a', act)
         plan: List[Tuple[str, Optional[str]]] = []
         channels = in_channels
         for char in order:
             if char == "c":
                 self.conv = nn.Conv3d(in_channels, out_channels, kernel_size,
-                                      padding=padding, bias="g" not in order,
+                                      padding=padding, bias=not norm,
                                       device=device)
                 channels = out_channels
                 plan.append(("c", None))
@@ -132,6 +215,9 @@ class ConvLayer(nn.Module):
                 self.groupnorm = GroupNorm(group_count(channels, num_groups),
                                            channels, device=device)
                 plan.append(("g", None))
+            elif char == "b":
+                self.batchnorm = BatchNorm(channels, device=device)
+                plan.append(("b", None))
             elif plan[-1] == ("g", None):
                 plan[-1] = ("g", char)
             else:
@@ -151,11 +237,35 @@ class ConvLayer(nn.Module):
                 if fuse_tail and i == len(self.plan) - 1:
                     return self.groupnorm(x, residual=residual, act=post_act)
                 x = self.groupnorm(x, act=act)
+            elif op == "b":
+                x = self.batchnorm(x)
             else:
                 x = gn.activation_plain(x, act)
         if residual is not None:
             x = x + residual
         return gn.activation_plain(x, post_act)
+
+
+class DoubleConv(nn.Module):
+    """Two consecutive ``ConvLayer``s, ``SingleConv1`` and ``SingleConv2``.
+
+    Reference semantics (components.py:93-133): on the encoder path the
+    first conv goes to ``max(out_channels // 2, in_channels)`` features; on
+    the decoder path both convs output ``out_channels``.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, encoder: bool,
+                 kernel_size: int = 3, order: str = "crg", num_groups: int = 8,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        mid = max(out_channels // 2, in_channels) if encoder else out_channels
+        common = dict(kernel_size=kernel_size, order=order, num_groups=num_groups,
+                      dtype=dtype, device=device)
+        self.SingleConv1 = ConvLayer(in_channels, mid, **common)
+        self.SingleConv2 = ConvLayer(mid, out_channels, **common)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.SingleConv2(self.SingleConv1(x))
 
 
 def _strip_nonlinearity(order: str) -> str:
@@ -169,10 +279,12 @@ class ExtResNetBlock(nn.Module):
     and its output is the residual; conv2 keeps the full order; conv3 has the
     nonlinearity stripped (it is applied after the residual add); the final
     nonlinearity is LeakyReLU if 'l' in order, ELU if 'e', else ReLU.
+    ``encoder`` exists for call-signature parity with ``DoubleConv`` and
+    changes nothing (components.py:146).
     """
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 order: str = "cge", num_groups: int = 8,
+    def __init__(self, in_channels: int, out_channels: int, encoder: bool = True,
+                 kernel_size: int = 3, order: str = "cge", num_groups: int = 8,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         common = dict(kernel_size=kernel_size, num_groups=num_groups,
@@ -187,6 +299,9 @@ class ExtResNetBlock(nn.Module):
         residual = self.conv1(x)
         out = self.conv2(residual)
         return self.conv3(out, residual=residual, post_act=self.post_act)
+
+
+BLOCKS = {"double": DoubleConv, "residual": ExtResNetBlock}
 
 
 def pool3d(x: torch.Tensor, window: Tuple[int, int, int], pool_type: str) -> torch.Tensor:
@@ -205,13 +320,13 @@ class EncoderStage(nn.Module):
     components.py:183-226)."""
 
     def __init__(self, in_channels: int, out_channels: int, apply_pooling: bool = True,
-                 pool_type: str = "max", order: str = "cge", num_groups: int = 8,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 pool_type: str = "max", block: str = "residual", order: str = "cge",
+                 num_groups: int = 8, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.apply_pooling = apply_pooling
         self.pool_type = pool_type
-        self.basic_module = ExtResNetBlock(
-            in_channels, out_channels, order=order, num_groups=num_groups,
+        self.basic_module = BLOCKS[block](
+            in_channels, out_channels, encoder=True, order=order, num_groups=num_groups,
             dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -220,30 +335,73 @@ class EncoderStage(nn.Module):
         return self.basic_module(x)
 
 
-class DecoderStage(nn.Module):
-    """Transposed-conv upsample + summation join + basic block.
+def resize_nearest(x: torch.Tensor, spatial: Tuple[int, ...]) -> torch.Tensor:
+    """Nearest resize of the spatial dims with half-pixel centres:
+    ``jax.image.resize(..., "nearest")``, which is torch's ``nearest-exact``
+    (``nearest`` floors ``i * in / out`` instead, and differs wherever the
+    ratio is not an integer)."""
+    return F.interpolate(x, size=tuple(spatial), mode="nearest-exact")
 
-    The reference ``Decoder``'s residual join (components.py:259-266,
-    281-284): ``ConvTranspose3d(k=3, stride=2, padding=1, output_padding=1)``
-    doubles the spatial extent, then the encoder feature is added.
+
+class DecoderStage(nn.Module):
+    """Upsample + join + basic block, with the reference ``Decoder``'s two
+    joins (components.py:229-287):
+
+    - ``double``: the deeper feature resized (nearest) to the encoder
+      feature's extent, then the channel concatenation ``[encoder, x]``;
+      the block takes ``out_channels + in_channels`` channels;
+    - ``residual``: ``ConvTranspose3d(k=3, stride=2, padding=1,
+      output_padding=1)`` doubles the extent, then the encoder feature is
+      added.
     """
 
-    def __init__(self, in_channels: int, out_channels: int, order: str = "cge",
-                 num_groups: int = 8, dtype: torch.dtype = torch.float32,
-                 device=None):
+    def __init__(self, in_channels: int, out_channels: int, block: str = "residual",
+                 order: str = "cge", num_groups: int = 8,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
-        self.upsample = nn.ConvTranspose3d(
-            in_channels, out_channels, 3, stride=2, padding=1,
-            output_padding=1, device=device)
-        self.basic_module = ExtResNetBlock(
-            out_channels, out_channels, order=order,
+        self.block = block
+        if block == "residual":
+            self.upsample = nn.ConvTranspose3d(
+                in_channels, out_channels, 3, stride=2, padding=1,
+                output_padding=1, device=device)
+            block_in = out_channels
+        else:
+            block_in = out_channels + in_channels
+        self.basic_module = BLOCKS[block](
+            block_in, out_channels, encoder=False, order=order,
             num_groups=num_groups, dtype=dtype, device=device)
 
     def forward(self, encoder_features: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        up = self.upsample
-        x = F.conv_transpose3d(x, _conv_weight(up.weight, self.dtype),
-                               _cast(up.bias, self.dtype), stride=2, padding=1,
-                               output_padding=1)
-        x = (x + encoder_features).contiguous(memory_format=CL3D)
-        return self.basic_module(x)
+        if self.block == "double":
+            x = resize_nearest(x, encoder_features.shape[2:])
+            x = torch.cat([encoder_features, x], dim=1)
+        else:
+            up = self.upsample
+            x = F.conv_transpose3d(x, _conv_weight(up.weight, self.dtype),
+                                   _cast(up.bias, self.dtype), stride=2, padding=1,
+                                   output_padding=1)
+            x = x + encoder_features
+        return self.basic_module(x.contiguous(memory_format=CL3D))
+
+
+class FinalConv(nn.Module):
+    """A ``ConvLayer`` that keeps the channel count, then a 1x1x1
+    projection (reference ``FinalConv``, components.py:290-316; the stock
+    U-Nets use a bare 1x1x1 conv instead).  Names follow the JAX package's
+    (``conv``, ``final_conv``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 order: str = "crg", num_groups: int = 8,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = ConvLayer(in_channels, in_channels, kernel_size, order=order,
+                              num_groups=num_groups, dtype=dtype, device=device)
+        self.final_conv = nn.Conv3d(in_channels, out_channels, 1, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        y = F.conv3d(x, _conv_weight(self.final_conv.weight, self.dtype),
+                     _cast(self.final_conv.bias, self.dtype))
+        return y.contiguous(memory_format=CL3D)

@@ -1,10 +1,15 @@
-"""Configurable 3D U-Net, residual family, as an ``nn.Module``.
+"""Configurable 3D U-Net family as an ``nn.Module``.
 
-Counterpart of ``tpu_mednet/models/unet.py:36-329`` for
-``ResidualUNet3D`` (reference model.py:113-213): 5 levels from 32 feature
-maps, ``ExtResNetBlock``s, transposed-conv + summation decoder, a 1x1x1
-head.  Input and output are logical (N, C, X, Y, Z) tensors stored
-``channels_last_3d``.
+Counterpart of ``tpu_mednet/models/unet.py:36-329``, both reference
+networks (model.py:11-213):
+
+- ``UNet3D``: 4 levels from 64 feature maps, ``DoubleConv`` blocks,
+  nearest-resize + concatenation decoder (model.py:11-110);
+- ``ResidualUNet3D``: 5 levels from 32 feature maps, ``ExtResNetBlock``s,
+  transposed-conv + summation decoder (model.py:113-213);
+
+each with a 1x1x1 head.  Input and output are logical (N, C, X, Y, Z)
+tensors stored ``channels_last_3d``.
 
 Dtype policy (as the JAX package): fp32 parameters, compute in the config's
 dtype (bf16 by default), the head's logits cast to fp32.  Parameters start
@@ -14,12 +19,15 @@ from torch's layer defaults — the JAX package's ``'torch'`` init scheme
 ``remat`` recomputes the chosen stages' activations in the backward
 (``torch.utils.checkpoint``), as JAX's ``nn.remat`` does; JAX keeps the
 GroupNorm statistics across it, the port recomputes them with the stage.
-Not ported yet: the ``double``/UNet3D family and ``packed`` (a TPU layout
-with the same parameters and math).
+A BatchNorm's running statistics move in the forward only: the recompute
+runs under ``freeze_batch_stats``, as JAX's remat updates ``batch_stats``
+once.  Not ported: ``packed`` (a TPU layout with the same parameters and
+math).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Sequence, Tuple, Union
@@ -31,11 +39,14 @@ from torch.utils.checkpoint import checkpoint
 
 from tpu_mednet_torch._device import DeviceLike, resolve_device
 from tpu_mednet_torch.models.blocks import (
+    BLOCKS,
+    BatchNorm,
     DecoderStage,
     EncoderStage,
     GroupNorm,
     _cast,
     _conv_weight,
+    freeze_batch_stats,
 )
 
 CL3D = torch.channels_last_3d
@@ -93,20 +104,20 @@ class UNet3DBase(nn.Module):
     The encoder stack collects per-level features; the decoder consumes them
     in reverse, skipping the deepest (model.py:189-205).  A 1x1x1 conv head
     gives per-voxel logits (model.py:207); sigmoid/softmax only with
-    ``testing=True`` (model.py:211-212).
+    ``testing=True`` (model.py:211-212).  ``config.block`` is ``double``
+    (UNet3D) or ``residual`` (ResidualUNet3D).
     """
 
     def __init__(self, config: UNetConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.block != "residual":
-            raise NotImplementedError(
-                f"block {config.block!r}: only the residual family is ported")
+        if config.block not in BLOCKS:
+            raise ValueError(f"block must be one of {sorted(BLOCKS)}, got {config.block!r}")
         dev = resolve_device(device)
         self.config = config
         f_maps = config.feature_maps
-        common = dict(order=config.layer_order, num_groups=config.num_groups,
-                      dtype=config.dtype, device=dev)
+        common = dict(block=config.block, order=config.layer_order,
+                      num_groups=config.num_groups, dtype=config.dtype, device=dev)
         self.encoders = nn.ModuleList(
             EncoderStage(config.in_channels if i == 0 else f_maps[i - 1], out_ch,
                          apply_pooling=i > 0, pool_type=config.pool_type, **common)
@@ -123,10 +134,11 @@ class UNet3DBase(nn.Module):
     def forward(self, x: torch.Tensor, testing: bool = False) -> torch.Tensor:
         cfg = self.config
         # the sum join needs every pooled extent to double back exactly
-        # through the stride-2 transposed conv (unet.py:107-116)
+        # through the stride-2 transposed conv (unet.py:107-116); the
+        # concat join resizes to the skip's extent and needs nothing
         div = 2 ** (len(cfg.feature_maps) - 1)
         spatial = tuple(int(s) for s in x.shape[2:])
-        if any(s % div for s in spatial):
+        if cfg.block == "residual" and any(s % div for s in spatial):
             raise ValueError(
                 f"spatial extents {spatial} must be divisible by {div} "
                 f"(= 2^(num_levels-1)) for the {len(cfg.feature_maps)}-level "
@@ -151,11 +163,18 @@ class UNet3DBase(nn.Module):
         return x
 
 
+def _recompute_contexts():
+    """(forward, recompute) contexts of a rematerialized stage: the
+    recompute leaves BatchNorm's running statistics alone."""
+    return contextlib.nullcontext(), freeze_batch_stats()
+
+
 def _run(stage: nn.Module, remat: bool, *args: torch.Tensor) -> torch.Tensor:
     """``stage(*args)``; with ``remat``, the backward recomputes the stage's
     activations from its inputs instead of keeping them."""
     if remat:
-        return checkpoint(stage, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(stage, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=_recompute_contexts)
     return stage(*args)
 
 
@@ -164,8 +183,9 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> None:
     """Redraw every parameter with torch's layer-default distribution from
     ``generator`` (a CPU generator, so a seed gives the same weights on any
     device): conv and transposed-conv weight and bias U(-b, b) with
-    b = 1/sqrt(fan_in) (kaiming_uniform(a=sqrt(5))), GroupNorm weight 1 and
-    bias 0."""
+    b = 1/sqrt(fan_in) (kaiming_uniform(a=sqrt(5))), GroupNorm and
+    BatchNorm weight 1 and bias 0, BatchNorm's running mean 0 and variance
+    1 (flax's initial ``batch_stats``)."""
     for module in model.modules():
         if isinstance(module, (nn.Conv3d, nn.ConvTranspose3d)):
             # torch's fan_in is dim 1 of the weight times the kernel volume
@@ -176,9 +196,41 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> None:
                 if p is not None:
                     draw = torch.empty(p.shape, dtype=torch.float32)
                     p.copy_(draw.uniform_(-bound, bound, generator=generator))
-        elif isinstance(module, GroupNorm):
+        elif isinstance(module, (GroupNorm, BatchNorm)):
             module.weight.fill_(1.0)
             module.bias.fill_(0.0)
+            if isinstance(module, BatchNorm):
+                module.running_mean.fill_(0.0)
+                module.running_var.fill_(1.0)
+
+
+def UNet3D(
+    in_channels: int,
+    out_channels: int,
+    final_sigmoid: bool = False,
+    f_maps: Union[int, Sequence[int]] = 64,
+    layer_order: str = "gcr",
+    num_groups: int = 8,
+    dtype: torch.dtype = torch.bfloat16,
+    num_levels: int = 4,
+    device: DeviceLike = None,
+    generator: Optional[torch.Generator] = None,
+) -> UNet3DBase:
+    """Vanilla 4-level 3D U-Net (reference model.py:11-110): ``DoubleConv``
+    blocks and the nearest-resize + concatenation join.  ``remat`` is set
+    through ``UNetConfig``, as in the JAX package."""
+    cfg = UNetConfig(
+        in_channels=in_channels,
+        out_channels=out_channels,
+        f_maps=f_maps,
+        num_levels=num_levels,
+        block="double",
+        layer_order=layer_order,
+        num_groups=num_groups,
+        final_sigmoid=final_sigmoid,
+        dtype=dtype,
+    )
+    return UNet3DBase(cfg, device=device, generator=generator)
 
 
 def ResidualUNet3D(

@@ -3,9 +3,11 @@
 Counterpart of ``tpu_mednet/train/checkpoint.py`` (orbax, which is
 JAX-only).  A checkpoint is a directory ``<dir>/<step>/`` holding
 
-- ``model.pt``: ``torch.save`` of the weights under the reference's key
-  names (what ``utils/weights.py`` produces from the JAX tree), and the fp32
-  EMA weights under the same names where EMA is on;
+- ``model.pt``: ``torch.save`` of the model's state dict under the
+  reference's key names (what ``utils/weights.py`` produces from the JAX
+  tree: the weights and BatchNorm's running statistics), and the fp32 EMA
+  weights under the same names where EMA is on (parameters only, as
+  JAX's ``ema_params``);
 - ``train_state.pt``: the optimizer's ``state_dict`` (moments, and the
   live LR), the update count, the accumulation counter and buffers, the
   augmentation generator's state and the step;
@@ -196,7 +198,10 @@ def load_for_inference(path, step: Optional[int] = None, use_ema: bool = True
     JAX package's ``save_reference_checkpoint`` writes: a ``state_dict``
     under the same key names and its ``hparams`` as an
     ``argparse.Namespace``, which is allowed through ``weights_only``
-    loading and nothing else is.  Returns ``(state_dict, hparams)``.
+    loading and nothing else is.  Returns ``(state_dict, hparams)``; the
+    EMA weights come with the model's buffers (BatchNorm's running
+    statistics), as JAX's ``load_for_inference`` returns ``ema_params``
+    with ``batch_stats``.
     """
     p = Path(str(path))
     if p.is_file():
@@ -216,5 +221,5 @@ def load_for_inference(path, step: Optional[int] = None, use_ema: bool = True
     if use_ema and weights["ema"] is not None:
         logger.info("using EMA weights from %s (ema_decay=%s)", path,
                     (hp or {}).get("ema_decay"))
-        return weights["ema"], hp
+        return {**weights["params"], **weights["ema"]}, hp
     return weights["params"], hp

@@ -13,6 +13,10 @@ nothing.
 jit with ``lax.cond``; the port computes the same finite flag on the
 device and reads it on the host once per step, which only this option
 pays for.
+
+BatchNorm's running statistics (JAX's ``batch_stats``) move in the
+forward, on every micro-step, as JAX's ``apply_gradients(batch_stats=...)``
+moves them; a step the guard skips puts them back.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from tpu_mednet_torch.models.blocks import batch_stat_buffers
 from tpu_mednet_torch.ops.augment import AugmentConfig, apply_augmentations
 from tpu_mednet_torch.train.optim import clip_by_global_norm_, global_norm
 from tpu_mednet_torch.train.state import TrainState
@@ -86,8 +91,8 @@ def make_train_step(task, augment: Optional[AugmentConfig] = None,
     pre-clip global L2 norm of this micro-batch's gradients.
     ``guard_nonfinite`` adds ``nonfinite`` (0/1) and, where the loss or any
     gradient is non-finite, skips the optimizer, the EMA, accumulation and
-    the step count; the augmentation draws have advanced the generator
-    either way.
+    the step count, and restores BatchNorm's running statistics; the
+    augmentation draws have advanced the generator either way.
     """
     if ema_decay and not (0.0 < ema_decay < 1.0):
         raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
@@ -102,6 +107,8 @@ def make_train_step(task, augment: Optional[AugmentConfig] = None,
         label = batch["label"]
         if augment is not None:
             data, label = apply_augmentations(data, augment, state.generator, label=label)
+        stats = batch_stat_buffers(model) if guard_nonfinite else []
+        saved = [t.clone() for t in stats]
         outputs = model(data)
         loss, aux = task.loss_fn(outputs, {"data": data, "label": label})
         state.optimizer.zero_grad(set_to_none=True)
@@ -115,6 +122,8 @@ def make_train_step(task, augment: Optional[AugmentConfig] = None,
             finite = all_finite(loss, [p.grad for p in state.params])
             metrics["nonfinite"] = (~finite).float()
             if not bool(finite):  # the guard's host read
+                if stats:
+                    torch._foreach_copy_(stats, saved)
                 return state, metrics
         apply_gradients(state, ema_decay, norm)
         return state, metrics
@@ -130,10 +139,11 @@ def _forward(model, data: torch.Tensor, weights: Optional[Dict[str, torch.Tensor
 
 def make_eval_step(task, use_ema: bool = False
                    ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
-    """The validation step: ``state.model``'s forward without gradients
-    (on ``state.ema`` with ``use_ema`` where the state has one), then the
-    task's ``val_metrics`` (``val_loss``, ``val_dice{c}``) as device
-    tensors."""
+    """The validation step: ``state.model``'s forward in eval mode without
+    gradients (on ``state.ema`` with ``use_ema`` where the state has one;
+    the EMA covers the parameters, and BatchNorm uses the model's running
+    statistics, as JAX's does), then the task's ``val_metrics``
+    (``val_loss``, ``val_dice{c}``) as device tensors."""
 
     def step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         model = state.model

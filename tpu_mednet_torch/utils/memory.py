@@ -41,6 +41,16 @@ measured), n_tta 1 at 192^3, 320^3, 512^3, then n_tta 8 at the same:
     in 4, 4 classes, gaussian  4.410 (1.114) 5.410 (1.099) 8.281 (1.179)
                                4.410 (1.234) 5.410 (1.197) 8.703 (1.183)
 
+The double family (``UNet3D(1, 3)`` at its defaults, f_maps 64, bf16, the
+same geometry; ``chip_memory_fit.py --double-only``, alone in a process)
+peaks at 11.729-12.477 GiB reserved in order ``gcr`` and 8.553-9.301 GiB
+in ``cbr`` over one volume of 192^3 and 320^3 (n_tta 1) and 192^3 (n_tta
+8) on both stitches: the 192-channel concatenation at full resolution, and
+for ``gcr`` its normalized copy, which the residual family's working set
+does not hold.  ``JOIN_INFER_UNITS`` and ``NORM_FIRST_UNITS`` are the
+centre of the window that keeps those twelve points in [1, 1.3] (1.111 to
+1.190, 11 % from each end).
+
 Two 192^3 volumes in one call peak as one does (the pipeline's pending
 uint8 result is small).  The constants are the centre of the window that
 keeps every point's ratio in [1, 1.3] (margin 1.3 % each side: the
@@ -67,6 +77,22 @@ in the same process:
                        batch 32             38.301 (1.208) 29.756 (1.077) 23.004 (1.188)
     seg_brats_bf16, batch 2 of 128^3        6.043 (1.217)  4.621 (1.135)
     landmarks (f_maps 64), batch 4 of 96^3  11.229 (1.186) 9.082 (1.075)
+
+UNet3D (``block="double"``: f_maps 64, 4 levels, order ``gcr``, 1 -> 3,
+16,318,821 parameters), batch 4, 8 and 16 of 96^3 alone in a process
+(``chip_memory_fit.py --double-only``), GiB reserved (estimate / measured)
+at remat 0 and 1:
+
+    batch 4     8.932 (1.159)   8.508 (1.160)
+    batch 8    17.721 (1.156)  16.982 (1.150)
+    batch 16   35.334 (1.154)  34.068 (1.140)
+
+Remat 1 saves 4 % there (the peak is in the full-resolution decoder's
+backward, where the 192-channel concatenation, the resized 128-channel
+feature and their gradients are live whether or not the stage is
+recomputed), so JAX's stored-activation factor overstates remat 0:
+``DOUBLE_OVERHEAD`` and ``JOIN_UNITS`` are the centre of the window that
+keeps those six points in [1, 1.3], 14 % from each end.
 
 The allocator's reserved peak moves with what ran before in the process
 (alone, the batch-32 points read 38.309, 28.439 and 23.795 GiB).  The
@@ -97,6 +123,13 @@ GiB = float(1 << 30)
 # module docstring)
 INFER_WORK_UNITS = 7.56
 
+# full-resolution concatenations (f[0] + f[1] channels) that the double
+# family's forward holds beyond the residual family's working set, and the
+# more where the order normalizes before it convolves (fit on the card,
+# module docstring)
+JOIN_INFER_UNITS = 0.69
+NORM_FIRST_UNITS = 1.39
+
 # fp32 patch batches at the model's output width that the Gaussian stitch
 # holds beside the forward: the activations, their weighted copy and the
 # allocator's cached blocks around them (fit on the card, module docstring)
@@ -109,6 +142,14 @@ GAUSSIAN_WORK_UNITS = 4.0
 TRAIN_OVERHEAD = 1.25
 GN_F32_UNITS = 0.0
 TRAIN_WORK_UNITS = 13.5
+# the double family (fit on the card, module docstring): the factor on its
+# stored activations (TRAIN_OVERHEAD's place) and on its concat-join
+# temporaries (the resized deeper feature and the concatenation at each
+# decoder's output level), which JAX counts once outside its factor.  Its
+# peak falls in the full-resolution decoder's backward, where the join's
+# temporaries and their gradients are live, not at the end of the forward
+DOUBLE_OVERHEAD = 0.24
+JOIN_UNITS = 1.26
 
 # fp32 patch batches at the model's output width that mirror TTA keeps
 # live beside the forward: the running sum, a flipped activation and its
@@ -131,15 +172,29 @@ def _unit_bytes(batch: int, patch: Sequence[int], level: int, channels: int,
     return float(batch) * vox * channels * dtype_bytes
 
 
+def norm_before_conv(order: str) -> bool:
+    """Whether an order string normalizes before it convolves (``gcr``):
+    the conv's input is then materialized a second time, normalized."""
+    norms = [order.index(ch) for ch in "gb" if ch in order]
+    return bool(norms) and min(norms) < order.index("c")
+
+
 def unet_infer_peak_bytes(batch: int, patch: Sequence[int],
-                          feature_maps: Sequence[int], dtype_bytes: int = 2) -> int:
+                          feature_maps: Sequence[int], dtype_bytes: int = 2,
+                          block: str = "residual", layer_order: str = "cge") -> int:
     """Working set of one inference forward: the encoder skip features stay
     live until their decoder joins, plus ``INFER_WORK_UNITS`` units at the
-    widest level."""
+    widest level; the double family adds ``JOIN_INFER_UNITS``
+    concatenations at full resolution (``f[0] + f[1]`` channels), and
+    ``NORM_FIRST_UNITS`` more where the order normalizes before it
+    convolves (``norm_before_conv``: the concatenation normalized)."""
     f = list(feature_maps)
     skips = sum(_unit_bytes(batch, patch, lvl, c, dtype_bytes)
                 for lvl, c in enumerate(f[:-1]))
     work = INFER_WORK_UNITS * _unit_bytes(batch, patch, 0, f[0], dtype_bytes)
+    if block == "double":
+        joins = JOIN_INFER_UNITS + (NORM_FIRST_UNITS if norm_before_conv(layer_order) else 0)
+        work += joins * _unit_bytes(batch, patch, 0, f[0] + f[1], dtype_bytes)
     return int(skips + work)
 
 
@@ -148,30 +203,38 @@ def unet_train_peak_bytes(batch: int, patch: Sequence[int], feature_maps: Sequen
                           dtype_bytes: int = 2, block: str = "residual",
                           remat: Union[bool, int] = 1) -> int:
     """Peak device bytes of one train step (forward, backward, Adam) of the
-    residual U-Net, ``tpu_mednet/utils/memory.py:124-196``'s structure.
+    U-Net, ``tpu_mednet/utils/memory.py:124-196``'s structure.
 
     Stored for the backward: every stage's input; a stage that is not
     recomputed (``remat``, ``models/unet.py``) also its conv outputs (3 per
-    residual stage) and, at full resolution, ``GN_F32_UNITS`` fp32 units
-    per conv; a recomputed decoder stage its previous stage's output.  Plus
-    the fp32 logits and the loss's copy of them.  Those activation bytes
-    are scaled by ``TRAIN_OVERHEAD``; ``TRAIN_WORK_UNITS`` full-resolution
-    units cover what the backward holds beside them (the gradients, and
-    the recomputed stage); parameters take ``12 + dtype_bytes`` bytes each.
+    residual stage, 2 per ``double`` stage) and, at full resolution,
+    ``GN_F32_UNITS`` fp32 units per conv; a recomputed decoder stage its
+    previous stage's output; for ``double``, every encoder skip until its
+    decoder's concatenation takes it.  Plus the fp32 logits and the loss's
+    copy of them.  Those activation bytes are scaled by ``TRAIN_OVERHEAD``
+    (``DOUBLE_OVERHEAD`` for ``double``); ``TRAIN_WORK_UNITS``
+    full-resolution units cover what the backward holds beside them (the
+    gradients, and the recomputed stage); for ``double``, each decoder's
+    join temporaries at its output level (the resized deeper feature and
+    the concatenation), ``JOIN_UNITS`` times, stand outside the factor;
+    parameters take ``12 + dtype_bytes`` bytes each.  With JAX's constants
+    (both factors ``XLA_OVERHEAD``, ``GN_F32_UNITS`` 2, ``JOIN_UNITS`` 1,
+    no work units) it is JAX's estimate.
     """
-    if block != "residual":
-        raise NotImplementedError(
-            f"block {block!r}: only the residual family is ported (ROADMAP §1, "
-            "'the double/UNet3D family')")
+    if block not in ("residual", "double"):
+        raise ValueError(f"block must be 'residual' or 'double', got {block!r}")
     f = list(feature_maps)
     n_levels = len(f)
-    convs = 3
+    convs = 3 if block == "residual" else 2
     remat_k = n_levels if remat is True else int(remat)
     act = 0.0
+    join_raw = 0.0
     # encoder stage i consumes the level-(i-1) output and produces level i
     for i, c in enumerate(f):
         act += _unit_bytes(batch, patch, max(i - 1, 0), f[i - 1], dtype_bytes) \
             if i else _unit_bytes(batch, patch, 0, in_channels, dtype_bytes)
+        if block == "double" and i < n_levels - 1:
+            act += _unit_bytes(batch, patch, i, c, dtype_bytes)
         if i >= remat_k:
             act += convs * _unit_bytes(batch, patch, i, c, dtype_bytes)
             if i == 0:
@@ -179,6 +242,9 @@ def unet_train_peak_bytes(batch: int, patch: Sequence[int], feature_maps: Sequen
     # decoder stage j outputs at level n_levels - 2 - j
     for j in range(n_levels - 1):
         out_lvl = n_levels - 2 - j
+        if block == "double":
+            join_raw += _unit_bytes(batch, patch, out_lvl, f[out_lvl] + 2 * f[out_lvl + 1],
+                                    dtype_bytes)
         if out_lvl >= remat_k:
             act += (convs + 1) * _unit_bytes(batch, patch, out_lvl, f[out_lvl], dtype_bytes)
             if out_lvl == 0:
@@ -188,7 +254,8 @@ def unet_train_peak_bytes(batch: int, patch: Sequence[int], feature_maps: Sequen
     act += 2 * _unit_bytes(batch, patch, 0, out_channels, 4)
     work = TRAIN_WORK_UNITS * _unit_bytes(batch, patch, 0, f[0], dtype_bytes)
     params = n_params * (12 + dtype_bytes)
-    return int(act * TRAIN_OVERHEAD + work + params)
+    overhead = TRAIN_OVERHEAD if block == "residual" else DOUBLE_OVERHEAD
+    return int(act * overhead + work + JOIN_UNITS * join_raw + params)
 
 
 def _padded_extent(img_size, patch_size, overlap) -> np.ndarray:
@@ -215,6 +282,8 @@ def device_stitch_bytes(
     params_bytes: int = 0,
     n_tta: int = 1,
     acc_channels: Optional[int] = None,
+    block: str = "residual",
+    layer_order: str = "cge",
 ) -> Tuple[int, Dict[str, int]]:
     """Estimated device bytes of one volume on an on-device stitch.
 
@@ -229,7 +298,8 @@ def device_stitch_bytes(
       fp32 weight accumulator instead of the padded result.
 
     ``acc_channels`` (default ``out_channels``) also sizes the TTA term,
-    whose running sum is the model's output width.
+    whose running sum is the model's output width.  ``block`` and
+    ``layer_order`` are the model's (``unet_infer_peak_bytes``).
     """
     if acc_channels is None:
         acc_channels = out_channels
@@ -245,7 +315,8 @@ def device_stitch_bytes(
     patch_vox = float(np.prod(np.asarray(patch_size, dtype=np.float64)))
     acc_unit = batch_size * patch_vox * acc_channels * 4
     fwd = batch_size * patch_vox * in_channels * dtype_bytes + 2 * acc_unit
-    fwd += unet_infer_peak_bytes(batch_size, patch_size, feature_maps, dtype_bytes)
+    fwd += unet_infer_peak_bytes(batch_size, patch_size, feature_maps, dtype_bytes,
+                                 block, layer_order)
     if stitch == "gaussian":
         fwd += GAUSSIAN_WORK_UNITS * acc_unit
     if n_tta > 1:
@@ -309,6 +380,8 @@ def check_stitch_budget(
     guard: str = "error",
     acc_channels: Optional[int] = None,
     device=None,
+    block: str = "residual",
+    layer_order: str = "cge",
 ) -> bool:
     """True when the volume fits the on-device stitch.
 
@@ -324,7 +397,7 @@ def check_stitch_budget(
     total, breakdown = device_stitch_bytes(
         img_size, patch_size, patch_overlap, batch_size, in_channels, out_channels,
         feature_maps, stitch=stitch, dtype_bytes=dtype_bytes, params_bytes=params_bytes,
-        n_tta=n_tta, acc_channels=acc_channels)
+        n_tta=n_tta, acc_channels=acc_channels, block=block, layer_order=layer_order)
     if total <= budget:
         return True
     detail = ", ".join(f"{k}={v / GiB:.2f}G" for k, v in breakdown.items())

@@ -36,12 +36,14 @@ def save_reference_checkpoint(
 ) -> None:
     """Write a pytorch-lightning-style ``.ckpt`` the reference can load.
 
-    The dict carries ``state_dict`` (fp32 CPU tensors), the hparams as an
-    ``argparse.Namespace`` (what PL 0.9 restores into ``self.hparams``,
-    ``segmentation.py:33``) without ``PORT_ONLY_HPARAMS``, and
-    ``global_step``/``epoch``.
+    The dict carries ``state_dict`` (CPU tensors: floating ones in fp32,
+    BatchNorm's ``num_batches_tracked`` int64 as torch keeps it), the
+    hparams as an ``argparse.Namespace`` (what PL 0.9 restores into
+    ``self.hparams``, ``segmentation.py:33``) without ``PORT_ONLY_HPARAMS``,
+    and ``global_step``/``epoch``.
     """
-    sd = {k: v.detach().to("cpu", torch.float32).clone() for k, v in state_dict.items()}
+    sd = {k: v.detach().to("cpu", torch.float32 if v.is_floating_point() else v.dtype).clone()
+          for k, v in state_dict.items()}
     hp = {k: v for k, v in (hparams or {}).items() if k not in PORT_ONLY_HPARAMS}
     # the reference expects an int fmaps for its 5-level net but takes
     # per-level lists (model.py:148-150): whatever was stored is kept
