@@ -296,6 +296,19 @@ U3_VOLUME = (160, 160, 160)
 # ulps of a logit of 4-8 at least
 U3_TIE_FLOOR = 2.0 ** -5
 U3_TRAINER_PATCH, U3_TRAINER_BATCH, U3_TRAINER_SAMPLES = (96, 96, 96), 4, 5
+# Device ms of K1's two apply kernels in their grid-stride design (one
+# vector a thread, coefficients read per element), before the channel-owned
+# walk (PERF.md section 6, profiled on an NVIDIA H100 80GB HBM3 at 700 W),
+# printed beside this run's for comparison, never a gate: the apply per
+# forward and the backward's apply per step, keyed by (dtype, batch, level-0
+# channels, extent); per gcr UNet3D forward and step; per UNet3D shape
+# (channels, extent) at batch 8, bf16: (apply, backward apply)
+GRID_STRIDE_APPLY_SUMS = {("bf16", 8, 32, 96): 3.992, ("bf16", 4, 64, 96): 4.054}
+GRID_STRIDE_BWD_APPLY_SUMS = {("bf16", 32, 32, 96): 19.098, ("bf16", 4, 64, 96): 5.319}
+GRID_STRIDE_U3_SUMS = (6.171, 11.283)
+GRID_STRIDE_U3_APPLY = {(192, 96): (3.25, 6.24), (384, 48): (1.05, 2.05),
+                        (768, 24): (0.27, 0.51), (256, 24): (0.091, None),
+                        (1, 96): (0.0382, 0.0467)}
 TINY_SHAPE = (64, 64, 64)
 
 
@@ -539,6 +552,7 @@ def check_gn(torch, gn, dev, gen, levels=LEVELS, batch=BATCH, dtypes=("bf16", "f
             esz = x.element_size()
             n_el = x.numel()
             plan = gn.plan_moments(batch, e**3, c, esz, x.data_ptr() % 16 == 0, sms)
+            route = gn.plan_apply(batch, e**3, c, esz, x.data_ptr() % 16 == 0, sms).route
             # one gn_moments launch a call and nothing else (the first design of
             # the statistics side launched 14); a record the profiler dropped reads below 1
             t_m, kept_m, rows = kernel_ms(torch, moments, "gn_moments")
@@ -569,7 +583,8 @@ def check_gn(torch, gn, dev, gen, levels=LEVELS, batch=BATCH, dtypes=("bf16", "f
                 f"event {t_me:.4f}; plain {t_mp:.4f}, bound {b_m:.4f}, torch.var_mean "
                 f"{t_sl:.4f}), {launches:g} launch per GroupNorm, bulk={plan.bulk} "
                 f"{plan.blocks} blocks/sample, max|err| {m_err:.3g}, two calls bitwise "
-                f"equal; apply+elu {t_a:.4f} ms device (event {t_ae:.4f}; plain {t_ap:.4f}, "
+                f"equal; apply ({route} route) +elu {t_a:.4f} ms device (event {t_ae:.4f}; "
+                f"plain {t_ap:.4f}, "
                 f"bound {b_a:.4f}), apply+res+elu {t_ar:.4f} (event {t_are:.4f}; plain "
                 f"{t_arp:.4f}, bound {b_ar:.4f}), max|err| {max(errs):.3g}; "
                 f"F.group_norm+F.elu {t_lib:.4f} ms")
@@ -590,11 +605,13 @@ def check_gn(torch, gn, dev, gen, levels=LEVELS, batch=BATCH, dtypes=("bf16", "f
             tot["moments_kept"] = min(tot["moments_kept"], kept_m)
             tot["apply_kept"] = min(tot["apply_kept"], kept_a, kept_ar)
             del x, r
+        before = GRID_STRIDE_APPLY_SUMS.get((dt_name, batch, *levels[0][:2]), "not recorded")
         log(f"K1 {dt_name} per full-width forward (27 GroupNorms): moments "
             f"{tot['moments_ms']:.4f} ms device (event {tot['moments_event_ms']:.4f}; "
             f"bound {tot['moments_bound']:.4f}, torch.var_mean "
             f"{tot['moments_library_ms']:.4f}), apply {tot['apply_ms']:.4f} ms device "
-            f"(event {tot['apply_event_ms']:.4f}; bound {tot['apply_bound']:.4f}), "
+            f"(event {tot['apply_event_ms']:.4f}; bound {tot['apply_bound']:.4f}; "
+            f"grid-stride design {before}), "
             f"F.group_norm+F.elu {tot['library_ms']:.4f} ms")
     return totals
 
@@ -899,6 +916,8 @@ def check_gn_backward(torch, gn, dev, gen, levels=LEVELS,
             stats = gn.group_norm_moments(x, GROUPS, w, 1e-5)
             n_el, esz = x.numel(), x.element_size()
             small = 6 * batch * c * 4 + 2 * c * 4
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            route = gn.plan_apply(batch, e**3, c, esz, x.data_ptr() % 16 == 0, sms).route
             row = {}
             for res in (None, r):
                 tag = "res" if res is not None else "plain"
@@ -940,7 +959,8 @@ def check_gn_backward(torch, gn, dev, gen, levels=LEVELS,
                                 lib=t_lib, err=max(errs.values()))
                 log(f"K1 backward {dt_name} level {level} {tuple(x.shape)} residual="
                     f"{res is not None}: reduce {t_r:.4f} ms device (bound {b_r:.4f}), "
-                    f"apply {t_a:.4f} ms (bound {b_a:.4f}); profiler kept {kept_r:g} and "
+                    f"apply ({route} route) {t_a:.4f} ms (bound {b_a:.4f}); profiler kept "
+                    f"{kept_r:g} and "
                     f"{kept_a:g} of the launches; plain {t_p:.4f} ms; "
                     f"F.group_norm+F.elu autograd {t_lib:.4f} ms; max|err| {errs}; "
                     "two calls bitwise equal")
@@ -953,10 +973,14 @@ def check_gn_backward(torch, gn, dev, gen, levels=LEVELS,
             tot["err"] = max(tot["err"], row["plain"]["err"], row["res"]["err"])
             del x, dy, r, stats
             torch.cuda.empty_cache()
+        before = GRID_STRIDE_BWD_APPLY_SUMS.get((dt_name, batch, *levels[0][:2]),
+                                                "not recorded")
         log(f"K1 backward {dt_name} per train step of batch {batch} (27 GroupNorms): "
             f"reduce {tot['reduce_ms']:.4f} ms device (bound {tot['reduce_bound']:.4f}), "
-            f"apply {tot['apply_ms']:.4f} ms (bound {tot['apply_bound']:.4f}); plain "
-            f"{tot['plain_ms']:.4f} ms; F.group_norm+F.elu autograd {tot['library_ms']:.4f} ms")
+            f"apply {tot['apply_ms']:.4f} ms (bound {tot['apply_bound']:.4f}; grid-stride "
+            f"design {before}); "
+            f"plain {tot['plain_ms']:.4f} ms; F.group_norm+F.elu autograd "
+            f"{tot['library_ms']:.4f} ms")
         out[dt_name] = tot
     return out
 
@@ -3766,6 +3790,7 @@ def check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt_name, reps=5):
     del again, y2, grads, grads2, plain, y_p, diff, tol
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = gn.plan_moments(batch, e**3, c, x.element_size(), x.data_ptr() % 16 == 0, sms)
+    route = gn.plan_apply(batch, e**3, c, x.element_size(), x.data_ptr() % 16 == 0, sms).route
     n_el, esz = x.numel(), x.element_size()
     t = {name: kernel_ms(torch, fn, name, reps=reps)[:2] for name, fn in (
         ("gn_moments", moments), ("gn_apply", apply), ("gn_bwd_reduce", bwd),
@@ -3773,6 +3798,7 @@ def check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt_name, reps=5):
     small = 6 * batch * c * 4 + 2 * c * 4
     out = dict(
         c=c, groups=groups, extent=e, batch=batch, dtype=dt_name, bulk=plan.bulk,
+        apply_route=route,
         blocks_per_sample=plan.blocks, moments_err=m_err, apply_err=float(
             (y.float() - gn.group_norm_apply_plain(x, stats.mean, stats.mul, b).float())
             .abs().max()), bwd_err=max(errs.values()),
@@ -3800,7 +3826,9 @@ def check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt_name, reps=5):
     out["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(yl, (xg, wg, bg), dy,
                                                                 retain_graph=True),
                                     reps=2, warmup=1)
-    log(f"{tag}: bulk={plan.bulk} {plan.blocks} blocks/sample; moments "
+    before = GRID_STRIDE_U3_APPLY.get((c, e), (None, None)) \
+        if (batch, dt_name) == (U3_BATCH, "bf16") else (None, None)
+    log(f"{tag}: bulk={plan.bulk} {plan.blocks} blocks/sample, apply route {route}; moments "
         f"{out['moments_ms']:.4f} ms device (bound {out['moments_bound']:.4f}, plain "
         f"{out['moments_plain_ms']:.4f}, torch.var_mean {out['moments_library_ms']:.4f}), apply "
         f"{out['apply_ms']:.4f} (bound {out['apply_bound']:.4f}, plain "
@@ -3808,6 +3836,8 @@ def check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt_name, reps=5):
         f"{out['reduce_ms']:.4f} (bound {out['reduce_bound']:.4f}) and apply "
         f"{out['bwd_apply_ms']:.4f} (bound {out['bwd_apply_bound']:.4f}; plain "
         f"{out['bwd_plain_ms']:.4f}, F.group_norm autograd {out['bwd_library_ms']:.4f}); "
+        f"grid-stride design's apply {before[0] or 'not recorded'}, backward apply "
+        f"{before[1] or 'not recorded'}; "
         f"profiler kept {out['kept']:g}; max|err| moments {m_err:.3g}, apply "
         f"{out['apply_err']:.3g}, backward {out['bwd_err']:.3g}; bitwise repeatable")
     return out
@@ -3839,7 +3869,9 @@ def u3_gn(torch, gn, dev, gen):
         f"{per['moments_ms']:.4f} ms device (bound {per['moments_bound']:.4f}), apply "
         f"{per['apply_ms']:.4f} (bound {per['apply_bound']:.4f}); per step, backward reduce "
         f"{per['reduce_ms']:.4f} (bound {per['reduce_bound']:.4f}), apply "
-        f"{per['bwd_apply_ms']:.4f} (bound {per['bwd_apply_bound']:.4f})")
+        f"{per['bwd_apply_ms']:.4f} (bound {per['bwd_apply_bound']:.4f}); the grid-stride "
+        f"design's apply {GRID_STRIDE_U3_SUMS[0]} per forward, backward apply "
+        f"{GRID_STRIDE_U3_SUMS[1]} per step")
     for name, c, groups, e, batch, dt in U3_EXTRA_CASES:
         cases[name] = check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt)
     return dict(per_forward=per, cases=cases, n_gn=n_gn)
@@ -4544,12 +4576,22 @@ def main(argv) -> int:
         row = lambda r, per: dict(ms=r[ms], plain_ms=r[plain], bound_ms=r[bound],
                                   library_ms=r[lib], max_abs_err=r[err],
                                   profiler_kept=r["kept"], per=per)
+        c1 = u3_all["gn"]["cases"]["c1_e96_bf16"]
+        c1_route = c1["apply_route"] if name in ("gn_apply", "gn_bwd_apply") else "register"
         return dict(unet3d_check=row(u3_all["gn"]["per_forward"], (
                         f"gcr UNet3D bf16 {'train step' if step else 'forward'} of batch "
                         f"{U3_BATCH}, {n_gn} calls")),
-                    c1_check=row(u3_all["gn"]["cases"]["c1_e96_bf16"],
-                                 f"one call at C = 1 in one group (the gcr input), batch "
-                                 f"{U3_BATCH} of 96^3, bf16, the register route"))
+                    c1_check=row(c1, f"one call at C = 1 in one group (the gcr input), batch "
+                                     f"{U3_BATCH} of 96^3, bf16, the {c1_route} route"))
+
+    def by_shape(ms, bound, lib):
+        """The apply kernel's row per UNet3D shape (U3_GN_SHAPES, then the
+        one-channel-a-group cases)."""
+        return [dict(shape=f"{r['batch']} x {r['extent']}^3 x {r['c']} {r['dtype']}",
+                     ms=r[ms], bound_ms=r[bound], library_ms=r[lib],
+                     apply_route=r["apply_route"])
+                for r in u3_all["gn"]["cases"].values()]
+
     common = dict(route="cuda", bound_by="bytes", ok=True)
     kernels = [
         dict(name="gn_moments", source="tpu_mednet_torch/csrc/groupnorm.cu",
@@ -4570,6 +4612,7 @@ def main(argv) -> int:
              **common),
         dict(name="gn_apply", source="tpu_mednet_torch/csrc/groupnorm.cu",
              **u3_checks("gn_apply"),
+             by_shape=by_shape("apply_ms", "apply_bound", "library_ms"),
              replaces="tpu_mednet/ops/pallas/groupnorm.py:94",
              **launches("gn_apply"), max_abs_err=b16["apply_err"],
              ms=b16["apply_ms"], event_ms=b16["apply_event_ms"],
@@ -4616,6 +4659,7 @@ def main(argv) -> int:
              **common),
         dict(name="gn_bwd_apply", source="tpu_mednet_torch/csrc/groupnorm.cu",
              **u3_checks("gn_bwd_apply"),
+             by_shape=by_shape("bwd_apply_ms", "bwd_apply_bound", "bwd_library_ms"),
              replaces="tpu_mednet/ops/pallas/groupnorm.py:149-175 (custom VJP of the "
                       "kernel at :94) with the normalize chain's autodiff",
              **launches("gn_bwd_apply"), max_abs_err=bwd["err"],

@@ -126,16 +126,32 @@ def test_gn_moments_kernel_is_deterministic(cuda_device):
     assert int(gn._TICKETS[a.device].abs().sum()) == 0
 
 
-# (shape, dtype, groups): the apply kernel's scalar and vector routes at
-# one channel a group and at UNet3D's concatenations
+# (shape, dtype, groups, storage offset, route of plan_apply): the apply
+# kernels' vector, packed and scalar routes at one channel a group, at
+# UNet3D's concatenations, where S * C is not a multiple of V (S = 105)
+# and at an offset base
 _APPLY_CASES = {
-    "c1-g1-bf16": ((2, 1, 12, 12, 12), torch.bfloat16, 1),
-    "c1-g1-fp32": ((2, 1, 12, 12, 12), torch.float32, 1),
-    "c8-g8-bf16": ((2, 8, 10, 12, 14), torch.bfloat16, 8),
-    "c8-g8-fp32": ((2, 8, 10, 12, 14), torch.float32, 8),
-    "c192-concat-bf16": ((2, 192, 8, 8, 8), torch.bfloat16, 8),
-    "c768-concat-bf16": ((2, 768, 6, 6, 6), torch.bfloat16, 8),
+    "c1-g1-bf16": ((2, 1, 12, 12, 12), torch.bfloat16, 1, 0, "packed"),
+    "c1-g1-fp32": ((2, 1, 12, 12, 12), torch.float32, 1, 0, "packed"),
+    "c8-g8-bf16": ((2, 8, 10, 12, 14), torch.bfloat16, 8, 0, "vector"),
+    "c8-g8-fp32": ((2, 8, 10, 12, 14), torch.float32, 8, 0, "vector"),
+    "c192-concat-bf16": ((2, 192, 8, 8, 8), torch.bfloat16, 8, 0, "vector"),
+    "c768-concat-bf16": ((2, 768, 6, 6, 6), torch.bfloat16, 8, 0, "vector"),
+    "c2-packed-bf16": ((2, 2, 10, 12, 14), torch.bfloat16, 1, 0, "packed"),
+    "c4-packed-bf16": ((2, 4, 10, 12, 14), torch.bfloat16, 2, 0, "packed"),
+    "c2-packed-fp32": ((2, 2, 10, 12, 14), torch.float32, 2, 0, "packed"),
+    "c384-concat-bf16": ((2, 384, 6, 7, 8), torch.bfloat16, 8, 0, "vector"),
+    "c4-odd-rows-bf16": ((2, 4, 3, 5, 7), torch.bfloat16, 4, 0, "scalar"),
+    "c1-offset-bf16": ((2, 1, 12, 12, 12), torch.bfloat16, 1, 1, "scalar"),
+    "c192-offset-bf16": ((2, 192, 4, 5, 6), torch.bfloat16, 8, 3, "scalar"),
 }
+
+
+def _apply_route(x, *others):
+    n, c = x.shape[:2]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others) if t is not None)
+    return gn.plan_apply(n, x.numel() // (n * c), c, x.element_size(), aligned, sms).route
 
 
 @pytest.mark.cuda
@@ -143,9 +159,10 @@ _APPLY_CASES = {
 @pytest.mark.parametrize("act", [None, "r"])
 @pytest.mark.parametrize("case", list(_APPLY_CASES))
 def test_gn_apply_kernel_matches_plain_on_card(cuda_device, case, act, residual):
-    shape, dtype, groups = _APPLY_CASES[case]
-    x = _activation(shape, dtype, cuda_device, 21)
-    r = _activation(shape, dtype, cuda_device, 22) if residual else None
+    shape, dtype, groups, offset, route = _APPLY_CASES[case]
+    x = _activation(shape, dtype, cuda_device, 21, offset)
+    r = _activation(shape, dtype, cuda_device, 22, offset) if residual else None
+    assert _apply_route(x, r) == route
     c = shape[1]
     g = torch.Generator().manual_seed(23)
     w = (torch.rand(c, generator=g) + 0.5).to(cuda_device)
@@ -159,6 +176,35 @@ def test_gn_apply_kernel_matches_plain_on_card(cuda_device, case, act, residual)
         torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
     else:
         assert bool(((y.float() - y_p.float()).abs() <= _bf16_ulp(y_p.float())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["c1-g1-bf16", "c2-packed-fp32", "c4-odd-rows-bf16",
+                                  "c192-offset-bf16", "c768-concat-bf16"])
+def test_gn_apply_kernels_repeat_bitwise_one_launch_a_call(cuda_device, case):
+    """Both apply kernels on each route: two calls bitwise equal, each call
+    one launch of its kernel (and one of the backward's reduce)."""
+    shape, dtype, groups, offset, _ = _APPLY_CASES[case]
+    x = _activation(shape, dtype, cuda_device, 24, offset)
+    r = _activation(shape, dtype, cuda_device, 25, offset) - 0.5
+    dy = _activation(shape, dtype, cuda_device, 26, offset) - 0.5
+    c = shape[1]
+    w = torch.rand(c, generator=torch.Generator().manual_seed(27)).to(cuda_device) + 0.5
+    b = torch.zeros(c, device=cuda_device)
+    stats = gn.group_norm_moments_plain(x, groups, w, 1e-5)
+    outs = []
+    for _ in range(2):
+        launched = (gn.APPLY_LAUNCHES, gn.BWD_REDUCE_LAUNCHES, gn.BWD_APPLY_LAUNCHES)
+        y = gn.group_norm_apply(x, stats.mean, stats.mul, b, residual=r, act="e")
+        assert gn.APPLY_LAUNCHES == launched[0] + 1
+        grads = gn.group_norm_backward(x, dy, stats.mean, stats.rstd, w, b, groups, r, "e")
+        assert (gn.BWD_REDUCE_LAUNCHES, gn.BWD_APPLY_LAUNCHES) == (launched[1] + 1,
+                                                                   launched[2] + 1)
+        outs.append((y, grads.dx, grads.dresidual))
+    torch.cuda.synchronize()
+    bits = lambda t: t.permute(0, 2, 3, 4, 1).flatten().view(torch.uint8)
+    for u, v in zip(*outs):
+        assert torch.equal(bits(u), bits(v))
 
 
 # K2 cases: (volume shape, volume dtype, patch, corners) with corners
@@ -222,8 +268,9 @@ def assert_grads_close(got, ref, dtype):
         assert bool(((g - r).abs() <= tol).all()), (name, float((g - r).abs().max()), scale)
 
 
-# (shape, dtype, storage offset, groups): the vector and scalar routes of
-# both backward kernels, one block per sample and many
+# (shape, dtype, storage offset, groups): the routes of both backward
+# kernels (the apply's packed route at C < V, its scalar route where S * C
+# is not a multiple of V or the base is offset), one block per sample and many
 _BWD_CASES = {
     "bf16-vec": ((2, 64, 6, 10, 12), torch.bfloat16, 0, 8),
     "fp32-vec": ((2, 32, 5, 6, 7), torch.float32, 0, 8),
@@ -238,6 +285,13 @@ _BWD_CASES = {
     "c8-g8-bf16": ((2, 8, 10, 12, 14), torch.bfloat16, 0, 8),
     "c8-g8-fp32": ((2, 8, 10, 12, 14), torch.float32, 0, 8),
     "c768-concat-bf16": ((2, 768, 6, 6, 6), torch.bfloat16, 0, 8),
+    "c2-packed-bf16": ((2, 2, 10, 12, 14), torch.bfloat16, 0, 1),
+    "c4-packed-bf16": ((2, 4, 10, 12, 14), torch.bfloat16, 0, 2),
+    "c2-packed-fp32": ((2, 2, 10, 12, 14), torch.float32, 0, 2),
+    "c384-concat-bf16": ((2, 384, 6, 7, 8), torch.bfloat16, 0, 8),
+    "c4-odd-rows-bf16": ((2, 4, 3, 5, 7), torch.bfloat16, 0, 4),
+    "c1-offset-bf16": ((2, 1, 12, 12, 12), torch.bfloat16, 1, 1),
+    "c192-offset-bf16": ((2, 192, 4, 5, 6), torch.bfloat16, 3, 8),
 }
 
 

@@ -44,10 +44,23 @@
 //    into groups (flax's fast variance clamped at 0, rsqrt(var + eps),
 //    times gamma); a sample of one block skips the ticket.  The order of
 //    every sum is fixed, so the results are identical from run to run.
-//  - Apply: one grid-stride elementwise pass over 16-byte vectors, computing
-//    y = (x - mean[n,c]) * mul[n,c] + beta[c] (+ residual) in fp32, then the
-//    nonlinearity, rounding once to the input dtype, with the same fp32
-//    roundings as the plain version (no FMA contraction).
+//  - Apply: y = (x - mean[n,c]) * mul[n,c] + beta[c] (+ residual) in fp32,
+//    then the nonlinearity, rounding once to the input dtype, with the same
+//    fp32 roundings as the plain version (no FMA contraction).  Its bound is
+//    the bytes of x (and the residual) read and y written once.  The first
+//    design (a grid-stride loop, one 16-byte vector a thread, a 64-bit
+//    division and modulo for its sample and channel, the coefficients read
+//    per element) reached 86-88 % of that bound at 32-64 channels and
+//    37-50 % at 192-768: at 768 bf16 channels a warp's 32 vectors hold 32
+//    channel vectors, so each scalar coefficient load spans 8 L1 lines.
+//    Measured on an H100 with variants of that design (8 x 24^3 x 768
+//    bf16): the coefficients held in registers took it from 38 % to 76 %
+//    of the bound, the division and modulo removed alone from 38 % to
+//    37 %.  The walk is therefore per sample and channel-owned (see "apply" below): each thread loads its V
+//    coefficients once, as 16-byte loads, then streams rows with 16-byte
+//    loads and stores, four rows' loads issued before the first is used.
+//    A row of C < V channels (the gcr UNet3D's one-channel input) is read
+//    as packed 16-byte vectors of V / C rows, every lane on a fixed channel.
 //  - Backward: z is recomputed from x (and the residual) and the saved
 //    per-(n, c) mean and rstd instead of being stored, with the forward's
 //    roundings, so act' (ReLU/LeakyReLU by the sign of z, ELU exp(z)) sees
@@ -61,8 +74,13 @@
 //    coefficients, so two calls are bitwise equal.  Its threads hold about 100 registers (two blocks per
 //    SM), so its grid is planned for several waves, not one, and B is
 //    summed as dz * (x - mean) and scaled by rstd once per partial.  The
-//    apply is one elementwise pass of 16-byte vectors that writes dx and,
-//    for a residual, its gradient dz.
+//    apply writes dx and, for a residual, its gradient dz; its bound is x,
+//    dy (and the residual) read and dx (and dz) written once.  The first
+//    design was the forward apply's grid-stride loop with six coefficient
+//    arrays read per element: 29-30 % of the bound at 384-768 channels.
+//    It now takes the forward's channel-owned walk, with mean, mul = rstd *
+//    gamma (the product taken once per thread), beta, coeff_b and coeff_c
+//    held in registers.
 #include <algorithm>
 
 #include "common.cuh"
@@ -78,7 +96,6 @@ constexpr int kMaxStageBytes = 16 * 1024;
 constexpr int kConsumers = 256;
 constexpr int kBarrierBytes = 128;  // 2 * kStages mbarriers, padded
 constexpr int kMaxBulkSmem = kBarrierBytes + kStages * kMaxStageBytes;
-constexpr int kApplyThreads = 256;
 
 // -- mbarrier and bulk-copy helpers (PTX) -----------------------------------
 
@@ -375,57 +392,209 @@ __device__ __forceinline__ float activate(float t, int act, float slope) {
   }
 }
 
-template <typename T, int V, bool kResidual>
-__global__ void gn_apply_kernel(const T* __restrict__ x,
-                                const T* __restrict__ residual,
-                                T* __restrict__ y,
-                                const float* __restrict__ mean,
-                                const float* __restrict__ mul,
-                                const float* __restrict__ beta,
-                                long long per_sample, int c, long long vecs,
-                                int act, float slope) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < vecs; i += stride) {
-    const long long e = i * V;
-    const long long n = e / per_sample;
-    const int c0 = (int)(e % c);  // C % V == 0: the vector stays in one row
-    const float* mn = mean + n * c + c0;
-    const float* ml = mul + n * c + c0;
-    float v[V];
-    load_vec<T, V>(x + e, v);
-    float r[V];
-    if constexpr (kResidual) load_vec<T, V>(residual + e, r);
-    // explicit round-to-nearest ops, never contracted into an FMA: the
-    // same fp32 roundings as the plain version, so the one rounding to the
-    // input dtype differs from it by at most an ulp even where the terms
-    // cancel
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      float t = __fadd_rn(__fmul_rn(__fsub_rn(v[k], mn[k]), ml[k]), beta[c0 + k]);
-      if constexpr (kResidual) t = __fadd_rn(t, r[k]);
-      v[k] = activate(t, act, slope);
-    }
-    store_vec<T, V>(y + e, v);
-  }
+// -- apply: a per-sample walk of channel-owned threads -------------------
+//
+// Both apply kernels walk a sample as `rows` rows of `row` elements: a
+// spatial row of C channels on the vector and scalar routes, a 16-byte
+// vector that spans V / C spatial rows of one sample on the packed route
+// (C < V).  Block (bx, n, z) takes rows [bx * rows_per_block, ...) of sample
+// n and channel vectors [z * chunk, (z + 1) * chunk) of each; thread t owns
+// vector z * chunk + t % chunk in row slot t / chunk, so its V lanes keep
+// their channels, (vector * V + lane) % C, for the whole walk.  It loads
+// its coefficients once, then streams its rows: kApplyRows rows' loads
+// issued before the first is used, pointers advanced by whole rows.
+
+// must match _APPLY_MAX_THREADS in ops/groupnorm.py
+constexpr int kApplyMaxThreads = 512;
+constexpr int kApplyRows = 4;
+enum ApplyRoute : int { kRouteVector = 0, kRoutePacked = 1, kRouteScalar = 2 };
+
+struct ApplyWalk {
+  long long rows;            // rows per sample
+  long long rows_per_block;
+  int row;                   // elements per row
+  int c;                     // channels
+  int vecs;                  // V-element vectors per row
+  int chunk;                 // vectors per block (threads = chunk * slots)
+};
+
+// V elements at p as raw bits: one 16-byte load, or one element
+template <typename T, int V>
+struct Raw {
+  using type = uint4;
+};
+template <typename T>
+struct Raw<T, 1> {
+  using type = T;
+};
+
+template <typename T, int V>
+__device__ __forceinline__ typename Raw<T, V>::type load_raw(const T* p) {
+  return *reinterpret_cast<const typename Raw<T, V>::type*>(p);
 }
 
 template <typename T, int V>
-cudaError_t launch_apply(const void* x, const void* residual, void* y,
-                         const float* mean, const float* mul, const float* beta,
-                         long long n, long long s, int c, int act, float slope,
-                         cudaStream_t stream) {
-  const long long vecs = n * s * c / V;
-  const long long blocks =
-      std::min((vecs + kApplyThreads - 1) / kApplyThreads, 1LL << 30);
-  if (residual != nullptr) {
-    gn_apply_kernel<T, V, true><<<(unsigned)blocks, kApplyThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(residual),
-        static_cast<T*>(y), mean, mul, beta, s * c, c, vecs, act, slope);
+__device__ __forceinline__ void unpack(const typename Raw<T, V>::type& raw,
+                                       float (&out)[V]) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < V; ++i) out[i] = to_float(e[i]);
+}
+
+// A thread's place in the walk: false for a thread past the last vector
+// or the sample's last row.  off is the element offset of its first row's
+// vector, step the elements between its rows, r and r1 its first row and
+// its block's end, slots the block's row slots.
+struct Lane {
+  long long off, step, r, r1;
+  int cv, slots;
+};
+
+__device__ __forceinline__ bool lane_of(const ApplyWalk& w, int v, Lane& l) {
+  l.slots = blockDim.x / w.chunk;
+  const int slot = threadIdx.x / w.chunk;
+  l.cv = blockIdx.z * w.chunk + (threadIdx.x - slot * w.chunk);
+  const long long b0 = blockIdx.x * w.rows_per_block;
+  l.r = b0 + slot;
+  l.r1 = min(b0 + w.rows_per_block, w.rows);
+  if (l.cv >= w.vecs || l.r >= l.r1) return false;
+  l.off = ((long long)blockIdx.y * w.rows + l.r) * w.row + (long long)l.cv * v;
+  l.step = (long long)l.slots * w.row;
+  return true;
+}
+
+// A lane's V per-channel coefficients of one (N, C) or (C) array, loaded
+// once: 16-byte loads where the lanes hold V consecutive channels (the
+// vector route; p 16-byte aligned), else one load per lane.
+template <int V>
+__device__ __forceinline__ void load_coef(const float* p, const ApplyWalk& w, int cv,
+                                          float (&out)[V]) {
+  if constexpr (V >= 4) {
+    if (w.row == w.c) {
+      const float4* q = reinterpret_cast<const float4*>(p + cv * V);
+#pragma unroll
+      for (int j = 0; j < V / 4; ++j) {
+        const float4 f = q[j];
+        out[4 * j] = f.x;
+        out[4 * j + 1] = f.y;
+        out[4 * j + 2] = f.z;
+        out[4 * j + 3] = f.w;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) out[i] = p[(cv * V + i) % w.c];
+}
+
+struct ApplyParams {
+  const float* mean;     // (N, C)
+  const float* mul;      // (N, C)
+  const float* beta;     // (C)
+  ApplyWalk w;
+  int act;
+  float slope;
+};
+
+template <typename T, int V, bool kResidual>
+__global__ void __launch_bounds__(kApplyMaxThreads)
+    gn_apply_kernel(const T* __restrict__ x, const T* __restrict__ residual,
+                    T* __restrict__ y, const ApplyParams p) {
+  Lane l;
+  if (!lane_of(p.w, V, l)) return;
+  const long long nc = (long long)blockIdx.y * p.w.c;
+  float mn[V], ml[V], bt[V];
+  load_coef<V>(p.mean + nc, p.w, l.cv, mn);
+  load_coef<V>(p.mul + nc, p.w, l.cv, ml);
+  load_coef<V>(p.beta, p.w, l.cv, bt);
+  const T* xp = x + l.off;
+  const T* rp = kResidual ? residual + l.off : nullptr;
+  T* yp = y + l.off;
+  // explicit round-to-nearest ops, never contracted into an FMA: the
+  // same fp32 roundings as the plain version, so the one rounding to the
+  // input dtype differs from it by at most an ulp even where the terms
+  // cancel
+  auto one = [&](const typename Raw<T, V>::type& rx, const typename Raw<T, V>::type& rr,
+                 T* out) {
+    float v[V], r[V];
+    unpack<T, V>(rx, v);
+    if constexpr (kResidual) unpack<T, V>(rr, r);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      float t = __fadd_rn(__fmul_rn(__fsub_rn(v[k], mn[k]), ml[k]), bt[k]);
+      if constexpr (kResidual) t = __fadd_rn(t, r[k]);
+      v[k] = activate(t, p.act, p.slope);
+    }
+    store_vec<T, V>(out, v);
+  };
+  for (; l.r + (kApplyRows - 1) * l.slots < l.r1; l.r += kApplyRows * l.slots) {
+    typename Raw<T, V>::type rx[kApplyRows], rr[kApplyRows];
+#pragma unroll
+    for (int j = 0; j < kApplyRows; ++j) {
+      rx[j] = load_raw<T, V>(xp + j * l.step);
+      if constexpr (kResidual) rr[j] = load_raw<T, V>(rp + j * l.step);
+    }
+#pragma unroll
+    for (int j = 0; j < kApplyRows; ++j) one(rx[j], rr[j], yp + j * l.step);
+    xp += kApplyRows * l.step;
+    if constexpr (kResidual) rp += kApplyRows * l.step;
+    yp += kApplyRows * l.step;
+  }
+  for (; l.r < l.r1; l.r += l.slots) {
+    typename Raw<T, V>::type rx = load_raw<T, V>(xp), rr{};
+    if constexpr (kResidual) rr = load_raw<T, V>(rp);
+    one(rx, rr, yp);
+    xp += l.step;
+    if constexpr (kResidual) rp += l.step;
+    yp += l.step;
+  }
+}
+
+// The walk of one launch from the plan's fields, or false where they do
+// not describe a walk the kernels take (see tmt_gn_apply).
+bool apply_walk(int route, int dtype, long long n, long long s, int c, int blocks,
+                long long rows_per_block, int threads, int chunk, ApplyWalk& w, int& v) {
+  if (n < 1 || n > 65535 || s < 1 || c < 1 || blocks < 1 || rows_per_block < 1 ||
+      threads < 1 || threads > kApplyMaxThreads || chunk < 1 || threads % chunk)
+    return false;
+  const int esize = dtype == kBF16 ? 2 : 4;
+  const int wide = 16 / esize;
+  if (route == kRouteVector) {
+    if (c % wide) return false;
+    v = wide;
+    w.row = c;
+  } else if (route == kRoutePacked) {
+    if (c >= wide || wide % c || (s * c) % wide) return false;
+    v = wide;
+    w.row = wide;
+  } else if (route == kRouteScalar) {
+    v = 1;
+    w.row = c;
   } else {
-    gn_apply_kernel<T, V, false><<<(unsigned)blocks, kApplyThreads, 0, stream>>>(
-        static_cast<const T*>(x), nullptr, static_cast<T*>(y), mean, mul, beta,
-        s * c, c, vecs, act, slope);
+    return false;
+  }
+  w.c = c;
+  w.rows = s * c / w.row;
+  w.rows_per_block = rows_per_block;
+  w.vecs = w.row / v;
+  w.chunk = chunk;
+  const long long chunks = (w.vecs + chunk - 1) / chunk;
+  // every row in one block, no block empty; every vector in one chunk
+  return chunk <= w.vecs && chunks <= 65535 && (long long)blocks * rows_per_block >= w.rows &&
+         (long long)(blocks - 1) * rows_per_block < w.rows;
+}
+
+template <typename T, int V>
+cudaError_t launch_apply(const void* x, const void* residual, void* y, const ApplyParams& p,
+                         long long n, int blocks, int threads, cudaStream_t stream) {
+  const dim3 grid(blocks, (unsigned)n, (p.w.vecs + p.w.chunk - 1) / p.w.chunk);
+  const T* xt = static_cast<const T*>(x);
+  if (residual != nullptr) {
+    gn_apply_kernel<T, V, true><<<grid, threads, 0, stream>>>(
+        xt, static_cast<const T*>(residual), static_cast<T*>(y), p);
+  } else {
+    gn_apply_kernel<T, V, false><<<grid, threads, 0, stream>>>(xt, nullptr,
+                                                                static_cast<T*>(y), p);
   }
   return cudaGetLastError();
 }
@@ -583,64 +752,107 @@ cudaError_t launch_bwd_reduce_any(const BwdParams& p, int blocks, cudaStream_t s
                         : launch_bwd_reduce<T, V, false>(p, blocks, stream);
 }
 
-// Elementwise: dx = mul * dz + coeff_b * (x - mean) + coeff_c, and
-// dr = dz where the forward added a residual; every fp32 operation rounded
-// on its own, as in the plain version.
+struct BwdApplyParams {
+  const float* mean;     // (N, C)
+  const float* rstd;     // (N, C)
+  const float* gamma;    // (C)
+  const float* beta;     // (C)
+  const float* coef_b;   // (N, C): tmt_gn_bwd_reduce's out[2]
+  const float* coef_c;   // (N, C): out[3]
+  ApplyWalk w;
+  int act;
+  float slope;
+};
+
+// dx = mul * dz + coeff_b * (x - mean) + coeff_c, and dr = dz where the
+// forward added a residual; every fp32 operation rounded on its own, as
+// in the plain version.  The walk is gn_apply_kernel's; a thread's
+// mul = rstd * gamma is taken once, with its other coefficients.
 template <typename T, int V, bool kResidual>
-__global__ void gn_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                                    const T* __restrict__ residual, T* __restrict__ dx,
-                                    T* __restrict__ dr, const float* __restrict__ mean,
-                                    const float* __restrict__ rstd,
-                                    const float* __restrict__ gamma,
-                                    const float* __restrict__ beta,
-                                    const float* __restrict__ coef, long long nc,
-                                    long long per_sample, int c, long long vecs, int act,
-                                    float slope) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < vecs;
-       i += stride) {
-    const long long e = i * V;
-    const long long n = e / per_sample;
-    const int c0 = (int)(e % c);  // C % V == 0: the vector stays in one row
-    const long long k0 = n * c + c0;
+__global__ void __launch_bounds__(kApplyMaxThreads)
+    gn_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                        const T* __restrict__ residual, T* __restrict__ dx,
+                        T* __restrict__ dr, const BwdApplyParams p) {
+  Lane l;
+  if (!lane_of(p.w, V, l)) return;
+  const long long nc = (long long)blockIdx.y * p.w.c;
+  float mn[V], ml[V], bt[V], cb[V], cc[V];
+  load_coef<V>(p.mean + nc, p.w, l.cv, mn);
+  load_coef<V>(p.rstd + nc, p.w, l.cv, ml);
+  load_coef<V>(p.gamma, p.w, l.cv, bt);
+#pragma unroll
+  for (int k = 0; k < V; ++k) ml[k] = __fmul_rn(ml[k], bt[k]);
+  load_coef<V>(p.beta, p.w, l.cv, bt);
+  load_coef<V>(p.coef_b + nc, p.w, l.cv, cb);
+  load_coef<V>(p.coef_c + nc, p.w, l.cv, cc);
+  const T* xp = x + l.off;
+  const T* gp = dy + l.off;
+  const T* rp = kResidual ? residual + l.off : nullptr;
+  T* dxp = dx + l.off;
+  T* drp = kResidual ? dr + l.off : nullptr;
+  using R = typename Raw<T, V>::type;
+  auto one = [&](const R& rx, const R& rg, const R& rr, T* out, T* out_r) {
     float v[V], g[V], r[V];
-    load_vec<T, V>(x + e, v);
-    load_vec<T, V>(dy + e, g);
-    if constexpr (kResidual) load_vec<T, V>(residual + e, r);
+    unpack<T, V>(rx, v);
+    unpack<T, V>(rg, g);
+    if constexpr (kResidual) unpack<T, V>(rr, r);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      const float xm = __fsub_rn(v[k], mean[k0 + k]);
-      const float ml = __fmul_rn(rstd[k0 + k], gamma[c0 + k]);
-      const float dz = grad_z<kResidual>(xm, g[k], kResidual ? r[k] : 0.f, ml,
-                                         beta[c0 + k], act, slope);
-      v[k] = __fadd_rn(__fadd_rn(__fmul_rn(ml, dz), __fmul_rn(coef[2 * nc + k0 + k], xm)),
-                       coef[3 * nc + k0 + k]);
+      const float xm = __fsub_rn(v[k], mn[k]);
+      const float dz = grad_z<kResidual>(xm, g[k], kResidual ? r[k] : 0.f, ml[k], bt[k],
+                                         p.act, p.slope);
+      v[k] = __fadd_rn(__fadd_rn(__fmul_rn(ml[k], dz), __fmul_rn(cb[k], xm)), cc[k]);
       if constexpr (kResidual) r[k] = dz;
     }
-    store_vec<T, V>(dx + e, v);
-    if constexpr (kResidual) store_vec<T, V>(dr + e, r);
+    store_vec<T, V>(out, v);
+    if constexpr (kResidual) store_vec<T, V>(out_r, r);
+  };
+  for (; l.r + (kApplyRows - 1) * l.slots < l.r1; l.r += kApplyRows * l.slots) {
+    R rx[kApplyRows], rg[kApplyRows], rr[kApplyRows];
+#pragma unroll
+    for (int j = 0; j < kApplyRows; ++j) {
+      rx[j] = load_raw<T, V>(xp + j * l.step);
+      rg[j] = load_raw<T, V>(gp + j * l.step);
+      if constexpr (kResidual) rr[j] = load_raw<T, V>(rp + j * l.step);
+    }
+#pragma unroll
+    for (int j = 0; j < kApplyRows; ++j)
+      one(rx[j], rg[j], rr[j], dxp + j * l.step, kResidual ? drp + j * l.step : nullptr);
+    xp += kApplyRows * l.step;
+    gp += kApplyRows * l.step;
+    dxp += kApplyRows * l.step;
+    if constexpr (kResidual) {
+      rp += kApplyRows * l.step;
+      drp += kApplyRows * l.step;
+    }
+  }
+  for (; l.r < l.r1; l.r += l.slots) {
+    R rx = load_raw<T, V>(xp), rg = load_raw<T, V>(gp), rr{};
+    if constexpr (kResidual) rr = load_raw<T, V>(rp);
+    one(rx, rg, rr, dxp, drp);
+    xp += l.step;
+    gp += l.step;
+    dxp += l.step;
+    if constexpr (kResidual) {
+      rp += l.step;
+      drp += l.step;
+    }
   }
 }
 
 template <typename T, int V>
 cudaError_t launch_bwd_apply(const void* x, const void* dy, const void* residual, void* dx,
-                             void* dr, const float* mean, const float* rstd,
-                             const float* gamma, const float* beta, const float* coef,
-                             long long n, long long s, int c, int act, float slope,
-                             cudaStream_t stream) {
-  const long long vecs = n * s * c / V;
-  const long long blocks =
-      std::min((vecs + kApplyThreads - 1) / kApplyThreads, 1LL << 30);
+                             void* dr, const BwdApplyParams& p, long long n, int blocks,
+                             int threads, cudaStream_t stream) {
+  const dim3 grid(blocks, (unsigned)n, (p.w.vecs + p.w.chunk - 1) / p.w.chunk);
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(dy);
   if (residual != nullptr) {
-    gn_bwd_apply_kernel<T, V, true><<<(unsigned)blocks, kApplyThreads, 0, stream>>>(
-        xt, gt, static_cast<const T*>(residual), static_cast<T*>(dx), static_cast<T*>(dr),
-        mean, rstd, gamma, beta, coef, n * c, s * c, c, vecs, act, slope);
+    gn_bwd_apply_kernel<T, V, true><<<grid, threads, 0, stream>>>(
+        xt, gt, static_cast<const T*>(residual), static_cast<T*>(dx), static_cast<T*>(dr), p);
   } else {
-    gn_bwd_apply_kernel<T, V, false><<<(unsigned)blocks, kApplyThreads, 0, stream>>>(
-        xt, gt, nullptr, static_cast<T*>(dx), nullptr, mean, rstd, gamma, beta, coef,
-        n * c, s * c, c, vecs, act, slope);
+    gn_bwd_apply_kernel<T, V, false><<<grid, threads, 0, stream>>>(
+        xt, gt, nullptr, static_cast<T*>(dx), nullptr, p);
   }
   return cudaGetLastError();
 }
@@ -683,26 +895,33 @@ int tmt_gn_moments(const void* x, int dtype, long long n, long long s, int c,
 // y = act((x - mean[n,c]) * mul[n,c] + beta[c] (+ residual)), x/residual/y
 // (N, S, C) of one dtype, mean/mul (N, C) and beta (C) fp32.
 // act: 0 none, 1 ReLU, 2 LeakyReLU(slope), 3 ELU.  residual may be null.
+// The launch follows ops/groupnorm.py plan_apply: route 0 (vector: C a
+// multiple of V = 16 / esize), 1 (packed: C < V divides V and S * C, one
+// vector spans V / C rows) or 2 (scalar, any C); grid (blocks, N, chunks)
+// of threads, each block rows_per_block rows of chunk vectors.  The vector
+// and packed routes need 16-byte aligned tensors, the vector route 16-byte
+// aligned statistics too.
 int tmt_gn_apply(const void* x, const void* residual, void* y, const void* mean,
                  const void* mul, const void* beta, int dtype, long long n,
-                 long long s, int c, int act, float slope, void* stream) {
+                 long long s, int c, int act, float slope, int route, int blocks,
+                 long long rows_per_block, int threads, int chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* mn = static_cast<const float*>(mean);
-  const float* ml = static_cast<const float*>(mul);
-  const float* bt = static_cast<const float*>(beta);
-  const bool vec = aligned16(x) && aligned16(y) &&
-                   (residual == nullptr || aligned16(residual));
+  ApplyParams p{static_cast<const float*>(mean), static_cast<const float*>(mul),
+                static_cast<const float*>(beta), {}, act, slope};
+  int v = 0;
+  if ((dtype != kBF16 && dtype != kF32) ||
+      !apply_walk(route, dtype, n, s, c, blocks, rows_per_block, threads, chunk, p.w, v))
+    return cudaErrorInvalidValue;
+  if (v > 1 && !(aligned16(x) && aligned16(y) && (residual == nullptr || aligned16(residual))))
+    return cudaErrorInvalidValue;
+  if (route == kRouteVector && !(aligned16(mean) && aligned16(mul) && aligned16(beta)))
+    return cudaErrorInvalidValue;
   if (dtype == kBF16) {
-    return (vec && c % 8 == 0)
-               ? launch_apply<__nv_bfloat16, 8>(x, residual, y, mn, ml, bt, n, s, c, act, slope, st)
-               : launch_apply<__nv_bfloat16, 1>(x, residual, y, mn, ml, bt, n, s, c, act, slope, st);
+    return v == 8 ? launch_apply<__nv_bfloat16, 8>(x, residual, y, p, n, blocks, threads, st)
+                  : launch_apply<__nv_bfloat16, 1>(x, residual, y, p, n, blocks, threads, st);
   }
-  if (dtype == kF32) {
-    return (vec && c % 4 == 0)
-               ? launch_apply<float, 4>(x, residual, y, mn, ml, bt, n, s, c, act, slope, st)
-               : launch_apply<float, 1>(x, residual, y, mn, ml, bt, n, s, c, act, slope, st);
-  }
-  return cudaErrorInvalidValue;
+  return v == 4 ? launch_apply<float, 4>(x, residual, y, p, n, blocks, threads, st)
+                : launch_apply<float, 1>(x, residual, y, p, n, blocks, threads, st);
 }
 
 // GroupNorm backward, pass 1: from x, dy (and the residual) of (N, S, C)
@@ -739,33 +958,38 @@ int tmt_gn_bwd_reduce(const void* x, const void* dy, const void* residual, int d
 }
 
 // GroupNorm backward, pass 2: dx (and dr = dz where residual is not null),
-// (N, S, C) in x's dtype, from coef = tmt_gn_bwd_reduce's out.
+// (N, S, C) in x's dtype, from coef = tmt_gn_bwd_reduce's out.  The launch
+// and its requirements are tmt_gn_apply's (dx and dr aligned as x).
 int tmt_gn_bwd_apply(const void* x, const void* dy, const void* residual, void* dx,
                      void* dr, int dtype, long long n, long long s, int c,
                      const void* mean, const void* rstd, const void* gamma,
-                     const void* beta, const void* coef, int act, float slope,
+                     const void* beta, const void* coef, int act, float slope, int route,
+                     int blocks, long long rows_per_block, int threads, int chunk,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n < 1 || c < 1 || (residual == nullptr) != (dr == nullptr))
-    return cudaErrorInvalidValue;
-  const float* mn = static_cast<const float*>(mean);
-  const float* rs = static_cast<const float*>(rstd);
-  const float* gm = static_cast<const float*>(gamma);
-  const float* bt = static_cast<const float*>(beta);
   const float* cf = static_cast<const float*>(coef);
-  const bool vec = aligned16(x) && aligned16(dy) && aligned16(dx) &&
-                   (residual == nullptr || (aligned16(residual) && aligned16(dr)));
+  BwdApplyParams p{static_cast<const float*>(mean), static_cast<const float*>(rstd),
+                   static_cast<const float*>(gamma), static_cast<const float*>(beta),
+                   cf + 2 * n * c, cf + 3 * n * c, {}, act, slope};
+  int v = 0;
+  if ((residual == nullptr) != (dr == nullptr) || (dtype != kBF16 && dtype != kF32) ||
+      !apply_walk(route, dtype, n, s, c, blocks, rows_per_block, threads, chunk, p.w, v))
+    return cudaErrorInvalidValue;
+  if (v > 1 && !(aligned16(x) && aligned16(dy) && aligned16(dx) &&
+                 (residual == nullptr || (aligned16(residual) && aligned16(dr)))))
+    return cudaErrorInvalidValue;
+  if (route == kRouteVector &&
+      !(aligned16(mean) && aligned16(rstd) && aligned16(gamma) && aligned16(beta) &&
+        aligned16(p.coef_b) && aligned16(p.coef_c)))
+    return cudaErrorInvalidValue;
   if (dtype == kBF16) {
-    return (vec && c % 8 == 0)
-               ? launch_bwd_apply<__nv_bfloat16, 8>(x, dy, residual, dx, dr, mn, rs, gm, bt, cf, n, s, c, act, slope, st)
-               : launch_bwd_apply<__nv_bfloat16, 1>(x, dy, residual, dx, dr, mn, rs, gm, bt, cf, n, s, c, act, slope, st);
+    return v == 8 ? launch_bwd_apply<__nv_bfloat16, 8>(x, dy, residual, dx, dr, p, n, blocks,
+                                                        threads, st)
+                  : launch_bwd_apply<__nv_bfloat16, 1>(x, dy, residual, dx, dr, p, n, blocks,
+                                                        threads, st);
   }
-  if (dtype == kF32) {
-    return (vec && c % 4 == 0)
-               ? launch_bwd_apply<float, 4>(x, dy, residual, dx, dr, mn, rs, gm, bt, cf, n, s, c, act, slope, st)
-               : launch_bwd_apply<float, 1>(x, dy, residual, dx, dr, mn, rs, gm, bt, cf, n, s, c, act, slope, st);
-  }
-  return cudaErrorInvalidValue;
+  return v == 4 ? launch_bwd_apply<float, 4>(x, dy, residual, dx, dr, p, n, blocks, threads, st)
+                : launch_bwd_apply<float, 1>(x, dy, residual, dx, dr, p, n, blocks, threads, st);
 }
 
 const char* tmt_error_string(int err) {

@@ -29,6 +29,7 @@ physically (N, S, C) with S = D*H*W.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -54,11 +55,13 @@ _MOMENTS_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p,
 ]
+# the apply plan's fields (route, blocks, rows per block, threads, chunk)
+_PLAN_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
 _APPLY_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_void_p,
+    *_PLAN_ARGS, ctypes.c_void_p,
 ]
 _BWD_REDUCE_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -72,7 +75,7 @@ _BWD_APPLY_ARGS = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-    ctypes.c_void_p,
+    *_PLAN_ARGS, ctypes.c_void_p,
 ]
 # moments launch plan; _STAGE_BYTES and _CONSUMERS must match kMaxStageBytes
 # and kConsumers in csrc/groupnorm.cu
@@ -83,6 +86,14 @@ _BLOCKS_PER_SM = 2         # grid of about one wave at the largest shapes
 # wave stays short (its blocks hold fewer per SM than the moments kernel's)
 _BWD_BLOCKS_PER_SM = 8
 _MIN_BLOCK_BYTES = 64 * 1024
+# apply launch plan; _APPLY_MAX_THREADS must match kApplyMaxThreads and
+# _APPLY_ROWS kApplyRows in csrc/groupnorm.cu
+_APPLY_THREADS = 256       # threads a block aims at
+_APPLY_MAX_THREADS = 512   # the kernels' launch bound
+_APPLY_ROWS = 4            # rows a thread loads before it uses the first
+_APPLY_BLOCKS_PER_SM = 32  # grid of many short blocks: the last wave stays short
+_APPLY_MAX_ROWS = 32       # rows a thread takes at most, in steps of _APPLY_ROWS
+APPLY_ROUTES = ("vector", "packed", "scalar")   # csrc/groupnorm.cu ApplyRoute
 # per device: one int32 ticket per sample, zero between launches; the
 # backward's reduce has its own
 _TICKETS: Dict[torch.device, torch.Tensor] = {}
@@ -261,6 +272,76 @@ def group_norm_apply_plain(x: torch.Tensor, mean_c: torch.Tensor,
     return y.to(x.dtype).contiguous(memory_format=CL3D)
 
 
+class ApplyPlan(NamedTuple):
+    """How ``gn_apply_kernel`` and ``gn_bwd_apply_kernel`` walk one shape."""
+
+    route: str            # "vector", "packed" or "scalar" (APPLY_ROUTES)
+    vec: int              # elements per access: 16 / esize, or 1 (scalar)
+    row: int              # elements per row: C, or one vector (packed)
+    rows: int             # rows per sample
+    chunk: int            # vectors of a row per block
+    chunks: int           # blocks across a row (grid z)
+    threads: int          # chunk * row slots
+    blocks: int           # blocks per sample (grid x)
+    rows_per_block: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_apply(n: int, s: int, c: int, esize: int, aligned: bool, sms: int) -> ApplyPlan:
+    """Launch plan of both apply kernels for N samples of S rows of C
+    channels of ``esize`` bytes.
+
+    The vector route reads a row as C / V 16-byte vectors (V = 16 / esize);
+    the packed route, for C < V dividing V and S * C, reads V / C rows as
+    one vector, so every lane keeps channel ``lane % C``; both need a
+    16-byte aligned base (``aligned``).  Any other shape takes the scalar
+    route, one element a thread and row.  A block holds whole row slots of
+    ``chunk`` vectors (full warps where a multiple of 32 threads fits in
+    ``_APPLY_THREADS``); rows per block are sized so the grid has about
+    ``_APPLY_BLOCKS_PER_SM`` blocks per SM, each thread taking
+    ``_APPLY_ROWS`` to ``_APPLY_MAX_ROWS`` rows.
+    """
+    wide = 16 // esize
+    if aligned and c % wide == 0:
+        route, vec, row = "vector", wide, c
+    elif aligned and c < wide and wide % c == 0 and s * c % wide == 0:
+        route, vec, row = "packed", wide, wide
+    else:
+        route, vec, row = "scalar", 1, c
+    rows = s * c // row
+    vecs = row // vec
+    chunk = -(-vecs // -(-vecs // _APPLY_MAX_THREADS))
+    chunks = -(-vecs // chunk)
+    fit = max(1, _APPLY_THREADS // chunk)
+    slots = next((k for k in range(fit, 0, -1) if chunk * k % 32 == 0), fit)
+    per_sample = max(1, -(-_APPLY_BLOCKS_PER_SM * sms // (n * chunks)))
+    step = slots * _APPLY_ROWS
+    rows_per_block = min(max(step, -(-rows // per_sample // step) * step),
+                         slots * _APPLY_MAX_ROWS)
+    return ApplyPlan(route, vec, row, rows, chunk, chunks, chunk * slots,
+                     -(-rows // rows_per_block), rows_per_block)
+
+
+def _plan_fields(plan: ApplyPlan) -> tuple:
+    """The plan as the C entries take it (route, blocks, rows per block,
+    threads, chunk)."""
+    return (APPLY_ROUTES.index(plan.route), plan.blocks, plan.rows_per_block,
+            plan.threads, plan.chunk)
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its data is not 16-byte aligned (the vector
+    route loads statistics 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _apply_plan(x: torch.Tensor, *others: Optional[torch.Tensor]) -> ApplyPlan:
+    n, c = x.shape[:2]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others) if t is not None)
+    return plan_apply(n, x.numel() // (n * c), c, x.element_size(), aligned,
+                      torch.cuda.get_device_properties(x.device).multi_processor_count)
+
+
 def _group_norm_apply_cuda(x, mean_c, mul_c, bias, residual=None, act=None):
     global APPLY_LAUNCHES
     _build.require_cuda(x, "group_norm_apply")
@@ -272,20 +353,21 @@ def _group_norm_apply_cuda(x, mean_c, mul_c, bias, residual=None, act=None):
                 or not residual.is_contiguous(memory_format=CL3D)):
             raise ValueError("group_norm_apply: residual must match x in shape, "
                              "dtype, device and channels_last_3d layout")
-    mean_c = mean_c.float().contiguous()
-    mul_c = mul_c.float().contiguous()
-    beta = bias.float().contiguous()
+    mean_c = _aligned16(mean_c.float().contiguous())
+    mul_c = _aligned16(mul_c.float().contiguous())
+    beta = _aligned16(bias.float().contiguous())
     if mean_c.shape != (n, c) or mul_c.shape != (n, c) or beta.shape != (c,):
         raise ValueError("group_norm_apply: mean/mul must be (N, C), bias (C,)")
     for t in (mean_c, mul_c, beta):
         if t.device != x.device:
             raise ValueError("group_norm_apply: statistics on another device")
     y = torch.empty_like(x, memory_format=CL3D)
+    plan = _apply_plan(x, residual, y)
     fn = _build.kernel("tmt_gn_apply", _APPLY_ARGS)
     err = fn(x.data_ptr(), None if residual is None else residual.data_ptr(),
              y.data_ptr(), mean_c.data_ptr(), mul_c.data_ptr(), beta.data_ptr(),
              _build.DTYPE_CODES[x.dtype], n, x.numel() // (n * c), c,
-             ACT_CODES[act], LEAKY_SLOPE, _build.stream_of(x))
+             ACT_CODES[act], LEAKY_SLOPE, *_plan_fields(plan), _build.stream_of(x))
     _build.check(err, "tmt_gn_apply")
     APPLY_LAUNCHES += 1
     return y
@@ -361,6 +443,23 @@ def group_norm_backward_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.T
     (M = elements per group).  The kernels compute the same, in this order,
     except that the reduce sums B as rstd * sum dz * (x - mean).
     """
+    xm, mul, dz, coef = backward_terms_plain(x, dy, mean_c, rstd_c, weight, bias,
+                                             num_groups, residual, act)
+    n, c = mean_c.shape
+    view = (n, c, 1, 1, 1)
+    dx = mul.view(view) * dz + coef[2].view(view) * xm + coef[3].view(view)
+    dr = None if residual is None else dz.to(x.dtype).contiguous(memory_format=CL3D)
+    return GroupNormGrads(dx.to(x.dtype).contiguous(memory_format=CL3D),
+                          coef[1].sum(0).to(weight.dtype), coef[0].sum(0).to(bias.dtype), dr)
+
+
+def backward_terms_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor,
+                         rstd_c: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         num_groups: int, residual: Optional[torch.Tensor] = None,
+                         act: Optional[str] = None):
+    """fp32 (x - mean, mul = rstd * gamma (N, C), dz, coef) of
+    ``group_norm_backward_plain``; coef (4, N, C) holds A, B, coeff_b and
+    coeff_c, as the reduce kernel's output does."""
     n, c = mean_c.shape
     view = (n, c, 1, 1, 1)
     # the forward's z, each operation rounded as in the forward
@@ -380,10 +479,7 @@ def group_norm_backward_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.T
     sb = (gw * b).view(n, num_groups, cg).sum(-1).repeat_interleave(cg, dim=1)
     coeff_b = -(rstd_c * rstd_c * sb / count)
     coeff_c = -(rstd_c * sa / count)
-    dx = mul.view(view) * dz + coeff_b.view(view) * xm + coeff_c.view(view)
-    dr = None if residual is None else dz.to(x.dtype).contiguous(memory_format=CL3D)
-    return GroupNormGrads(dx.to(x.dtype).contiguous(memory_format=CL3D),
-                          b.sum(0).to(weight.dtype), a.sum(0).to(bias.dtype), dr)
+    return xm, mul, dz, torch.stack((a, b, coeff_b, coeff_c))
 
 
 def _group_norm_backward_cuda(x, dy, mean_c, rstd_c, weight, bias, num_groups,
@@ -404,7 +500,7 @@ def _group_norm_backward_cuda(x, dy, mean_c, rstd_c, weight, bias, num_groups,
             or small[1].shape != (n, c) or small[2].shape != (c,) or small[3].shape != (c,):
         raise ValueError("group_norm_backward: mean/rstd must be (N, C) and "
                          "weight/bias (C,) on x's device")
-    mean_c, rstd_c, gamma, beta = small
+    mean_c, rstd_c, gamma, beta = (_aligned16(t) for t in small)
     plan = plan_moments(n, s, c, x.element_size(), False,
                         torch.cuda.get_device_properties(x.device).multi_processor_count,
                         _BWD_BLOCKS_PER_SM)
@@ -426,7 +522,8 @@ def _group_norm_backward_cuda(x, dy, mean_c, rstd_c, weight, bias, num_groups,
     err = fn(x.data_ptr(), dy.data_ptr(), res_ptr, dx.data_ptr(),
              None if dr is None else dr.data_ptr(), _build.DTYPE_CODES[x.dtype], n, s, c,
              mean_c.data_ptr(), rstd_c.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-             coef.data_ptr(), ACT_CODES[act], LEAKY_SLOPE, stream)
+             coef.data_ptr(), ACT_CODES[act], LEAKY_SLOPE,
+             *_plan_fields(_apply_plan(x, dy, residual, dx, dr)), stream)
     _build.check(err, "tmt_gn_bwd_apply")
     BWD_APPLY_LAUNCHES += 1
     return GroupNormGrads(dx, coef[1].sum(0).to(weight.dtype),
