@@ -105,6 +105,25 @@ drives the two main paths with launch counts:
   Python with a checkpoint restored bit for bit; ``chip_memory_fit.py``'s
   UNet3D points; ``train_seg -c configs/seg_tiny.yaml`` for 1 epoch.
 
+- parallel (a child process too; ``python3 chip_smoke.py --parallel
+  <out.json>`` runs it alone): the MIP visualizer's compute half (the
+  hooks' eval-mode forward of a batch's first row, 27 K1 launches of each
+  forward kernel a call) at seg_organ's and multitask_dp.yaml's widths
+  against the plain path (class maps inside the tie band, heatmaps within
+  the bf16 bound, the MIPs the prediction's), ms a call; ``train_seg -c
+  configs/seg_organ.yaml`` 1 epoch with ``--neptune_project`` on a fake
+  ``neptune`` module (every scalar reaches the sink, which is closed; with
+  matplotlib 2 figures and 27 more K1 launches a visualized batch, without
+  it one warning and no hook); two data-parallel ranks on the one card
+  (``--dp-rank``, gloo) against one process on the same global batch 8 of
+  96^3: the bench-style step (ms a step, exact launches, one indexed K2 a
+  rank a step), SGD parity in fp32 and bf16 and the cbr UNet3D's running
+  statistics, the ranks bit-equal; ``train_ldmks -c
+  configs/multitask_dp.yaml --gpus 8`` clamped to the card at its global
+  batch 32 (patches/s, peak memory, exact launches, a falling validation
+  loss); ``predict`` with ``prediction.gpus: 2`` clamped and byte-equal to
+  1, and ``round_robin_placement`` over ``[cuda:0, cuda:0]``.
+
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero without a result when CUDA is unavailable or the package is not
 beside it.
@@ -4369,6 +4388,629 @@ def unet3d_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
                     seconds=seconds))
 
 
+# -- parallel: the MIP visualizer, Neptune, data parallelism, round-robin predict --
+
+# the visualizer's compute half at the widths of seg_organ.yaml (f_maps 32, 5
+# classes, a validation batch of 4 x 128^3) and of multitask_dp.yaml's
+# LandmarkNet (f_maps 32, 6 heatmaps + 2 classes, 96^3)
+VIS_CASES = (("seg_organ", 0, 5, ORGAN_PATCH, 4), ("multitask_dp", 6, 2, PATCH, 2))
+VIS_REPS = 5
+# seg_organ 1 epoch: 10 steps of batch 4; validation 10 patches in batches of
+# 4 (2 batches, the trailing 2 dropped), the visualizer on batch 0
+# (log_interval 5)
+OBS_VAL_BATCHES, OBS_VISUALIZED = 2, 1
+# two data-parallel ranks on the one card (gloo: NCCL refuses two ranks on
+# one device), global batch 8 of 96^3; a bench-style run (bf16, Adam 1e-3,
+# mirror flips) of DP_STEPS compared steps and DP_TIMED timed ones; a parity
+# run per dtype (SGD with momentum, as the CPU tests: Adam turns summation-
+# order noise in a near-zero gradient into a full +-lr step); the cbr
+# UNet3D at global batch 2
+DP_WORLD, DP_BATCH, DP_STEPS, DP_TIMED, DP_CBR_BATCH = 2, 8, 3, 5, 2
+DP_SGD = dict(name="sgd", learning_rate=0.01, momentum=0.9)
+DP_TIMEOUT = 300
+# multitask_dp.yaml: train_ldmks --gpus 8 (clamped to the one card) at its
+# global batch 32 of 96^3 on a seeded store of five 128 x 128 x 112 subjects
+# (four train with 24 patches each: 3 steps an epoch; one val: one batch,
+# padded), 6 stored heatmaps + a 2-class map; 4 epochs, the validation loss
+# falling from the first to the last
+MT_SUBJECTS = tuple((f"m{i}", (128, 128, 112)) for i in range(5))
+MT_SPLITS = dict(train=["m0", "m1", "m2", "m3"], val=["m4"])
+MT_HEATMAPS, MT_PATCHES, MT_EPOCHS, MT_BATCH = 6, 24, 4, 32
+MT_STEPS = len(MT_SPLITS["train"]) * MT_PATCHES // MT_BATCH
+
+
+def vis_compute(torch, gn, P, dev, counts):
+    """The visualizer hooks' compute half on the card at full width: one
+    eval-mode forward of the batch's first row (27 K1 launches of each
+    forward kernel a call), against the plain path: class maps apart only
+    inside the tie band, heatmaps within the bf16 bound, the MIPs those of
+    the prediction."""
+    from types import SimpleNamespace
+
+    from tpu_mednet_torch.models import ResidualUNet3D
+    from tpu_mednet_torch.utils import plots
+
+    out = {}
+    for name, n_hm, classes, patch, rows in VIS_CASES:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        label = torch.zeros((rows, n_hm + 1, *patch), dtype=torch.uint8, device=dev)
+        label[:, -1, 20:70, 30:80, 10:60] = 1
+        if n_hm:
+            label[:, :n_hm] = torch.randint(0, 256, (rows, n_hm, *patch), generator=gen,
+                                            device=dev, dtype=torch.uint8)
+        data = torch.randn((rows, 1, *patch), generator=gen, device=dev) + label[:, -1:]
+        batch = {"data": data.contiguous(memory_format=torch.channels_last_3d),
+                 "label": label.contiguous(memory_format=torch.channels_last_3d)}
+        model = ResidualUNet3D(1, n_hm + classes, f_maps=32, dtype=torch.bfloat16, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+        trainer = SimpleNamespace(state=SimpleNamespace(model=model, step=0))
+
+        def compute():
+            return (plots.landmark_sample_arrays(trainer, batch, n_hm) if n_hm
+                    else plots.seg_sample_arrays(trainer, batch))
+
+        before = launch_counts(gn, P)
+        arrays = compute()
+        torch.cuda.synchronize()
+        add_counts(counts, before, launch_counts(gn, P))
+        with uncounted(gn, P):
+            launched = launch_counts(gn, P)
+            compute()
+            torch.cuda.synchronize()
+            per_call = {k: v - launched[k] for k, v in launch_counts(gn, P).items()}
+            t0 = time.perf_counter()
+            for _ in range(VIS_REPS):
+                compute()
+            ms = (time.perf_counter() - t0) / VIS_REPS * 1e3
+            logits = torch.from_numpy(plots.first_row_logits(trainer, batch))
+            with plain_kernels(gn, P):
+                logits_p = torch.from_numpy(plots.first_row_logits(trainer, batch))
+        want = dict(gn_moments=27, gn_apply=27, gn_bwd_reduce=0, gn_bwd_apply=0,
+                    gather_patches=0)
+        if per_call != want:
+            raise AssertionError(f"visualizer {name}: launches a call {per_call}, expected {want}")
+        cls, cls_p = logits[n_hm:], logits_p[n_hm:]
+        err = float((cls - cls_p).abs().max())
+        top2 = cls_p.topk(2, dim=0).values
+        margin = (top2[0] - top2[1]).numpy()
+        pred_p = cls_p.argmax(dim=0).numpy()
+        apart = arrays["pred"] != pred_p
+        outside = int((apart & (margin > 2 * err)).sum())
+        mips_ok = np.array_equal(plots.label_mips(arrays["label"], arrays["pred"]),
+                                 np.stack([arrays["pred"].max(axis=1),
+                                           arrays["label"].max(axis=1)]))
+        row = dict(ms_per_call=ms, launches_per_call=per_call, class_err=err,
+                   voxels_apart=int(apart.sum()), apart_outside_band=outside,
+                   pred_equals_argmax=bool(np.array_equal(arrays["pred"],
+                                                          cls.argmax(dim=0).numpy())))
+        if n_hm:
+            hm_err = float((logits[:n_hm] - logits_p[:n_hm]).abs().max())
+            hm_bound = FWD_BF16_REL * float(logits_p[:n_hm].abs().max())
+            mips_ok &= np.array_equal(
+                plots.heatmap_mips(arrays["out_heatmaps"], arrays["gt_heatmaps"]),
+                np.concatenate([arrays["gt_heatmaps"].max(axis=2),
+                                arrays["out_heatmaps"].max(axis=2)]))
+            mips_ok &= np.array_equal(arrays["out_heatmaps"], logits[:n_hm].numpy())
+            row.update(heatmap_err=hm_err, heatmap_bound=hm_bound)
+        row["mips_equal_numpy"] = bool(mips_ok)
+        log(f"visualizer {name} ({n_hm} heatmaps + {classes} classes, f_maps 32, bf16, first "
+            f"row of {rows} x {patch[0]}^3): {ms:.2f} ms a call (host clock, synchronized), "
+            f"launches {per_call}; class logits max |kernel - plain| {err:.4g}, "
+            f"{row['voxels_apart']} voxels apart, {outside} outside the tie band"
+            + (f"; heatmaps max |diff| {row['heatmap_err']:.4g} (bound "
+               f"{row['heatmap_bound']:.4g})" if n_hm else "")
+            + f"; MIPs equal numpy's {row['mips_equal_numpy']}")
+        if outside or not row["pred_equals_argmax"] or not mips_ok or (
+                n_hm and row["heatmap_err"] > row["heatmap_bound"]):
+            raise AssertionError(f"visualizer {name}: the compute half disagrees")
+        out[name] = row
+        del model, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+class FakeNeptune:
+    """A duck-typed ``neptune`` module: ``init_run`` records a run whose
+    appends, assignments and ``stop`` are kept (no client, no network)."""
+
+    class Run:
+        def __init__(self, **kwargs):
+            self.kwargs, self.appends, self.assigned, self.stopped = kwargs, {}, {}, False
+
+        def __getitem__(self, key):
+            run = self
+
+            class Handle:
+                def append(self, value, step=None):
+                    run.appends.setdefault(key, []).append((value, step))
+
+            return Handle()
+
+        def __setitem__(self, key, value):
+            self.assigned[key] = value
+
+        def stop(self):
+            self.stopped = True
+
+    def __init__(self):
+        self.runs = []
+
+    def init_run(self, **kwargs):
+        self.runs.append(self.Run(**kwargs))
+        return self.runs[-1]
+
+
+def par_observability(torch, gn, P, dev, root, counts):
+    """``train_seg -c configs/seg_organ.yaml`` 1 epoch with a validation set
+    and ``--neptune_project`` (a fake client, a dummy token): every scalar
+    of ``metrics.jsonl`` reaches the sink, which is closed; the visualizer
+    logs 2 figures and 27 more K1 launches a visualized batch where
+    matplotlib imports, and where it does not one warning and the launches
+    of a run without it."""
+    import logging
+    import os
+
+    from tpu_mednet_torch.cli import train_seg
+
+    fake = FakeNeptune()
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    records = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = records.append
+    logging.getLogger("tpu_mednet_torch.utils.plots").addHandler(handler)
+    saved = sys.modules.get("neptune")
+    sys.modules["neptune"] = fake
+    os.environ["NEPTUNE_API_TOKEN"] = "dummy-token"
+    write_organ_store(root)
+    before = launch_counts(gn, P)
+    t0 = time.perf_counter()
+    try:
+        rc = train_seg.main(organ_train_argv(root, "seg_organ", "--max_epochs", "1",
+                                             "--neptune_project", "ws/chip-smoke"))
+    finally:
+        del os.environ["NEPTUNE_API_TOKEN"]
+        if saved is None:
+            sys.modules.pop("neptune")
+        else:
+            sys.modules["neptune"] = saved
+        logging.getLogger("tpu_mednet_torch.utils.plots").removeHandler(handler)
+    seconds = time.perf_counter() - t0
+    got = {k: v - before[k] for k, v in launch_counts(gn, P).items()}
+    add_counts(counts, before, launch_counts(gn, P))
+    if rc != 0:
+        raise AssertionError(f"observability: train_seg exited {rc}")
+    fwd = (ORGAN_STEPS_PER_EPOCH + OBS_VAL_BATCHES + (OBS_VISUALIZED if have_mpl else 0)) * 27
+    want = dict(gn_moments=fwd, gn_apply=fwd, gn_bwd_reduce=ORGAN_STEPS_PER_EPOCH * 27,
+                gn_bwd_apply=ORGAN_STEPS_PER_EPOCH * 27, gather_patches=0)
+    (run,) = fake.runs
+    metrics = read_metrics(root / "seg_organ" / "logs" / "metrics.jsonl")
+    scalars = sorted((r["step"], k, float(v)) for r in metrics for k, v in r.items()
+                     if k not in ("step", "time"))
+    figures = {k: len(v) for k, v in run.appends.items() if k in ("images", "labels")}
+    appended = sorted((s, k, float(v)) for k, vs in run.appends.items() if k not in figures
+                      for v, s in vs)
+    warnings = [r.getMessage() for r in records]
+    out = dict(matplotlib=have_mpl, launches=got, expected=want, scalars=len(scalars),
+               sink_scalars_equal=appended == scalars, closed=run.stopped, figures=figures,
+               warnings=warnings, seconds=seconds, tags=run.kwargs["tags"])
+    log(f"observability: matplotlib {'imported' if have_mpl else 'absent'}; train_seg "
+        f"seg_organ 1 epoch with --neptune_project in {seconds:.1f} s: {len(scalars)} scalars "
+        f"in metrics.jsonl, the sink got them all {out['sink_scalars_equal']}, closed "
+        f"{run.stopped}; figures to the sink {figures}; plots warnings {warnings}; launches "
+        f"{got} (expected {want})")
+    ok = out["sink_scalars_equal"] and run.stopped and got == want and scalars
+    if have_mpl:
+        ok = ok and figures == {"images": OBS_VISUALIZED, "labels": OBS_VISUALIZED}
+    else:
+        ok = ok and not figures and len(warnings) == 1 and "matplotlib" in warnings[0]
+    if not ok:
+        raise AssertionError("observability: the sink, the figures or the launches disagree")
+    return out
+
+
+def dp_models(torch, dev, dtype, order=None):
+    """The data-parallel runs' models from seeded weights: the full-width
+    ResidualUNet3D, or the UNet3D in ``order``."""
+    from tpu_mednet_torch.models import ResidualUNet3D
+
+    if order:
+        return u3_model(torch, dev, order)
+    return ResidualUNet3D(1, 2, f_maps=32, dtype=dtype, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+
+
+def dp_runs(torch, gn, P, dev, mesh, out_dir: Path, tag: str, counts=None):
+    """The runs of the dp comparison, on ``mesh`` (two ranks) or without it
+    (one process on the global batch); tensors saved as ``<tag>_<run>.pt``
+    under ``out_dir``, a summary returned.  ``counts`` gathers the launches
+    of every step."""
+    from tpu_mednet_torch.ops.augment import AugmentConfig
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.train import OptimizerConfig, create_train_state, make_train_step
+
+    rows = mesh.rows(DP_BATCH) if mesh is not None else None
+    cbr_rows = mesh.rows(DP_CBR_BATCH) if mesh is not None else None
+    summary = {}
+
+    def feed(batch, which_rows):
+        while True:
+            yield from seeded_train_sampler(dev).batches(batch, rows=which_rows)
+
+    def stepped(step, state, batches):
+        before = launch_counts(gn, P)  # the batch's gather counts too
+        state, m = step(state, next(batches))
+        if counts is not None:
+            add_counts(counts, before, launch_counts(gn, P))
+        return state, float(m["train_loss"])
+
+    # bench-style: bf16, Adam 1e-3, mirror flips
+    model = dp_models(torch, dev, torch.bfloat16)
+    task = SegmentationTask(model=model, loss="DICE")
+    state = create_train_state(model, learning_rate=1e-3, seed=0)
+    step = make_train_step(task, augment=AugmentConfig(mirror_axes=(1, 2, 3)), mesh=mesh)
+    batches = feed(DP_BATCH, rows)
+    losses = []
+    for _ in range(DP_STEPS):
+        state, loss = stepped(step, state, batches)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    before = launch_counts(gn, P)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(DP_TIMED)]
+    for start, end in events:
+        start.record()
+        state, m = step(state, next(batches))
+        end.record()
+    torch.cuda.synchronize()
+    timed = {k: v - before[k] for k, v in launch_counts(gn, P).items()}
+    if counts is not None:
+        add_counts(counts, before, launch_counts(gn, P))
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               out_dir / f"{tag}_bench.pt")
+    summary["bench"] = dict(losses=losses, step_ms=step_ms, timed_launches=timed,
+                            final_loss=float(m["train_loss"]))
+    del model, task, state, step
+    torch.cuda.empty_cache()
+
+    # parity: SGD with momentum, no augmentation, fp32 (TF32 off) and bf16
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    for dt_name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = \
+            dt_name != "fp32"
+        try:
+            model = dp_models(torch, dev, dt)
+            state = create_train_state(model, optimizer=OptimizerConfig(**DP_SGD), seed=0)
+            step = make_train_step(SegmentationTask(model=model, loss="DICE"), mesh=mesh)
+            batches = feed(DP_BATCH, rows)
+            losses = []
+            for _ in range(DP_STEPS):
+                state, loss = stepped(step, state, batches)
+                losses.append(loss)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                   out_dir / f"{tag}_{dt_name}.pt")
+        summary[dt_name] = dict(losses=losses)
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    # the cbr UNet3D: global BatchNorm statistics
+    model = dp_models(torch, dev, torch.bfloat16, order="cbr")
+    state = create_train_state(model, optimizer=OptimizerConfig(**DP_SGD), seed=0)
+    step = make_train_step(SegmentationTask(model=model, loss="DICE"), mesh=mesh)
+    batches = feed(DP_CBR_BATCH, cbr_rows)
+    losses = []
+    for _ in range(DP_STEPS):
+        state, loss = stepped(step, state, batches)
+        losses.append(loss)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, out_dir / f"{tag}_cbr.pt")
+    summary["cbr"] = dict(losses=losses)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return summary
+
+
+def dp_rank(torch, gn, P, dev, out_dir: Path) -> None:
+    """One rank of ``par_dp``: joins the gloo group the parent's variables
+    describe (both ranks on the one card), runs ``dp_runs`` on its rows and
+    writes ``rank<r>.json`` beside its tensors."""
+    from tpu_mednet_torch.parallel import make_mesh, maybe_initialize_distributed
+
+    if not maybe_initialize_distributed("gloo"):
+        raise AssertionError("dp rank: no process group to join")
+    mesh = make_mesh(dev, devices=[dev] * DP_WORLD)
+    reset_counts(gn, P)
+    counts = dict.fromkeys(launch_counts(gn, P), 0)
+    summary = dp_runs(torch, gn, P, dev, mesh, out_dir, f"rank{mesh.rank}", counts)
+    summary["launches"] = counts
+    (out_dir / f"rank{mesh.rank}.json").write_text(json.dumps(summary))
+    torch.distributed.destroy_process_group()
+
+
+def par_dp(torch, gn, P, dev, root, counts):
+    """Two data-parallel ranks on the one card against one process on the
+    same global batches: the losses and every parameter after the parity
+    runs within the train-step parity bounds (max |diff| over max |p| of
+    the parameter), the ranks' parameters and running statistics bit-equal
+    to each other, the cbr model's running statistics against one
+    process's at the bf16 bound, exact launches a step on each rank (K2
+    indexed: 1, for its rows alone), ms a step."""
+    import os
+
+    from tpu_mednet_torch.parallel.multihost import free_port
+
+    out_dir = root / "dp"
+    out_dir.mkdir()
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(DP_WORLD), LOCAL_WORLD_SIZE=str(DP_WORLD))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+                               str(out_dir)], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(DP_WORLD)]
+    try:
+        rcs = [p.wait(timeout=DP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    if rcs != [0] * DP_WORLD:
+        raise AssertionError(f"dp: the ranks exited {rcs}")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+    one = dp_runs(torch, gn, P, dev, None, out_dir, "one", counts)
+    rank_counts = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    for k, v in rank_counts.items():
+        counts[k] += v
+
+    def load(tag, run):
+        return torch.load(out_dir / f"{tag}_{run}.pt")
+
+    out = dict(seconds=seconds, rank_launches=[r["launches"] for r in ranks])
+    for run in ("bench", "fp32", "bf16", "cbr"):
+        r0, r1, ref = load("rank0", run), load("rank1", run), load("one", run)
+        bit_equal = all(torch.equal(r0[k], r1[k]) for k in r0)
+        bound = PARITY_REL["fp32" if run == "fp32" else "bf16"]
+        # the parity runs: every parameter; the cbr run: the running statistics
+        keys = [k for k in ref if ref[k].is_floating_point()
+                and (run != "cbr" or k.endswith(("running_mean", "running_var")))]
+        rel = {k: float((r0[k].float() - ref[k].float()).abs().max())
+               / max(float(ref[k].float().abs().max()), 1e-30) for k in keys}
+        worst = max(rel, key=rel.get)
+        losses = [r["bench" if run == "bench" else run]["losses"] for r in ranks]
+        ref_losses = one[run]["losses"]
+        loss_err = max(abs(a - b) for a, b in zip(losses[0], ref_losses))
+        out[run] = dict(ranks_bit_equal=bit_equal, worst=worst, worst_rel=rel[worst],
+                        loss_err=loss_err, losses=losses[0], one_process_losses=ref_losses,
+                        bound=bound)
+        log(f"dp {run}: rank 0 losses {' '.join(f'{v:.5f}' for v in losses[0])}, one process "
+            f"{' '.join(f'{v:.5f}' for v in ref_losses)} (max |diff| {loss_err:.3g}); "
+            f"state after {DP_STEPS if run != 'bench' else DP_STEPS + DP_TIMED} steps: ranks "
+            f"bit-equal {bit_equal}, rank vs one process max|diff|/max|ref| {rel[worst]:.3g} "
+            f"({worst}; " + ("not held: Adam's steps are +-lr where a gradient is noise"
+                              if run == "bench" else f"bound {bound}") + ")")
+        if not bit_equal or losses[0] != losses[1]:
+            raise AssertionError(f"dp {run}: the two ranks disagree")
+        if run != "bench" and (loss_err > bound or rel[worst] > bound):
+            raise AssertionError(f"dp {run}: the ranks disagree with one process")
+        if run == "bench" and loss_err > bound:
+            raise AssertionError("dp bench: the ranks' losses disagree with one process")
+    want = dict(gn_moments=27 * DP_TIMED, gn_apply=27 * DP_TIMED, gn_bwd_reduce=27 * DP_TIMED,
+                gn_bwd_apply=27 * DP_TIMED, gather_patches=DP_TIMED)
+    timed = [r["bench"]["timed_launches"] for r in ranks]
+    step_ms = [float(np.median(r["bench"]["step_ms"])) for r in ranks]
+    out["bench"].update(timed_launches=timed, median_step_ms=step_ms,
+                        one_process_median_step_ms=float(np.median(one["bench"]["step_ms"])))
+    log(f"dp bench step, global batch {DP_BATCH} of 96^3 (two ranks time-sliced on one card, "
+        f"gloo through the host: not a dp scaling figure): median {step_ms} ms a step by rank "
+        f"(CUDA events), one process {out['bench']['one_process_median_step_ms']:.2f} ms; "
+        f"launches over {DP_TIMED} timed steps by rank {timed}; the ranks took {seconds:.1f} s")
+    if timed != [want] * DP_WORLD:
+        raise AssertionError(f"dp: launches by rank {timed}, expected {want} each")
+    return out
+
+
+def write_multitask_store(root: Path) -> None:
+    """``root/multitask.zarr``: MT_SUBJECTS with a sphere of class 1 in
+    noise and MT_HEATMAPS stored uint8 Gaussian heatmaps (sigma 4, peak
+    255) around points inside it; and the key files."""
+    from tpu_mednet_torch.data import zarrlite
+
+    rng = np.random.default_rng(5)
+    z = zarrlite.open(str(root / "multitask.zarr"), mode="w")
+    for key, shape in MT_SUBJECTS:
+        grid = np.ogrid[tuple(slice(0, s) for s in shape)]
+        centre = np.asarray(shape) / 2 + rng.uniform(-8, 8, size=3)
+        dist2 = sum((g - c) ** 2 for g, c in zip(grid, centre))
+        lbl = (dist2 <= 30.0 ** 2).astype(np.uint8)
+        img = (rng.normal(0.0, 0.5, size=shape) + lbl).astype(np.float32)
+        hms = np.zeros((MT_HEATMAPS, *shape), np.uint8)
+        for h in range(MT_HEATMAPS):
+            point = centre + rng.uniform(-20, 20, size=3)
+            d2 = sum((g - c) ** 2 for g, c in zip(grid, point))
+            hms[h] = (255.0 * np.exp(-d2 / (2 * 4.0 ** 2))).astype(np.uint8)
+        z.require_group("images").create_dataset(key, data=img[None], compressor=None)
+        z.require_group("labels").create_dataset(key, data=lbl[None], compressor=None)
+        z.require_group("heatmaps").create_dataset(key, data=hms, compressor=None)
+    for split, keys in MT_SPLITS.items():
+        (root / f"mt_{split}.txt").write_text("\n".join(keys) + "\n")
+
+
+def par_multitask(torch, gn, P, dev, root, counts):
+    """``train_ldmks -c configs/multitask_dp.yaml --gpus 8`` on the one card:
+    the clamp printed, every step at the global batch of 32 x 96^3, exact
+    launches, patches/s and peak memory, finite losses and a validation
+    loss that falls from the first epoch to the last."""
+    import io
+
+    from tpu_mednet_torch.cli import train_ldmks
+    from tpu_mednet_torch.train import loop
+
+    write_multitask_store(root)
+    shapes = []
+
+    def recording(orig):
+        def make(*args, **kw):
+            step = orig(*args, **kw)
+
+            def recorded(state, batch):
+                shapes.append(tuple(batch["data"].shape))
+                return step(state, batch)
+            return recorded
+        return make
+
+    argv = ["-c", str(HERE / "configs" / "multitask_dp.yaml"), "--gpus", "8",
+            "--data_path", str(root / "multitask.zarr"), "--train_set", str(root / "mt_train.txt"),
+            "--val_set", str(root / "mt_val.txt"), "--model_dir", str(root / "multitask"),
+            "--log_dir", str(root / "multitask" / "logs"), "--max_epochs", str(MT_EPOCHS),
+            "--patches_per_subject", str(MT_PATCHES)]
+    stdout = io.StringIO()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = launch_counts(gn, P)
+    t0 = time.perf_counter()
+    with wrapped(loop, "make_train_step", recording), contextlib.redirect_stdout(stdout):
+        rc = train_ldmks.main(argv)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    got = {k: v - before[k] for k, v in launch_counts(gn, P).items()}
+    add_counts(counts, before, launch_counts(gn, P))
+    printed = stdout.getvalue()
+    log(f"multitask_dp: printed {printed.strip()!r}")
+    if rc != 0:
+        raise AssertionError(f"multitask_dp: train_ldmks exited {rc}")
+    steps = MT_STEPS * MT_EPOCHS
+    vis = 1 if importlib.util.find_spec("matplotlib") else 0
+    val_batches = max(MT_PATCHES // MT_BATCH, 1)  # an epoch shorter than a batch is padded
+    fwd = (steps + MT_EPOCHS * (val_batches + vis)) * 27
+    want = dict(gn_moments=fwd, gn_apply=fwd, gn_bwd_reduce=steps * 27,
+                gn_bwd_apply=steps * 27, gather_patches=0)
+    metrics = read_metrics(root / "multitask" / "logs" / "metrics.jsonl")
+    train = [r["train_loss"] for r in metrics if "train_loss" in r]
+    val = [r["val_loss"] for r in metrics if "val_loss" in r]
+    val_parts = [(r["val_class_loss"], r["val_regression_loss"]) for r in metrics
+                 if "val_loss" in r]
+    pps = [r["patches_per_sec"] for r in metrics if "patches_per_sec" in r]
+    out = dict(printed=printed.strip(), batch_shapes=sorted(set(shapes)), steps=len(shapes),
+               launches=got, expected=want, train_losses=train, val_losses=val,
+               val_class_and_regression=val_parts,
+               patches_per_s=pps, peak_allocated_gib=peak / 2**30, seconds=seconds)
+    log(f"multitask_dp: {len(shapes)} steps at {sorted(set(shapes))}; patches/s by epoch "
+        f"{' '.join(f'{v:.2f}' for v in pps)}; peak allocated {peak / 2**30:.3f} GiB; launches "
+        f"{got} (expected {want}); train losses {train}, val losses {val} (class, regression "
+        f"{val_parts}); {seconds:.1f} s")
+    ok = ("--gpus 8 clamped to 1" in printed and len(shapes) == steps
+          and set(shapes) == {(MT_BATCH, 1, *PATCH)} and got == want
+          and all(np.isfinite(train + val)) and len(val) == MT_EPOCHS and val[-1] < val[0])
+    if not ok:
+        raise AssertionError("multitask_dp: the clamp, the batch, the launches or the losses")
+    return out
+
+
+def par_round_robin(torch, gn, P, dev, root, counts):
+    """``predict`` of the observability run's checkpoint with
+    ``prediction.gpus: 2`` (clamped to 1, printed) byte-equal to ``gpus:
+    1``; ``round_robin_placement`` over ``[cuda:0, cuda:0]`` places one more
+    copy of the weights (the first entry is the model itself) and its masks
+    through the device stitch equal one device's."""
+    import io
+
+    from tpu_mednet_torch.cli import predict
+    from tpu_mednet_torch.data import MemoryReader
+    from tpu_mednet_torch.data.readers import ZarrReader
+    from tpu_mednet_torch.inference import predict_volumes_on_device
+    from tpu_mednet_torch.inference.common import round_robin_placement
+    from tpu_mednet_torch.models import ResidualUNet3D
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.utils.memory import param_bytes
+
+    masks, printed = {}, {}
+    for gpus in (1, 2):
+        argv = organ_predict_argv(root, "device")
+        argv = [a.replace("prediction_device.zarr", f"prediction_gpus{gpus}.zarr") for a in argv]
+        stdout = io.StringIO()
+        before = launch_counts(gn, P)
+        with contextlib.redirect_stdout(stdout):
+            rc = predict.main([*argv, f"prediction.gpus={gpus}"])
+        add_counts(counts, before, launch_counts(gn, P))
+        if rc != 0:
+            raise AssertionError(f"round robin: predict with gpus {gpus} exited {rc}")
+        printed[gpus] = stdout.getvalue().strip()
+        with ZarrReader(root / f"prediction_gpus{gpus}.zarr") as r:
+            keys = ORGAN_SPLITS["test"]
+            masks[gpus] = dict(zip(keys, r.read(keys, "prediction", np.uint8)))
+    cli_equal = all(np.array_equal(masks[1][k], masks[2][k]) for k in masks[1])
+
+    model = ResidualUNet3D(1, ORGAN_CLASSES, f_maps=32, dtype=torch.bfloat16, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+    task = SegmentationTask(model=model, loss="DICE")
+    rng = np.random.default_rng(3)
+    reader = MemoryReader({"images": {f"r{i}": rng.normal(size=(1, 160, 160, 160))
+                                      .astype(np.float32) for i in range(2)}})
+    kw = dict(patch_size=PATCH, patch_overlap=OVERLAP, batch_size=BATCH, reader=reader,
+              device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    placement = round_robin_placement(task, [dev, dev])
+    placed = torch.cuda.memory_allocated(dev) - held
+    before = launch_counts(gn, P)
+    one = predict_volumes_on_device(task, None, ["r0", "r1"], **kw)
+    two = predict_volumes_on_device(task, None, ["r0", "r1"], devices=placement, **kw)
+    again = predict_volumes_on_device(task, None, ["r0", "r1"], devices=placement, **kw)
+    add_counts(counts, before, launch_counts(gn, P))
+    after = torch.cuda.memory_allocated(dev) - held
+    lib_equal = all(np.array_equal(one[k].array, two[k].array) and
+                    np.array_equal(one[k].array, again[k].array) for k in ("r0", "r1"))
+    copies = placed / param_bytes(model)
+    out = dict(printed=printed, cli_byte_equal=cli_equal, library_byte_equal=lib_equal,
+               entries=len(placement.tasks), placed_bytes=placed,
+               param_bytes=param_bytes(model), copies_placed=copies,
+               held_after_calls_bytes=after)
+    log(f"round robin: predict prediction.gpus 2 printed {printed[2]!r}; masks byte-equal to "
+        f"gpus 1 {cli_equal}; round_robin_placement over [{dev}, {dev}]: {len(placement.tasks)} "
+        f"entries, {placed} bytes placed = {copies:.3f} x the model's {param_bytes(model)}; "
+        f"device-stitch masks of two calls byte-equal to one device {lib_equal}; allocated "
+        f"after the calls {after} bytes above the start")
+    if not ("prediction.gpus 2 clamped to 1" in printed[2] and cli_equal and lib_equal
+            and placement.tasks[0] is task and abs(copies - 1.0) < 0.01):
+        raise AssertionError("round robin: the clamp, the placement or the masks disagree")
+    return out
+
+
+def parallel_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
+    """Training observability and data parallelism: the visualizer's
+    compute half at full width, Neptune and figures through ``train_seg``,
+    two dp ranks against one process, ``configs/multitask_dp.yaml`` on the
+    card, round-robin prediction; launches of this process and of the
+    ranks counted from 0."""
+    import tempfile
+
+    log_clocks("parallel")
+    t0 = time.perf_counter()
+    reset_counts(gn, P)
+    counts = dict.fromkeys(launch_counts(gn, P), 0)
+    serve_counts = dict(counts)
+    vis = vis_compute(torch, gn, P, dev, counts)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        root = Path(tmp)
+        obs = par_observability(torch, gn, P, dev, root, counts)
+        torch.cuda.empty_cache()
+        dp = par_dp(torch, gn, P, dev, root, counts)
+        torch.cuda.empty_cache()
+        mt = par_multitask(torch, gn, P, dev, root, counts)
+        torch.cuda.empty_cache()
+        rr = par_round_robin(torch, gn, P, dev, root, serve_counts)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    total = {k: counts[k] + serve_counts[k] for k in counts}
+    log(f"parallel: launches {total} (training {counts}, serving {serve_counts}); "
+        f"{seconds:.1f} s")
+    return dict(counts=total, gather_serving=serve_counts["gather_patches"],
+                gather_indexed=counts["gather_patches"], parallel=dict(
+                    visualizer=vis, observability=obs, dp=dp, multitask_dp=mt,
+                    round_robin=rr, seconds=seconds))
+
+
 def analytic_mfu(fwd, slice_, train) -> dict:
     """The analytic model FLOPs (``utils/flops.py``: 3x the forward's
     convolutions a train step) over the measured time, against the H100's
@@ -4447,7 +5089,12 @@ def main(argv) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     children = {"--landmarks": landmarks_phase, "--predict-surface": predict_surface_phase,
                 "--training-surface": training_surface_phase, "--tools": tools_phase,
-                "--deploy": deploy_phase, "--unet3d": unet3d_phase}
+                "--deploy": deploy_phase, "--unet3d": unet3d_phase,
+                "--parallel": parallel_phase}
+    if argv[:1] == ["--dp-rank"]:  # a rank of par_dp, started by the --parallel child
+        _build.build()
+        dp_rank(torch, gn, P, dev, Path(argv[1]))
+        return 0
     if argv[:1] and argv[0] in children:  # a child of run_child
         _build.build()
         out = children[argv[0]](torch, gn, P, _grid_corners, dev, gen)
@@ -4539,19 +5186,27 @@ def main(argv) -> int:
     u3_all = run_child("--unet3d", "unet3d")
     u3_counts = u3_all["counts"]
 
+    # 15. training observability (the MIP visualizer's compute half,
+    # Neptune and figures through train_seg) and data parallelism (two gloo
+    # ranks against one process, multitask_dp.yaml clamped to the card,
+    # round-robin prediction), in a fresh process too
+    par_all = run_child("--parallel", "parallel")
+    par_counts = par_all["counts"]
+
     def launches(name):
         by_path = dict(serving=counts[name], training=train_counts[name],
                        entry_points=entry_counts[name], landmarks=ldmk_counts[name],
                        predict_surface=surface_counts[name],
                        training_surface=training_counts[name], tools=tools_counts[name],
-                       deploy=deploy_counts[name], unet3d=u3_counts[name])
+                       deploy=deploy_counts[name], unet3d=u3_counts[name],
+                       parallel=par_counts[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     def gather_launches(path, entry, landmarks, surface, training_surface, tools, deploy=0,
-                        unet3d=0):
+                        unet3d=0, parallel=0):
         by_path = dict(serving=0, training=0, entry_points=entry, landmarks=landmarks,
                        predict_surface=surface, training_surface=training_surface, tools=tools,
-                       deploy=deploy, unet3d=unet3d)
+                       deploy=deploy, unet3d=unet3d, parallel=parallel)
         by_path[path] = counts["gather_patches"] if path == "serving" \
             else train_counts["gather_patches"]
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
@@ -4631,7 +5286,8 @@ def main(argv) -> int:
              **gather_launches("serving", entry_k2["plain"], ldmk_k2["plain"],
                                surface_counts["gather_patches"], 0,
                                tools_counts["gather_patches"],
-                               deploy_counts["gather_patches"], u3_all["gather_serving"]),
+                               deploy_counts["gather_patches"], u3_all["gather_serving"],
+                               par_all["gather_serving"]),
              max_abs_err=k2["err"],
              ms=k2["ms"], event_ms=k2["wrapper_ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound"], library_ms=None, profiler_kept=k2["kept"],
@@ -4681,7 +5337,7 @@ def main(argv) -> int:
                       "tpu_mednet/data/device_sampler.py:171-190)",
              **gather_launches("training", entry_k2["indexed"], ldmk_k2["indexed"], 0,
                                training_counts["gather_patches"], 0, 0,
-                               u3_all["gather_indexed"]),
+                               u3_all["gather_indexed"], par_all["gather_indexed"]),
              max_abs_err=k2i["err"],
              ms=k2i["ms"], plain_ms=k2i["plain_ms"], bound_ms=k2i["bound"],
              profiler_kept=k2i["kept"], per_store=k2i["per_store"], copy_ms=k2i["copy_ms"],
@@ -4750,6 +5406,16 @@ def main(argv) -> int:
         guard_ratio={k: v["guard_ratio"] for k, v in u3["serving"].items()},
         memory_fit_ratios=[round(pt["ratio"], 4) for pt in u3["memory_fit"]],
         launches=u3_counts, seconds=u3["seconds"])}))
+    par = par_all["parallel"]
+    log(json.dumps({"parallel": par}))
+    log(json.dumps({"parallel_summary": dict(
+        visualizer_ms={k: v["ms_per_call"] for k, v in par["visualizer"].items()},
+        matplotlib=par["observability"]["matplotlib"],
+        dp_median_step_ms_by_rank=par["dp"]["bench"]["median_step_ms"],
+        dp_worst_rel={k: par["dp"][k]["worst_rel"] for k in ("fp32", "bf16", "cbr")},
+        multitask_patches_per_s=par["multitask_dp"]["patches_per_s"],
+        multitask_peak_gib=par["multitask_dp"]["peak_allocated_gib"],
+        launches=par_counts, seconds=par["seconds"])}))
     log(json.dumps({"mfu": mfu}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

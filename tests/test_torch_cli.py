@@ -220,8 +220,19 @@ def test_predict_from_a_reference_ckpt(run, tmp_path):
     (["prediction.tta=true"], None),
     (["prediction.gpus=2"], "Multi-GPU"),
     (["prediction.landmarks=/tmp/l.json"], "landmarks"),
-])
-def test_predict_refuses_what_waits(run, tmp_path, extra, match):
+], ids=["extra0-None", "extra1-None", "extra2-Multi-GPU", "extra3-landmarks"])
+def test_predict_refuses_what_waits(run, tmp_path, capsys, extra, match):
+    if match == "Multi-GPU":  # ported: clamped to the one CPU device, with a line
+        out = tmp_path / "pred.zarr"
+        capsys.readouterr()
+        assert predict.main(_predict_argv(run, "crop", None, *extra,
+                                          f"prediction.data={out}")) == 0
+        assert "prediction.gpus 2 clamped to 1" in capsys.readouterr().out
+        with JaxZarrReader(out) as r, JaxZarrReader(run / "pred_crop.zarr") as ref:
+            for key in ("s3", "s4"):
+                (got,), (want,) = (x.read([key], "prediction", np.uint8) for x in (r, ref))
+                assert np.array_equal(np.asarray(got), np.asarray(want)), key
+        return
     if match is None:  # the Gaussian stitch and TTA are ported: held against JAX
         out = tmp_path / "pred.zarr"
         assert predict.main(_predict_argv(run, "crop", None, *extra,
@@ -236,8 +247,7 @@ def test_predict_refuses_what_waits(run, tmp_path, extra, match):
         return
     # landmarks are ported: a segmentation checkpoint has no heatmaps to
     # read them from, which is a configuration error
-    error = ValueError if match == "landmarks" else NotImplementedError
-    with pytest.raises(error, match="no heatmap channels" if error is ValueError else match):
+    with pytest.raises(ValueError, match="no heatmap channels"):
         predict.main(_predict_argv(run, "crop", None, *extra))
 
 
@@ -264,16 +274,27 @@ def test_predict_refuses_the_wrong_task(run, tmp_path):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--gpus", "2"], NotImplementedError, "Multi-GPU"),
+    (["--gpus", "3"], SystemExit, "data-parallel size 3"),
     (["--spatial_shards", "2"], NotImplementedError, "Multi-GPU"),
     (["--native_loader"], RuntimeError, "native loader requested but unavailable"),
-    (["--neptune_project", "p"], NotImplementedError, "Neptune"),
+    (["--neptune_project", "p"], None, "not installed"),
 ], ids=["extra0-Multi-GPU", "extra1-Multi-GPU", "extra2-native loader", "extra3-Neptune"])
-def test_train_refuses_what_waits(run, tmp_path, monkeypatch, extra, error, match):
-    """The modes that wait raise; ``--native_loader`` (ported) requires the
-    native pipeline and raises where its library is unavailable."""
+def test_train_refuses_what_waits(run, tmp_path, monkeypatch, caplog, extra, error, match):
+    """Spatial partitioning waits and raises; ``--gpus`` (ported) needs a
+    batch that splits evenly over the ranks, as JAX's does;
+    ``--native_loader`` (ported) requires the native pipeline and raises
+    where its library is unavailable; ``--neptune_project`` (ported) warns
+    and trains where the client is missing, as JAX's does."""
     monkeypatch.setenv("TPU_MEDNET_NO_NATIVE", "1")
-    argv = _train_argv(run, "--max_epochs", "1", "--model_dir", str(tmp_path / "m"), *extra)
+    argv = _train_argv(run, "--max_epochs", "1", "--model_dir", str(tmp_path / "m"),
+                       "--log_dir", str(tmp_path / "l"), *extra)
+    if error is None:
+        monkeypatch.setenv("NEPTUNE_API_TOKEN", "fake-token")
+        monkeypatch.setitem(__import__("sys").modules, "neptune", None)
+        with caplog.at_level("WARNING"):
+            assert train_seg.main(argv) == 0
+        assert match in caplog.text
+        return
     with pytest.raises(error, match=match):
         train_seg.main(argv)
 

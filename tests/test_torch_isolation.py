@@ -38,7 +38,10 @@ def test_port_imports_no_jax_and_no_tpu_mednet():
                "tpu_mednet_torch.utils.misc", "tpu_mednet_torch.native",
                "tpu_mednet_torch.data.native_loader", "tpu_mednet_torch.cli.export_serving",
                "tpu_mednet_torch.inference.serving", "tpu_mednet_torch.models.blocks",
-               "tpu_mednet_torch.models.unet", "tpu_mednet_torch.utils.weights"}
+               "tpu_mednet_torch.models.unet", "tpu_mednet_torch.utils.weights",
+               "tpu_mednet_torch.utils.plots", "tpu_mednet_torch.utils.neptune_logger",
+               "tpu_mednet_torch.cli.visualize", "tpu_mednet_torch.parallel",
+               "tpu_mednet_torch.parallel.mesh", "tpu_mednet_torch.parallel.multihost"}
         print(len(names), banned, sorted(new - set(names)))
         sys.exit(1 if banned or new - set(names) else 0)
     """)
@@ -46,7 +49,7 @@ def test_port_imports_no_jax_and_no_tpu_mednet():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 58
+    assert n_modules >= 67
 
 
 def test_port_sources_name_no_jax_import():

@@ -220,16 +220,26 @@ def test_predict_guards(run, extra, match):
     (["--loss_regression_weight", "0.1", "0.1"], SystemExit, "out_channels"),
     (["--loss_regression_weight", "0.1", "0.1", "--out_channels", "4"], SystemExit,
      "3 heatmap channels"),
-    (["--gpus", "2"], NotImplementedError, "Multi-GPU"),
+    (["--gpus", "3"], SystemExit, "data-parallel size 3"),
     (["--native_loader"], RuntimeError, "native loader requested but unavailable"),
-    (["--neptune_project", "p"], NotImplementedError, "Neptune"),
+    (["--neptune_project", "p"], None, "not installed"),
 ], ids=["landmarks_need_device_sampler", "heatmaps_vs_out_channels", "store_vs_config",
         "gpus", "native_loader", "neptune"])
-def test_train_ldmks_refuses(run, tmp_path, monkeypatch, extra, error, match):
+def test_train_ldmks_refuses(run, tmp_path, monkeypatch, caplog, extra, error, match):
     # --native_loader requires the native pipeline: refused where its
-    # library is unavailable
+    # library is unavailable; --gpus needs a batch that splits evenly over
+    # the ranks; --neptune_project without the client warns and trains, as
+    # the JAX CLI does
     monkeypatch.setenv("TPU_MEDNET_NO_NATIVE", "1")
-    argv = _train_argv(run, "--max_epochs", "1", "--model_dir", str(tmp_path / "m"), *extra)
+    argv = _train_argv(run, "--max_epochs", "1", "--model_dir", str(tmp_path / "m"),
+                       "--log_dir", str(tmp_path / "l"), *extra)
+    if error is None:
+        monkeypatch.setenv("NEPTUNE_API_TOKEN", "fake-token")
+        monkeypatch.setitem(__import__("sys").modules, "neptune", None)
+        with caplog.at_level("WARNING"):
+            assert train_ldmks.main(argv) == 0
+        assert match in caplog.text
+        return
     with pytest.raises(error, match=match):
         train_ldmks.main(argv)
 

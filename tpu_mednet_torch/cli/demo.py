@@ -12,6 +12,8 @@ configs wired to them, so the whole workflow runs without a download::
         prediction.data=demo/pred_seg.zarr
     python -m tpu_mednet_torch.cli.evaluate --pred demo/pred_seg.zarr \
         --truth demo/data.zarr --subjects demo/test.txt
+    python -m tpu_mednet_torch.cli.visualize --data demo/data.zarr \
+        --pred demo/pred_seg.zarr --out demo/figs
 
 Each subject is a noisy volume with a bright sphere (class 1) and a dark
 box (class 2) at random positions; one Gaussian landmark heatmap sits at
@@ -303,6 +305,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"  python -m tpu_mednet_torch.cli.predict     -c {out_dir}/predict_seg.yaml")
     print(f"  python -m tpu_mednet_torch.cli.evaluate    --pred {out_dir}/pred_seg.h5 "
           f"--truth {data_path}")
+    print(f"  python -m tpu_mednet_torch.cli.visualize   --data {data_path} "
+          f"--pred {out_dir}/pred_seg.h5 --out {out_dir}/figs")
     return 0
 
 

@@ -22,9 +22,10 @@ before the class map, and ``prediction.landmarks`` (a ``.json`` or
 checkpoint is a training directory of the port (EMA weights unless
 ``prediction.use_ema=false``; ``prediction.checkpoint_step`` pins a step)
 or a reference-style ``.ckpt`` file.  It runs on CUDA unless ``--device
-cpu`` is given.
-
-Not ported (refused): ``gpus`` above 1.
+cpu`` is given.  ``prediction.gpus`` above 1 deals volumes (in the ``crop``
+stitch, tile batches) round-robin over that many cards, the weights placed
+once on each; it is clamped to the cards visible (to 1 on the CPU), as the
+JAX CLI clamps it to ``len(jax.devices())``, and the clamp is printed.
 """
 
 from __future__ import annotations
@@ -55,11 +56,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--log_level", type=str, default="INFO")
     add_device_arg(parser)
     return parser
-
-
-def _refuse(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to tpu_mednet_torch yet "
-                               f"(ROADMAP §1, {item!r})")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -99,8 +95,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if stitch not in ("crop", "device", "gaussian"):
         raise ValueError(f"prediction.stitch must be crop, device or gaussian, got {stitch!r}")
     hbm_guard = pred.get("hbm_guard", "warn")
-    if (pred.get("gpus", 1) or 1) > 1:
-        raise _refuse("prediction.gpus above 1", "Multi-GPU")
+    n_gpus = int(pred.get("gpus", 1) or 1)
     if checkpoint_step is not None:
         try:
             checkpoint_step = int(checkpoint_step)
@@ -110,7 +105,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 f"{checkpoint_step!r} (for the best-val checkpoint point "
                 f"prediction.checkpoint at <model_dir>/best)") from None
 
-    from tpu_mednet_torch.inference.common import normalize_tta
+    import torch
+
+    from tpu_mednet_torch.inference.common import normalize_tta, round_robin_placement
     from tpu_mednet_torch.inference.device_sliding import predict_volumes_on_device
     from tpu_mednet_torch.inference.serving import detect_task_name
     from tpu_mednet_torch.inference.sliding_window import predict_volumes
@@ -161,13 +158,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "layout; drop prediction.channel_selection (the readout would "
             "index the wrong channels of a subset)")
     task.model.load_state_dict(state_dict, strict=True)
+    visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n_gpus > visible:
+        print(f"predict: prediction.gpus {n_gpus} clamped to {visible}, the devices "
+              "visible", flush=True)
+    n_gpus = min(n_gpus, visible)
+    # the weights go to every card once; each chunk's call reuses them
+    placement = round_robin_placement(
+        task, [torch.device("cuda", i) for i in range(n_gpus)] if n_gpus > 1 else None)
 
     all_landmarks: dict = {}
     for c, chunk in enumerate(chunks):
         logger.info("chunk %d/%d", c, chunk_num)
         kw = dict(patch_size=patch_size, patch_overlap=patch_overlap,
                   batch_size=batch_size, image_group=image_group, device=device,
-                  tta_flips=tta_flips)
+                  tta_flips=tta_flips, devices=placement)
         if stitch == "device":
             results = predict_volumes_on_device(task, data_path, list(chunk),
                                                 hbm_guard=hbm_guard, **kw)

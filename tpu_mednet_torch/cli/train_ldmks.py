@@ -11,8 +11,12 @@ code 3 when training stops on non-finite values.  It runs on CUDA unless
 ``--device cpu`` is given.
 
 The host sampler runs through the native batch pipeline unless
-``--no_native_loader``.  Not ported: more than one GPU, Neptune and the MIP
-sample visualizer (``--log_vis_mip`` is accepted and ignored).
+``--no_native_loader``.  ``--log_vis_mip``, ``--neptune_project`` and
+``--gpus`` as in ``train_seg``: the MIP sample figures (with the heatmap
+MIPs; they need matplotlib, and without it one warning says so and the run
+trains without them), a Neptune sink where the token and the client are
+there, and data-parallel ranks over one global batch, rank 0 alone
+writing.  ``--spatial_shards`` above 1 is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +36,6 @@ from tpu_mednet_torch.config import (
     load_dotenv,
     parse_with_config,
     read_keyfile,
-    validate_task_config,
 )
 
 
@@ -46,6 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     load_dotenv()
+    argv = list(sys.argv[1:] if argv is None else argv)
     hparams = parse_with_config(build_parser(), argv)
     logging.basicConfig(level=hparams.log_level)
     logger = logging.getLogger("train_ldmks")
@@ -59,27 +63,50 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except RuntimeError as exc:
         print(f"train_ldmks: {exc}", file=sys.stderr)
         return 2
-    if hparams.neptune_project:
-        raise NotImplementedError("--neptune_project: the port has no Neptune client "
-                                  "(ROADMAP §1, 'Neptune'); metrics go to --log_dir")
-    if hparams.gpus > 1 or hparams.spatial_shards > 1:
+    if hparams.spatial_shards > 1:
         raise NotImplementedError(
-            f"--gpus {hparams.gpus} --spatial_shards {hparams.spatial_shards}: the "
-            "port trains on one GPU (ROADMAP §1, 'Multi-GPU')")
+            f"--spatial_shards {hparams.spatial_shards}: spatial partitioning is not "
+            "ported yet (ROADMAP §1, 'Multi-GPU')")
     if hparams.landmark_group and not hparams.device_sampler:
         raise SystemExit("--landmark_group (heatmaps rendered on the device) requires "
                          "--device_sampler")
+    from tpu_mednet_torch.parallel.multihost import join_or_launch
+
+    mesh, rc = join_or_launch("tpu_mednet_torch.cli.train_ldmks", argv, hparams, device,
+                              "ldmk")
+    if mesh is None:
+        return rc
+    try:
+        return _train(hparams, mesh, logger)
+    finally:
+        if mesh.parallel:
+            torch.distributed.destroy_process_group()
+
+
+def _train(hparams, mesh, logger) -> int:
+    import torch
 
     from tpu_mednet_torch.data import DevicePatchSampler, PatchSampler
     from tpu_mednet_torch.ops.augment import AugmentConfig
+    from tpu_mednet_torch.parallel.mesh import shard_subject_keys
     from tpu_mednet_torch.tasks import LandmarkTask
     from tpu_mednet_torch.train import NonFiniteError, OptimizerConfig, Trainer
+    from tpu_mednet_torch.utils.neptune_logger import maybe_create_neptune_run
+    from tpu_mednet_torch.utils.plots import make_landmark_sample_visualizer
 
+    device = mesh.device
     np.random.seed(hparams.seed)
+    writer = mesh.rank == 0
+    neptune_sink = maybe_create_neptune_run(
+        hparams.neptune_project, hparams.experiment_name, hparams=vars(hparams),
+        source_files=[__file__] + ([hparams.config] if hparams.config else [])) \
+        if writer else None
     train_keys = read_keyfile(hparams.train_set)
     val_keys = read_keyfile(hparams.val_set) if hparams.val_set else []
+    if not hparams.device_sampler:  # a node's host sampler draws from its own keys
+        train_keys, val_keys = (shard_subject_keys(k, mesh.node_index, mesh.node_count)
+                                for k in (train_keys, val_keys))
     logger.info("train keys: %d, val keys: %d", len(train_keys), len(val_keys))
-    validate_task_config(hparams, "ldmk")
     # the reference always augments landmarks (train_ldmks.py:82-84); the
     # --aug_* flags extend the intensity chain
     augment = augment_config_from_hparams(hparams) or AugmentConfig()
@@ -125,7 +152,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         log_dir=hparams.log_dir,
         augment=augment,
         seed=hparams.seed,
+        log_interval=hparams.log_interval,
+        sample_visualizer=make_landmark_sample_visualizer(
+            task.num_heatmaps, hparams.log_vis_mip) if writer else None,
         hparams=vars(hparams),
+        metric_sinks=(neptune_sink,),
+        mesh=mesh,
         native_loader=hparams.native_loader,
         optim=OptimizerConfig.from_hparams(hparams),
         check_val_every_n_epoch=hparams.check_val_every_n_epoch,

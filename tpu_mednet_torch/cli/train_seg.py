@@ -8,9 +8,18 @@ sampler -> task -> Trainer -> checkpoints.  It runs on CUDA unless
 ``--device cpu`` is given.
 
 The host sampler runs through the native batch pipeline unless
-``--no_native_loader`` (``--native_loader`` requires it).  Not ported: more
-than one GPU (``--gpus``/``--spatial_shards`` above 1), Neptune
-(``--neptune_project``) and the MIP sample visualizer.
+``--no_native_loader`` (``--native_loader`` requires it).  ``--log_vis_mip``
+(``mean`` or ``max``) logs the MIP sample figures of every
+``--log_interval``-th validation batch; they need matplotlib, and where it
+is absent one warning says so and the run trains without them (the JAX
+CLI fails at import there).  ``--neptune_project`` adds a Neptune sink
+where ``NEPTUNE_API_TOKEN`` is set and the client imports (else it warns,
+as the JAX CLI does).  ``--gpus N`` trains data-parallel on N ranks, one a
+card, over one global batch of ``--batch_size``: it joins a ``torchrun``
+group where one launched it, else it starts the ranks of this host itself
+(NCCL); ``--device cpu --gpus N`` runs N gloo ranks on the CPU.  Rank 0
+alone writes logs, figures and checkpoints.  ``--spatial_shards`` above 1
+(spatial partitioning) is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,7 +39,6 @@ from tpu_mednet_torch.config import (
     load_dotenv,
     parse_with_config,
     read_keyfile,
-    validate_task_config,
 )
 
 
@@ -44,6 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     load_dotenv()
+    argv = list(sys.argv[1:] if argv is None else argv)
     hparams = parse_with_config(build_parser(), argv)
     logging.basicConfig(level=hparams.log_level)
     logger = logging.getLogger("train_seg")
@@ -57,23 +66,45 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except RuntimeError as exc:
         print(f"train_seg: {exc}", file=sys.stderr)
         return 2
-    if hparams.neptune_project:
-        raise NotImplementedError("--neptune_project: the port has no Neptune client "
-                                  "(ROADMAP §1, 'Neptune'); metrics go to --log_dir")
-    if hparams.gpus > 1 or hparams.spatial_shards > 1:
+    if hparams.spatial_shards > 1:
         raise NotImplementedError(
-            f"--gpus {hparams.gpus} --spatial_shards {hparams.spatial_shards}: the "
-            "port trains on one GPU (ROADMAP §1, 'Multi-GPU')")
+            f"--spatial_shards {hparams.spatial_shards}: spatial partitioning is not "
+            "ported yet (ROADMAP §1, 'Multi-GPU')")
+    from tpu_mednet_torch.parallel.multihost import join_or_launch
+
+    mesh, rc = join_or_launch("tpu_mednet_torch.cli.train_seg", argv, hparams, device, "seg")
+    if mesh is None:
+        return rc
+    try:
+        return _train(hparams, mesh, logger)
+    finally:
+        if mesh.parallel:
+            torch.distributed.destroy_process_group()
+
+
+def _train(hparams, mesh, logger) -> int:
+    import torch
 
     from tpu_mednet_torch.data import DevicePatchSampler, PatchSampler
+    from tpu_mednet_torch.parallel.mesh import shard_subject_keys
     from tpu_mednet_torch.tasks import SegmentationTask
     from tpu_mednet_torch.train import NonFiniteError, OptimizerConfig, Trainer
+    from tpu_mednet_torch.utils.neptune_logger import maybe_create_neptune_run
+    from tpu_mednet_torch.utils.plots import make_seg_sample_visualizer
 
+    device = mesh.device
     np.random.seed(hparams.seed)
+    writer = mesh.rank == 0
+    neptune_sink = maybe_create_neptune_run(
+        hparams.neptune_project, hparams.experiment_name, hparams=vars(hparams),
+        source_files=[__file__] + ([hparams.config] if hparams.config else [])) \
+        if writer else None
     train_keys = read_keyfile(hparams.train_set)
     val_keys = read_keyfile(hparams.val_set) if hparams.val_set else []
+    if not hparams.device_sampler:  # a node's host sampler draws from its own keys
+        train_keys, val_keys = (shard_subject_keys(k, mesh.node_index, mesh.node_count)
+                                for k in (train_keys, val_keys))
     logger.info("train keys: %d, val keys: %d", len(train_keys), len(val_keys))
-    validate_task_config(hparams, "seg")
     augment = augment_config_from_hparams(hparams)
 
     if hparams.device_sampler:
@@ -102,7 +133,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         log_dir=hparams.log_dir,
         augment=augment,
         seed=hparams.seed,
+        log_interval=hparams.log_interval,
+        sample_visualizer=make_seg_sample_visualizer(hparams.log_vis_mip) if writer else None,
         hparams=vars(hparams),
+        metric_sinks=(neptune_sink,),
+        mesh=mesh,
         native_loader=hparams.native_loader,
         optim=OptimizerConfig.from_hparams(hparams),
         check_val_every_n_epoch=hparams.check_val_every_n_epoch,

@@ -79,7 +79,8 @@ def add_common_train_args(parser: argparse.ArgumentParser) -> None:
                         help="YAML config file (values become defaults)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--neptune_project", type=str, default=None,
-                        help="not ported: the port has no Neptune client")
+                        help="Neptune project; logs there when NEPTUNE_API_TOKEN is "
+                             "set and the neptune client imports")
     parser.add_argument("--experiment_name", type=str, default="experiment")
     parser.add_argument("--data_path", type=env_path)
     parser.add_argument("--image_group", type=str, default="images")
@@ -112,7 +113,8 @@ def add_common_train_args(parser: argparse.ArgumentParser) -> None:
                         help="per-sample probability of the elastic/rotate/"
                              "scale transform")
     parser.add_argument("--gpus", type=int, default=1,
-                        help="device count (one GPU is ported; more raise)")
+                        help="data-parallel ranks, one a GPU (clamped to those "
+                             "visible; with --device cpu, gloo ranks)")
     parser.add_argument("--preload", action="store_true")
     parser.add_argument("--resume", type=str, default=None)
     parser.add_argument("--max_epochs", type=int, default=100)
@@ -129,7 +131,8 @@ def add_common_train_args(parser: argparse.ArgumentParser) -> None:
                         help="keep volumes resident on the card and gather "
                              "patches there (DevicePatchSampler)")
     parser.add_argument("--spatial_shards", type=int, default=1,
-                        help="spatial partitioning (one shard is ported; more raise)")
+                        help="spatial partitioning (not ported yet: more than 1 "
+                             "raises)")
     parser.add_argument("--native_loader", dest="native_loader",
                         action="store_true", default=None,
                         help="require the native (C++) batch pipeline "
@@ -268,7 +271,8 @@ def add_seg_model_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--log_interval", type=int, default=5)
     parser.add_argument("--log_vis_mip", type=str, choices=["mean", "max"],
                         default="mean",
-                        help="accepted for parity; the MIP visualizer is not ported")
+                        help="projection of the MIP sample figures logged every "
+                             "--log_interval-th validation batch (needs matplotlib)")
     parser.add_argument("--loss", choices=["DICE", "CE"], default="DICE")
     parser.add_argument("--loss_weight", nargs="+", type=float, default=None)
 
@@ -286,7 +290,8 @@ def add_landmark_model_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--log_interval", type=int, default=5)
     parser.add_argument("--log_vis_mip", type=str, choices=["mean", "max"],
                         default="mean",
-                        help="accepted for parity; the MIP visualizer is not ported")
+                        help="projection of the MIP sample figures logged every "
+                             "--log_interval-th validation batch (needs matplotlib)")
     parser.add_argument("--heatmap_group", type=str, default="heatmaps")
     parser.add_argument("--landmark_group", type=str, default=None,
                         help="group of per-subject (L,3) landmark coords; "

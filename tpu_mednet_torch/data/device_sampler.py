@@ -190,12 +190,15 @@ class DevicePatchSampler:
                                        self.heatmap_sigma)
         return hm.to(torch.uint8).permute(0, 2, 3, 4, 1)
 
-    def batches(self, batch_size: int, shuffle: bool = True) -> Iterator[Dict[str, torch.Tensor]]:
+    def batches(self, batch_size: int, shuffle: bool = True,
+                rows: Optional[slice] = None) -> Iterator[Dict[str, torch.Tensor]]:
         """One epoch = a permutation of (subject, sample) pairs, exactly
         ``samples_per_subject`` draws per subject (reference epoch semantics,
         dataset.py:282-283), in full batches: a trailing partial batch is
         dropped, and an epoch shorter than one batch raises.
-        ``shuffle=False`` keeps the subject order."""
+        ``shuffle=False`` keeps the subject order.  With ``rows``, every
+        batch is drawn whole and only those rows are gathered (a data-
+        parallel rank's share: one K2 launch for its rows alone)."""
         items = np.repeat(np.arange(len(self.subject_keys), dtype=np.int64),
                           self.samples_per_subject)
         if len(items) < batch_size:
@@ -204,5 +207,7 @@ class DevicePatchSampler:
         if shuffle:
             items = self.rng.permutation(items)
         for start in range(0, len(items) - batch_size + 1, batch_size):
-            subj = items[start:start + batch_size]
-            yield self.gather(*self.sample_indices(batch_size, subj=subj))
+            subj, corners = self.sample_indices(batch_size, subj=items[start:start + batch_size])
+            if rows is not None:
+                subj, corners = subj[rows], corners[rows]
+            yield self.gather(subj, corners)

@@ -9,14 +9,18 @@ augmentation with its activation-space pair (``split_activations`` /
 ``postprocess_activations``), which every stitch shares.  Tensors are
 NCDHW: TTA's spatial axis ``a`` is tensor dim ``a + 2``.  Also the body
 both on-device stitches share (``predict_on_device``: the grid plan, the
-HBM guard's split, the upload, the spill to a host stitch).
-Round-robin multi-device placement is not ported yet.
+HBM guard's split, the upload, the spill to a host stitch), and the
+round-robin placement of data-parallel inference: one process deals
+volume ``i`` (a ``crop`` stitch, batch ``i``) to ``devices[i % n]``, each
+device holding its own copy of the weights, placed once and reused.
 """
 
 from __future__ import annotations
 
-from itertools import chain, combinations
-from typing import Callable, Iterable, Optional, Sequence, Tuple
+import copy
+import dataclasses
+from itertools import chain, combinations, count
+from typing import Callable, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +46,38 @@ def run_pipelined(items: Iterable[Tuple], dispatch: Callable,
         pending = queued
     if pending is not None:
         finalize(*pending)
+
+
+class RoundRobinPlacement(NamedTuple):
+    """One task per device for round-robin dispatch, ``tasks[i]``'s model
+    on ``devices[i]``.  Build it once with ``round_robin_placement`` and
+    pass it to every call (the predict CLI's chunks), so the weights are
+    placed once."""
+
+    devices: List[torch.device]
+    tasks: List
+
+
+def round_robin_placement(task, devices) -> Optional[RoundRobinPlacement]:
+    """Place ``task``'s weights on every entry of ``devices`` (the same
+    device twice places them twice); an existing placement passes through,
+    and no devices mean no placement (None: the task's own device).  The
+    first entry reuses ``task`` itself when its model already lives there."""
+    if isinstance(devices, RoundRobinPlacement):
+        return devices
+    devs = [torch.device(d) for d in devices or ()]
+    if not devs:
+        return None
+    tasks = []
+    for i, d in enumerate(devs):
+        try:
+            check_model_device(task, d)
+            here = i == 0
+        except ValueError:
+            here = False
+        tasks.append(task if here else
+                     dataclasses.replace(task, model=copy.deepcopy(task.model).to(d)))
+    return RoundRobinPlacement(devs, tasks)
 
 
 def normalize_tta(tta) -> Tuple[int, ...]:
@@ -201,23 +237,31 @@ def predict_on_device(
     hbm_budget: Optional[int],
     *,
     stitch: str,
-    predictor: Callable,
+    make_predictor: Callable,
     spill: Callable,
+    devices=None,
 ) -> VolumeGroup:
     """The shared body of an on-device stitch.
 
     Sizes every volume for ``stitch`` (``device`` or ``gaussian``) before
     anything is read or uploaded, reads those that fit in f16 (the
     reference/host pipeline's preload, dataset.py:441), and runs each
-    through ``predictor(volume, corners, n_tiles, pads)`` (the unpadded
-    (X, Y, Z, C) volume on the card and its ``tile_plan``; returns the
-    (L + 1, X, Y, Z) uint8 result on the card) in the depth-1 pipeline.
-    The volumes the guard turned away go to ``spill(keys, reader,
-    device)``, a host stitch.  An owned reader is closed either way.
+    through ``make_predictor(task)(volume, corners, n_tiles, pads)`` (the
+    unpadded (X, Y, Z, C) volume on the card and its ``tile_plan``; returns
+    the (L + 1, X, Y, Z) uint8 result on the card) in the depth-1
+    pipeline.  With ``devices`` (a list, or a ``RoundRobinPlacement``),
+    volume ``i`` runs whole on ``devices[i % n]`` with that device's copy
+    of the weights, so the results equal one device's.  The volumes the
+    guard turned away go to ``spill(keys, reader, device)``, a host stitch
+    on ``device``.  An owned reader is closed either way.
     """
     dev = resolve_device(device)
     check_model_device(task, dev)
-    task.model.eval()  # BatchNorm on its running statistics
+    placement = round_robin_placement(task, devices)
+    runs = ([(d, make_predictor(t)) for d, t in zip(placement.devices, placement.tasks)]
+            if placement is not None else [(dev, make_predictor(task))])
+    for t in placement.tasks if placement is not None else (task,):
+        t.model.eval()  # BatchNorm on its running statistics
     out_c = getattr(task, "num_heatmaps", 0) + 1
     owns = reader is None
     r = reader if reader is not None else open_reader(data_path, reader_cls)
@@ -230,10 +274,11 @@ def predict_on_device(
         volumes = list(r.read(fit_keys, image_group, dtype=np.float16))
         results = VolumeGroup()
 
-        def dispatch(key, vol):
+        def dispatch(i, key, vol):
             corners, n_tiles, pads = tile_plan(vol.shape[1:], patch_size, patch_overlap,
                                                batch_size)
-            return key, vol.shape[1:], predictor(upload_volume(vol, dev), corners, n_tiles,
+            on, predictor = runs[i % len(runs)]
+            return key, vol.shape[1:], predictor(upload_volume(vol, on), corners, n_tiles,
                                                  pads)
 
         def finalize(key, img_size, out):
@@ -242,7 +287,7 @@ def predict_on_device(
             ds.attrs["affine"] = np.asarray(affines[key]).tolist()
 
         with torch.inference_mode():
-            run_pipelined(zip(fit_keys, volumes), dispatch, finalize)
+            run_pipelined(zip(count(), fit_keys, volumes), dispatch, finalize)
         del volumes
         for key, ds in (spill(spill_keys, r, dev) if spill_keys else {}).items():
             dst = results.require_dataset(key, ds.array.shape, ds.array.dtype)

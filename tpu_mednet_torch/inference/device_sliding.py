@@ -12,9 +12,8 @@ The result is cropped to the input extent on the device, and one
 device-to-host copy per volume brings it back.  Before anything is
 uploaded, the HBM guard (``utils/memory.py``) sizes each volume and, under
 ``hbm_guard='warn'``, sends those that would not fit the card to the host
-stitch (``sliding_window.predict_volumes``).
-
-Not ported yet: ``devices`` (round-robin multi-GPU).
+stitch (``sliding_window.predict_volumes``).  With ``devices``, volumes are
+dealt round-robin across devices (``inference/common.py``).
 """
 
 from __future__ import annotations
@@ -96,6 +95,7 @@ def predict_volumes_on_device(
     tta_flips=(),
     hbm_guard: str = "error",
     hbm_budget: Optional[int] = None,
+    devices=None,
 ) -> VolumeGroup:
     """Sliding-window prediction of ``subject_keys`` with on-device stitching.
 
@@ -107,7 +107,8 @@ def predict_volumes_on_device(
     volume whose estimate exceeds ``hbm_budget`` (default:
     ``utils/memory.hbm_budget_bytes``) before anything is uploaded; ``warn``
     stitches such volumes on the host with the same ``tta_flips``; ``off``
-    skips the check.
+    skips the check.  ``devices`` (a list, or a ``RoundRobinPlacement``):
+    volume ``i`` runs on ``devices[i % n]``, with the same results.
     """
     tta_flips = tuple(tta_flips)
     out_c = getattr(task, "num_heatmaps", 0) + 1
@@ -120,5 +121,5 @@ def predict_volumes_on_device(
     return predict_on_device(
         task, data_path, subject_keys, patch_size, patch_overlap, batch_size, image_group,
         reader_cls, reader, device, tta_flips, hbm_guard, hbm_budget, stitch="device",
-        predictor=make_device_predictor(task, patch_size, patch_overlap, tta_flips),
-        spill=spill)
+        make_predictor=lambda t: make_device_predictor(t, patch_size, patch_overlap, tta_flips),
+        spill=spill, devices=devices)

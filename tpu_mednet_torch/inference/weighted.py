@@ -126,13 +126,15 @@ def predict_volumes_weighted_on_device(
     tta_flips=(),
     hbm_guard: str = "error",
     hbm_budget: Optional[int] = None,
+    devices=None,
 ) -> VolumeGroup:
     """On-device drop-in for ``predict_volumes_weighted``: the same tiling
     geometry and weighting, one device-to-host copy per volume.  The
     model's parameters must live on ``device`` (``None`` means ``cuda``).
     ``tta_flips`` and ``hbm_guard``/``hbm_budget`` as in
     ``device_sliding.predict_volumes_on_device``; a volume that does not
-    fit under ``warn`` goes to ``predict_volumes_weighted``."""
+    fit under ``warn`` goes to ``predict_volumes_weighted``; ``devices``
+    deals volumes round-robin, as there."""
     tta_flips = tuple(tta_flips)
 
     def spill(keys, reader, dev):
@@ -143,7 +145,8 @@ def predict_volumes_weighted_on_device(
     return predict_on_device(
         task, data_path, subject_keys, patch_size, patch_overlap, batch_size, image_group,
         reader_cls, reader, device, tta_flips, hbm_guard, hbm_budget, stitch="gaussian",
-        predictor=make_weighted_device_predictor(task, patch_size, tta_flips), spill=spill)
+        make_predictor=lambda t: make_weighted_device_predictor(t, patch_size, tta_flips),
+        spill=spill, devices=devices)
 
 
 def predict_volumes_weighted(

@@ -139,7 +139,15 @@ class BatchNorm(nn.Module):
     exists for strict loading only: flax keeps no count and the momentum
     is fixed, so it stays 0 and a loaded count is dropped, as the JAX
     package's import drops it.
+
+    With ``dp`` set (``set_batch_norm_mesh``: a data-parallel step over a
+    ``DataMesh`` of more than one rank), training mode takes the global
+    batch's statistics as flax does over a sharded batch: per-channel sums
+    of x and x² all-reduced inside autograd, mean E[x] and biased variance
+    E[x²] − E[x]² (clipped at 0) in fp32.
     """
+
+    dp = None
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9,
                  device=None):
@@ -163,16 +171,41 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                              self.bias, False, 0.0, self.eps)
             return y.contiguous(memory_format=CL3D)
-        mean = torch.zeros_like(self.running_mean)
-        var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        if self.dp is None:
+            mean = torch.zeros_like(self.running_mean)
+            var = torch.zeros_like(self.running_var)
+            y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+            var_scale = (n - 1) / n  # F.batch_norm's running variance is unbiased
+        else:
+            y, mean, var = self._global_batch_norm(x, n)
+            var_scale = 1.0
         if not batch_stats_frozen():
-            n = x.numel() // x.shape[1]
             m = self.momentum
             with torch.no_grad():
-                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=(1.0 - m) * var_scale)
         return y.contiguous(memory_format=CL3D)
+
+    def _global_batch_norm(self, x: torch.Tensor, n: int):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        dims = [0, *range(2, x.dim())]
+        xf = x.float()
+        s1, s2 = self.dp.all_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]))
+        count = n * self.dp.world_size
+        mean = s1 / count
+        var = (s2 / count - mean * mean).clamp_min(0.0)  # flax clips at 0
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype), mean, var
+
+
+def set_batch_norm_mesh(model: nn.Module, dp) -> None:
+    """Every BatchNorm of ``model`` takes its training statistics over
+    ``dp``'s global batch (None: over its own batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.dp = dp
 
 
 def batch_stat_buffers(model: nn.Module) -> List[torch.Tensor]:

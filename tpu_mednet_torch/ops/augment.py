@@ -441,6 +441,21 @@ def draw_augmentations(config: AugmentConfig, shape: Sequence[int],
     )
 
 
+def draw_rows(draws: AugmentDraws, rows: slice) -> AugmentDraws:
+    """The draws of ``rows`` of the batch they were drawn for: a data-
+    parallel rank draws for the global batch, as one process would, and
+    applies its own rows' share."""
+    def cut(t, dim=0):
+        return None if t is None else t.narrow(dim, rows.start, rows.stop - rows.start)
+
+    spatial = draws.spatial
+    if spatial is not None:
+        spatial = SpatialDraws(*(cut(t) for t in spatial))
+    return AugmentDraws(spatial=spatial, brightness=cut(draws.brightness),
+                        gamma=cut(draws.gamma), contrast=cut(draws.contrast),
+                        mirror=cut(draws.mirror, 1), noise=cut(draws.noise))
+
+
 def apply_augmentations(x: torch.Tensor, config: AugmentConfig,
                         generator: Optional[torch.Generator] = None,
                         label: Optional[torch.Tensor] = None,

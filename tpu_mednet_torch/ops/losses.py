@@ -19,6 +19,11 @@ Conventions: ``logits``/``probs`` are (N, C, X, Y, Z); integer ``labels``
 are (N, X, Y, Z); a one-hot ``target`` is (N, C, X, Y, Z).  Every reduction
 is computed in fp32.  No task calls the weighted, pixelwise and binary
 cross-entropies; they complete the reference's loss zoo.
+
+Under data parallelism (``dp``: a ``parallel.mesh.DataMesh`` of more than
+one rank, each holding its rows of the global batch) every sum over the
+batch goes through ``dp.all_sum`` before the division, so a loss is the
+JAX package's over the global batch; ``None`` is one process.
 """
 
 from __future__ import annotations
@@ -30,6 +35,17 @@ import torch.nn.functional as F
 
 EPSILON = 1e-5
 Weight = Optional[Union[torch.Tensor, Sequence[float]]]
+
+
+def _sum(x: torch.Tensor, dp) -> torch.Tensor:
+    return x if dp is None else dp.all_sum(x)
+
+
+def _mean(x: torch.Tensor, dp) -> torch.Tensor:
+    """The mean over every element of the global batch."""
+    if dp is None:
+        return x.mean()
+    return dp.all_sum(x.sum()) / (x.numel() * dp.world_size)
 
 
 def flatten_channels(x: torch.Tensor) -> torch.Tensor:
@@ -70,7 +86,7 @@ def _class_weight(weight: Weight, num_classes: int, device) -> Optional[torch.Te
 def compute_per_channel_dice(probs: torch.Tensor, target: torch.Tensor,
                              epsilon: float = EPSILON,
                              ignore_index: Optional[int] = None,
-                             weight: Weight = None) -> torch.Tensor:
+                             weight: Weight = None, dp=None) -> torch.Tensor:
     """Per-channel soft Dice with an epsilon-clamped denominator
     (loss.py:24-48): optional ignore mask, optional per-channel weight on
     the intersection."""
@@ -85,32 +101,33 @@ def compute_per_channel_dice(probs: torch.Tensor, target: torch.Tensor,
         target = target * mask
     p = flatten_channels(probs)
     t = flatten_channels(target)
-    intersect = (p * t).sum(-1)
+    intersect, denominator = _sum(torch.stack([(p * t).sum(-1), (p + t).sum(-1)]), dp)
     if w is not None:
         intersect = w * intersect
-    return 2.0 * intersect / (p + t).sum(-1).clamp_min(epsilon)
+    return 2.0 * intersect / denominator.clamp_min(epsilon)
 
 
-def dice_metric(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def dice_metric(logits: torch.Tensor, labels: torch.Tensor, dp=None) -> torch.Tensor:
     """softmax -> one-hot -> per-channel dice (loss.py:51-55)."""
     probs = torch.softmax(logits.float(), dim=1)
-    return compute_per_channel_dice(probs, expand_as_one_hot(labels, logits.shape[1]))
+    return compute_per_channel_dice(probs, expand_as_one_hot(labels, logits.shape[1]), dp=dp)
 
 
 def dice_loss(logits: torch.Tensor, labels: torch.Tensor, epsilon: float = EPSILON,
-              weight: Weight = None, ignore_index: Optional[int] = None) -> torch.Tensor:
+              weight: Weight = None, ignore_index: Optional[int] = None,
+              dp=None) -> torch.Tensor:
     """mean(1 - per-channel dice) of the softmax (reference ``DiceLoss``,
     loss.py:91-130); ``labels`` are integer class maps (N, X, Y, Z)."""
     probs = torch.softmax(logits.float(), dim=1)
     target = expand_as_one_hot(labels, logits.shape[1])
     per_channel = compute_per_channel_dice(probs, target, epsilon=epsilon,
-                                           ignore_index=ignore_index, weight=weight)
+                                           ignore_index=ignore_index, weight=weight, dp=dp)
     return (1.0 - per_channel).mean()
 
 
 def ce_loss(logits: torch.Tensor, labels: torch.Tensor, weight: Weight = None,
             ignore_index: Optional[int] = None,
-            double_softmax: bool = False) -> torch.Tensor:
+            double_softmax: bool = False, dp=None) -> torch.Tensor:
     """Multi-class cross-entropy over voxel logits (loss.py:135-142).
 
     ``weight`` rescales each class's contribution, and the mean is taken
@@ -128,12 +145,13 @@ def ce_loss(logits: torch.Tensor, labels: torch.Tensor, weight: Weight = None,
     safe = torch.where(valid, labels, 0)
     picked = logp.gather(1, safe.unsqueeze(1)).squeeze(1)
     vw = valid.float() if w is None else w[safe] * valid
-    return -(vw * picked).sum() / vw.sum().clamp_min(1e-12)
+    total, weight_sum = _sum(torch.stack([(vw * picked).sum(), vw.sum()]), dp)
+    return -total / weight_sum.clamp_min(1e-12)
 
 
 def weighted_ce_loss(logits: torch.Tensor, target: torch.Tensor, weight: Weight = None,
                      ignore_index: int = -1,
-                     target_one_hot_encoded: bool = True) -> torch.Tensor:
+                     target_one_hot_encoded: bool = True, dp=None) -> torch.Tensor:
     """Weighted cross-entropy with data-derived class weights (arXiv
     1707.03237, reference loss.py:144-172): ``(1 - p_c) / p_c`` summed over
     the softmax of the logits, without gradient, times ``weight`` where
@@ -141,18 +159,19 @@ def weighted_ce_loss(logits: torch.Tensor, target: torch.Tensor, weight: Weight 
     with ``target_one_hot_encoded=False``, an integer class map."""
     probs = torch.softmax(logits.float(), dim=1)
     flat = flatten_channels(probs)
-    class_weights = ((1.0 - flat).sum(-1) / flat.sum(-1)).detach()
+    complement, total = _sum(torch.stack([(1.0 - flat).sum(-1), flat.sum(-1)]).detach(), dp)
+    class_weights = complement / total
     w = _class_weight(weight, logits.shape[1], logits.device)
     if w is not None:
         class_weights = class_weights * w
     if target_one_hot_encoded:
         target = target.argmax(dim=1)
-    return ce_loss(logits, target, weight=class_weights, ignore_index=ignore_index)
+    return ce_loss(logits, target, weight=class_weights, ignore_index=ignore_index, dp=dp)
 
 
 def bce_with_masking(logits: torch.Tensor, target: torch.Tensor,
                      ignore_index: Optional[int] = -1, skip_last_target: bool = False,
-                     with_logits: bool = True) -> torch.Tensor:
+                     with_logits: bool = True, dp=None) -> torch.Tensor:
     """Element-wise binary cross-entropy, mean over every element (reference
     ``BCELossWrapper``, loss.py:175-202): voxels whose target is
     ``ignore_index`` are zeroed in input and target; ``skip_last_target``
@@ -173,12 +192,12 @@ def bce_with_masking(logits: torch.Tensor, target: torch.Tensor,
     else:
         p = x.clamp(1e-12, 1 - 1e-12)
         loss = -(target * torch.log(p) + (1 - target) * torch.log1p(-p))
-    return loss.mean()
+    return _mean(loss, dp)
 
 
 def pixelwise_ce_loss(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
                       class_weights: Weight = None,
-                      ignore_index: Optional[int] = None) -> torch.Tensor:
+                      ignore_index: Optional[int] = None, dp=None) -> torch.Tensor:
     """Cross-entropy weighted per voxel and per class (reference
     loss.py:204-241): ``mean(-class_w * voxel_w * onehot * log_softmax)``
     over every element of the (N, C, X, Y, Z) logits; ``weights`` is a
@@ -196,42 +215,42 @@ def pixelwise_ce_loss(logits: torch.Tensor, labels: torch.Tensor, weights: torch
     if cw is None:
         cw = torch.ones(num_classes, dtype=torch.float32, device=logits.device)
     w = w * cw.view(1, num_classes, *(1,) * (logits.dim() - 2))
-    return (-w * target * logp).mean()
+    return _mean(-w * target * logp, dp)
 
 
-def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return ((pred.float() - target.float()) ** 2).mean()
+def mse_loss(pred: torch.Tensor, target: torch.Tensor, dp=None) -> torch.Tensor:
+    return _mean((pred.float() - target.float()) ** 2, dp)
 
 
-def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return (pred.float() - target.float()).abs().mean()
+def l1_loss(pred: torch.Tensor, target: torch.Tensor, dp=None) -> torch.Tensor:
+    return _mean((pred.float() - target.float()).abs(), dp)
 
 
-def landmark_loss(logits: torch.Tensor, heatmaps: torch.Tensor) -> torch.Tensor:
+def landmark_loss(logits: torch.Tensor, heatmaps: torch.Tensor, dp=None) -> torch.Tensor:
     """Heatmap-regression MSE (reference ``LandmarkLoss``, loss.py:243-252)."""
-    return mse_loss(logits, heatmaps)
+    return mse_loss(logits, heatmaps, dp=dp)
 
 
 def multitask_landmark_loss(output_labels: torch.Tensor, output_heatmaps: torch.Tensor,
                             labels: torch.Tensor, heatmaps: torch.Tensor,
                             regression_weights: Sequence[float], class_loss: str = "DICE",
-                            class_weight: Weight = None, regression_loss: str = "L2"
-                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                            class_weight: Weight = None, regression_loss: str = "L2",
+                            dp=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Segmentation plus landmark loss (reference landmarks.py:125-134):
     ``class_loss(labels) + sum_c regression_weights[c] * reg(heatmap c)``,
     each heatmap channel reduced over every other axis.  Heatmaps are
     (N, L, X, Y, Z); returns (total, class loss, regression loss)."""
     if class_loss == "DICE":
-        cls = dice_loss(output_labels, labels, weight=class_weight)
+        cls = dice_loss(output_labels, labels, weight=class_weight, dp=dp)
     elif class_loss == "CE":
-        cls = ce_loss(output_labels, labels, weight=class_weight)
+        cls = ce_loss(output_labels, labels, weight=class_weight, dp=dp)
     else:
         raise ValueError(f"class_loss must be 'DICE' or 'CE', got {class_loss!r}")
     if regression_loss not in ("L2", "L1"):
         raise ValueError(f"regression_loss must be 'L2' or 'L1', got {regression_loss!r}")
     reg_fn = mse_loss if regression_loss == "L2" else l1_loss
     w = torch.as_tensor(regression_weights, dtype=torch.float32, device=output_heatmaps.device)
-    per_channel = torch.stack([reg_fn(output_heatmaps[:, c], heatmaps[:, c])
+    per_channel = torch.stack([reg_fn(output_heatmaps[:, c], heatmaps[:, c], dp=dp)
                                for c in range(output_heatmaps.shape[1])])
     reg = (w * per_channel).sum()
     return cls + reg, cls, reg

@@ -26,16 +26,20 @@ from tpu_mednet_torch.ops import losses as L
 from tpu_mednet_torch.ops.heatmap import heatmap_argmax_coords
 
 
-def landmark_coordinate_error(pred_heatmaps: torch.Tensor,
-                              true_heatmaps: torch.Tensor) -> torch.Tensor:
+def landmark_coordinate_error(pred_heatmaps: torch.Tensor, true_heatmaps: torch.Tensor,
+                              dp=None) -> torch.Tensor:
     """Mean Euclidean distance (voxels) between predicted and true heatmap
     peaks over (N, L, X, Y, Z) stacks; a landmark whose true heatmap is all
-    zero in the patch (outside the crop) is left out of the mean."""
+    zero in the patch (outside the crop) is left out of the mean.  With
+    ``dp``, over the global batch."""
     pred = heatmap_argmax_coords(pred_heatmaps).float()
     true = heatmap_argmax_coords(true_heatmaps).float()
     dist = ((pred - true) ** 2).sum(dim=-1).sqrt()  # (N, L)
     present = true_heatmaps.amax(dim=tuple(range(2, true_heatmaps.dim()))) > 0
-    return (dist * present).sum() / present.sum().float().clamp_min(1.0)
+    total, count = (dist * present).sum(), present.sum().float()
+    if dp is not None:
+        total, count = dp.all_sum(torch.stack([total, count]))
+    return total / count.clamp_min(1.0)
 
 
 @dataclasses.dataclass(eq=False)
@@ -92,27 +96,29 @@ class LandmarkTask:
         label = batch["label"]
         return label[:, :-1].float(), label[:, -1].long()
 
-    def loss_fn(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor]
+    def loss_fn(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor], dp=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss over the batch, or with ``dp`` over the global batch
+        whose rows ``batch`` holds (``ops/losses.py``)."""
         heatmaps, labels = self.split_labels(batch)
         out_heatmaps, out_labels = self.split_outputs(outputs)
         total, cls, reg = L.multitask_landmark_loss(
             out_labels, out_heatmaps, labels, heatmaps,
             regression_weights=self.loss_regression_weight, class_loss=self.loss_class,
-            class_weight=self.loss_class_weight, regression_loss=self.loss_regression)
+            class_weight=self.loss_class_weight, regression_loss=self.loss_regression, dp=dp)
         return total, {"class_loss": cls, "regression_loss": reg}
 
-    def val_metrics(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor]
+    def val_metrics(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor], dp=None
                     ) -> Dict[str, torch.Tensor]:
         heatmaps, labels = self.split_labels(batch)
         out_heatmaps, out_labels = self.split_outputs(outputs)
-        total, aux = self.loss_fn(outputs, batch)
-        per_channel = L.dice_metric(out_labels, labels)
+        total, aux = self.loss_fn(outputs, batch, dp=dp)
+        per_channel = L.dice_metric(out_labels, labels, dp=dp)
         metrics = {
             "val_loss": total,
             "val_class_loss": aux["class_loss"],
             "val_regression_loss": aux["regression_loss"],
-            "val_landmark_error": landmark_coordinate_error(out_heatmaps, heatmaps),
+            "val_landmark_error": landmark_coordinate_error(out_heatmaps, heatmaps, dp=dp),
         }
         for c in range(self.num_classes):
             metrics[f"val_dice{c}"] = per_channel[c]

@@ -66,21 +66,23 @@ class SegmentationTask:
         """Class map = last label channel (segmentation.py:60), int64."""
         return batch["label"][:, -1].long()
 
-    def loss_fn(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor]
+    def loss_fn(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor], dp=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss over the batch, or with ``dp`` over the global batch
+        whose rows ``batch`` holds (``ops/losses.py``)."""
         labels = self.labels_from_batch(batch)
         if self.loss == "DICE":
-            loss = L.dice_loss(outputs, labels, weight=self.loss_weight)
+            loss = L.dice_loss(outputs, labels, weight=self.loss_weight, dp=dp)
         elif self.loss == "CE":
-            loss = L.ce_loss(outputs, labels, weight=self.loss_weight)
+            loss = L.ce_loss(outputs, labels, weight=self.loss_weight, dp=dp)
         else:
             raise ValueError(f"loss must be 'DICE' or 'CE', got {self.loss!r}")
         return loss, {}
 
-    def val_metrics(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor]
+    def val_metrics(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor], dp=None
                     ) -> Dict[str, torch.Tensor]:
-        loss, _ = self.loss_fn(outputs, batch)
-        per_channel = L.dice_metric(outputs, self.labels_from_batch(batch))
+        loss, _ = self.loss_fn(outputs, batch, dp=dp)
+        per_channel = L.dice_metric(outputs, self.labels_from_batch(batch), dp=dp)
         metrics = {"val_loss": loss}
         for c in range(self.out_channels):
             metrics[f"val_dice{c}"] = per_channel[c]

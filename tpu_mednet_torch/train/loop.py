@@ -1,8 +1,8 @@
 """Training loop: epochs, validation, checkpoints, metrics.
 
 Counterpart of ``tpu_mednet/train/loop.py`` (the pytorch-lightning
-``Trainer`` runtime the reference delegates to, train_seg.py:122-132), on
-one device: a plain loop around the port's train and eval steps with
+``Trainer`` runtime the reference delegates to, train_seg.py:122-132): a
+plain loop around the port's train and eval steps with
 
 - host ``PatchSampler``s routed through the native batch pipeline
   (``data/native_loader.py``: the C++ crop/convert/transpose into pinned
@@ -18,11 +18,19 @@ one device: a plain loop around the port's train and eval steps with
 - the profiler hook: with ``profile_dir``, steps 1 to ``profile_steps`` of
   epoch 0 are traced with ``torch.profiler`` (CPU and CUDA), each under
   ``record_function("train_step")``, into a Chrome trace under
-  ``profile_dir`` (no CLI flag sets it, as in the JAX package).
+  ``profile_dir`` (no CLI flag sets it, as in the JAX package);
+- the MIP sample visualizer (``utils/plots.py``), called on every
+  ``log_interval``-th validation batch, and extra metric sinks (Neptune);
+- data parallelism over a ``parallel.mesh.DataMesh``: ``batch_size`` is
+  the global batch; each rank steps on its rows of it (a host sampler's
+  node batch split between the node's ranks, or the device sampler's
+  global draw gathered for the rank's rows alone) through the data-
+  parallel steps, and rank 0 alone writes logs, figures and checkpoints,
+  where the JAX package's one controller writes them once.
 
 Metrics stay on the device: the loop reads them every ``log_every``
 steps, and validation sums them on the device and reads them once per
-epoch.  Not ported: the MIP sample visualizer and meshes (one device).
+epoch.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import signal
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -44,6 +52,8 @@ from tpu_mednet_torch.data.patch_sampler import PatchSampler
 from tpu_mednet_torch.data.prefetch import device_prefetch
 from tpu_mednet_torch.models.unet import create_feature_maps
 from tpu_mednet_torch.ops.augment import AugmentConfig
+from tpu_mednet_torch.parallel.mesh import DataMesh
+from tpu_mednet_torch.parallel.multihost import local_batch_size, take_rows
 from tpu_mednet_torch.train.checkpoint import CheckpointManager
 from tpu_mednet_torch.train.optim import (
     OptimizerConfig,
@@ -129,7 +139,8 @@ class PreemptionGuard:
 
 class Trainer:
     """Runs a task (``SegmentationTask`` or ``LandmarkTask``) over train/val
-    patch samplers on the task model's device."""
+    patch samplers on the task model's device; with a ``mesh`` of more
+    than one rank, as one rank of a data-parallel run (module docstring)."""
 
     def __init__(
         self,
@@ -157,9 +168,15 @@ class Trainer:
         keep_checkpoints: int = 3,
         profile_dir: Optional[str] = None,
         profile_steps: int = 5,
+        sample_visualizer: Optional[Callable] = None,
+        log_interval: int = 5,
+        metric_sinks=(),
+        mesh: Optional[DataMesh] = None,
     ):
         self.task = task
         self.device = next(task.model.parameters()).device
+        self.mesh = mesh if mesh is not None else DataMesh(devices=(self.device,))
+        writer = self.mesh.rank == 0  # logs, figures and checkpoints: rank 0 alone
 
         # host PatchSamplers go through the native batch pipeline (fused C++
         # crop/convert/transpose into pinned buffers for the card), as in the
@@ -182,12 +199,15 @@ class Trainer:
         self.profile_steps = profile_steps
         self._profiler = None
         self._preempt: Optional[PreemptionGuard] = None
+        self.sample_visualizer = sample_visualizer
+        self.log_interval = log_interval
 
-        self.metrics = MetricsLogger(log_dir) if log_dir else None
+        self.metrics = MetricsLogger(log_dir, extra_sinks=metric_sinks) \
+            if log_dir and writer else None
         if keep_checkpoints < 1:
             raise ValueError(f"keep_checkpoints must be >= 1, got {keep_checkpoints}")
         self.ckpt = CheckpointManager(model_dir, max_to_keep=keep_checkpoints) \
-            if model_dir else None
+            if model_dir and writer else None
         self._last_saved_step: Optional[int] = None
         # best-val checkpoint (PL 0.9's default ModelCheckpoint, reference
         # train_seg.py:122-131): one step under <model_dir>/best, written when
@@ -211,7 +231,15 @@ class Trainer:
         self._ckpt_best: Optional[CheckpointManager] = None
         self.state: Optional[TrainState] = None
 
-        self._steps_per_epoch = max(len(self.train_sampler) // batch_size, 1)
+        # rows a batch: a host sampler draws this node's share of the global
+        # batch and each of the node's ranks takes its rows; the device
+        # sampler draws the global batch and gathers this rank's rows
+        self._node_batch = local_batch_size(batch_size, self.mesh.node_count)
+        self._host_rows = self.mesh.rows(self._node_batch, within_node=True)
+        self._device_rows = self.mesh.rows(batch_size)
+        per_draw = batch_size if isinstance(train_sampler, DevicePatchSampler) \
+            else self._node_batch
+        self._steps_per_epoch = max(len(self.train_sampler) // per_draw, 1)
         if limit_train_batches:
             self._steps_per_epoch = min(self._steps_per_epoch, limit_train_batches)
         self.optim = (optim or OptimizerConfig(learning_rate=learning_rate)) \
@@ -236,8 +264,10 @@ class Trainer:
         # validation monitors the EMA weights (what gets deployed) when EMA is on
         self.train_step = make_train_step(
             task, augment=augment, ema_decay=self.optim.ema_decay,
-            guard_nonfinite=nonfinite != "off", track_grad_norm=track_grad_norm)
-        self.eval_step = make_eval_step(task, use_ema=bool(self.optim.ema_decay))
+            guard_nonfinite=nonfinite != "off", track_grad_norm=track_grad_norm,
+            mesh=self.mesh)
+        self.eval_step = make_eval_step(task, use_ema=bool(self.optim.ema_decay),
+                                        mesh=self.mesh)
 
     # -- lifecycle --------------------------------------------------------
 
@@ -261,6 +291,9 @@ class Trainer:
             logger.info("resumed from %s at step %d (epoch %d)", resume, state.step,
                         self.start_epoch)
         logger.info("model parameters: %.2fM", param_count(state) / 1e6)
+        # every rank starts from rank 0's weights (each built them from the
+        # same seed or restored the same checkpoint: this only makes sure)
+        self.mesh.broadcast_(list(state.model.state_dict().values()))
         self.state = state
         if resume and self.ckpt and self._best_dir().exists():
             # carry best-val tracking across the resume, so best/ is only
@@ -337,9 +370,13 @@ class Trainer:
     # -- epochs -----------------------------------------------------------
 
     def _batches(self, sampler, shuffle: bool):
-        host_iter = sampler.batches(self.batch_size, shuffle=shuffle)
-        if isinstance(sampler, DevicePatchSampler):
-            return host_iter  # already on the card
+        parallel = self.mesh.parallel
+        if isinstance(sampler, DevicePatchSampler):  # already on the card
+            return sampler.batches(self.batch_size, shuffle=shuffle,
+                                   rows=self._device_rows if parallel else None)
+        host_iter = sampler.batches(self._node_batch, shuffle=shuffle)
+        if parallel:
+            host_iter = (take_rows(b, self._host_rows) for b in host_iter)
         return device_prefetch(host_iter, self.device)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
@@ -446,6 +483,8 @@ class Trainer:
                     break
                 metrics = self.eval_step(self.state, {"data": batch["data"],
                                                       "label": batch["label"]})
+                if self.sample_visualizer is not None and i % self.log_interval == 0:
+                    self.sample_visualizer(self, batch, epoch, i)
                 for k, v in metrics.items():
                     sums[k] = v if k not in sums else sums[k] + v
                 count += 1

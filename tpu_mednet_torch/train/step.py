@@ -17,6 +17,15 @@ pays for.
 BatchNorm's running statistics (JAX's ``batch_stats``) move in the
 forward, on every micro-step, as JAX's ``apply_gradients(batch_stats=...)``
 moves them; a step the guard skips puts them back.
+
+Under data parallelism (``mesh``: a ``parallel.mesh.DataMesh`` of more than
+one rank) each rank steps on its rows of the global batch and the step is
+the JAX package's on the whole of it, up to summation order: the
+augmentation is drawn for the global batch and each rank applies its
+rows' draws; the loss's batch sums and BatchNorm's statistics are
+all-reduced inside autograd; the gradients are averaged over the ranks
+before the update (``DataMesh.all_sum`` says why that is the gradient of
+the global loss), so every rank holds the same parameters after it.
 """
 
 from __future__ import annotations
@@ -25,8 +34,9 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from tpu_mednet_torch.models.blocks import batch_stat_buffers
-from tpu_mednet_torch.ops.augment import AugmentConfig, apply_augmentations
+from tpu_mednet_torch.models.blocks import batch_stat_buffers, set_batch_norm_mesh
+from tpu_mednet_torch.ops.augment import (AugmentConfig, apply_augmentations,
+                                          draw_augmentations, draw_rows)
 from tpu_mednet_torch.train.optim import clip_by_global_norm_, global_norm
 from tpu_mednet_torch.train.state import TrainState
 
@@ -78,7 +88,7 @@ def apply_gradients(state: TrainState, ema_decay: float = 0.0,
 
 def make_train_step(task, augment: Optional[AugmentConfig] = None,
                     ema_decay: float = 0.0, guard_nonfinite: bool = False,
-                    track_grad_norm: bool = False
+                    track_grad_norm: bool = False, mesh=None
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The train step for ``task``: ``step(state, batch) -> (state, metrics)``
     with ``metrics["train_loss"]`` (the reference's scalar,
@@ -92,10 +102,14 @@ def make_train_step(task, augment: Optional[AugmentConfig] = None,
     ``guard_nonfinite`` adds ``nonfinite`` (0/1) and, where the loss or any
     gradient is non-finite, skips the optimizer, the EMA, accumulation and
     the step count, and restores BatchNorm's running statistics; the
-    augmentation draws have advanced the generator either way.
+    augmentation draws have advanced the generator either way.  With a
+    ``mesh`` of more than one rank, ``batch`` holds this rank's rows of
+    the global batch and the step is data-parallel (module docstring);
+    the metrics are the global batch's.
     """
     if ema_decay and not (0.0 < ema_decay < 1.0):
         raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
+    dp = mesh if mesh is not None and mesh.parallel else None
 
     def step(state: TrainState, batch: Batch):
         if ema_decay and state.ema is None:
@@ -106,13 +120,24 @@ def make_train_step(task, augment: Optional[AugmentConfig] = None,
         data = batch["data"].to(model.config.dtype)
         label = batch["label"]
         if augment is not None:
-            data, label = apply_augmentations(data, augment, state.generator, label=label)
+            draws = None
+            if dp is not None:
+                n = data.shape[0]
+                draws = draw_rows(draw_augmentations(augment, (n * dp.world_size,
+                                                               *data.shape[1:]),
+                                                     state.generator),
+                                  slice(dp.rank * n, (dp.rank + 1) * n))
+            data, label = apply_augmentations(data, augment, state.generator, label=label,
+                                              draws=draws)
         stats = batch_stat_buffers(model) if guard_nonfinite else []
         saved = [t.clone() for t in stats]
+        set_batch_norm_mesh(model, dp)
         outputs = model(data)
-        loss, aux = task.loss_fn(outputs, {"data": data, "label": label})
+        loss, aux = task.loss_fn(outputs, {"data": data, "label": label}, dp=dp)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if dp is not None:
+            dp.average_gradients([p.grad for p in state.params])
         loss = loss.detach()
         metrics = {"train_loss": loss, **{k: v.detach() for k, v in aux.items()}}
         norm = None
@@ -137,13 +162,17 @@ def _forward(model, data: torch.Tensor, weights: Optional[Dict[str, torch.Tensor
     return torch.func.functional_call(model, weights, (data,))
 
 
-def make_eval_step(task, use_ema: bool = False
+def make_eval_step(task, use_ema: bool = False, mesh=None
                    ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
     """The validation step: ``state.model``'s forward in eval mode without
     gradients (on ``state.ema`` with ``use_ema`` where the state has one;
     the EMA covers the parameters, and BatchNorm uses the model's running
     statistics, as JAX's does), then the task's ``val_metrics``
-    (``val_loss``, ``val_dice{c}``) as device tensors."""
+    (``val_loss``, ``val_dice{c}``) as device tensors.  With a ``mesh`` of
+    more than one rank the metrics' batch sums are all-reduced before their
+    divisions, so every rank holds the global batch's metrics, as JAX's
+    sharded eval step gives them."""
+    dp = mesh if mesh is not None and mesh.parallel else None
 
     def step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         model = state.model
@@ -152,7 +181,7 @@ def make_eval_step(task, use_ema: bool = False
         with torch.inference_mode():
             data = batch["data"].to(model.config.dtype)
             outputs = _forward(model, data, weights)
-            return task.val_metrics(outputs, {"data": data, "label": batch["label"]})
+            return task.val_metrics(outputs, {"data": data, "label": batch["label"]}, dp=dp)
 
     return step
 

@@ -1,5 +1,6 @@
 """Utilities of the port: the device-memory guard of the on-device
-stitches, NIfTI I/O, evaluation metrics and readouts, metrics logging,
+stitches, NIfTI I/O, evaluation metrics and readouts, metrics logging
+(with the Neptune sink and the MIP figures of ``plots``),
 analytic FLOPs, log-level parsing, the weights bridge from the JAX tree and
 the reference checkpoint interop (``torch_import``, ``torch_export``);
 ``python -m tpu_mednet_torch.utils.export`` dumps stores to NIfTI."""
