@@ -124,6 +124,23 @@ drives the two main paths with launch counts:
   loss); ``predict`` with ``prediction.gpus: 2`` clamped and byte-equal to
   1, and ``round_robin_placement`` over ``[cuda:0, cuda:0]``.
 
+- spatial (a child process too; ``python3 chip_smoke.py --spatial
+  <out.json>`` runs it alone; its ranks are ``chip_smoke.py --sp-rank``
+  gloo processes on the one card, killed after ``SP_TIMEOUT``): K1's
+  fold-off route (the moments kernel's sums, the backward reduce's A and
+  B) at seg_organ's level shapes at two ranks, bf16 and fp32, against its
+  plain version and, folded in torch, against the fold-on route, ms
+  against the bytes bound; seg_organ's model (f_maps 32, 5 levels, cge)
+  trained on 1 x 2 ranks at global batch 4 of 128^3 with mirror flips on
+  all three axes against one process on the same batches (bf16; fp32 with
+  TF32 off), the ranks bit-equal, exact K1 launches, halo exchanges and
+  space sums a step, ms a step, the exchanges' seconds, peak memory by
+  rank; a 2 x 2 mesh at 3 levels; remat 1 against 0 on the space axis;
+  ``Trainer.fit`` for 2 short epochs with the MIP hook's forward on rank 0
+  alone; ``predict_volume_spatial`` of a 192 x 176 x 144 volume in
+  ``auto`` (without and with flips 0 and 2) and ``explicit`` against one
+  process, apart only inside the tie band, ms a volume and peak by rank.
+
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero without a result when CUDA is unavailable or the package is not
 beside it.
@@ -5011,6 +5028,559 @@ def parallel_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
                     round_robin=rr, seconds=seconds))
 
 
+SP_TIMEOUT = 420       # seconds for one launch of the spatial ranks, start to exit
+# seg_organ's level shapes at two space ranks: batch 4 of a 64 x 128 x 128 slab
+SP_LEVELS = [(32 * 2**i, (64 >> i, 128 >> i, 128 >> i)) for i in range(5)]
+SP_BATCH, SP_EXTENT, SP_CLASSES, SP_STEPS, SP_TIMED = 4, (128, 128, 128), 5, 3, 3
+SP_SGD = dict(name="sgd", learning_rate=0.01, momentum=0.9)
+# the 2 x 2 mesh: f_maps 32, 3 levels, global batch 4 of 64^3; remat: 2 steps
+SP_SMALL = dict(f_maps=32, num_levels=3, extent=(64, 64, 64))
+SP_VOLUME = (192, 176, 144)
+# a train step of the 5-level residual net: 3^3 convolutions (3 a block,
+# 9 blocks) and transposed convolutions (4) exchange their rows in the
+# forward, and all but the first (its input needs no gradient) in the
+# backward; each GroupNorm adds its sums over the row once in each pass
+SP_EXCHANGES_PER_STEP = 2 * (27 + 4) - 1
+SP_SPACE_SUMS_PER_STEP = 2 * 27
+
+
+def sp_gn(torch, gn, dev, gen):
+    """K1's fold-off route at seg_organ's level shapes at two ranks, bf16
+    and fp32: the moments kernel's sums and the backward reduce's A and B
+    against their plain versions within 1e-4 x max |ref| (per-(n, c) sums of
+    another fp32 order, K1's backward bound), and the fold-off route, then
+    the fold in torch, against the fold-on kernel within rtol 1e-5 (another
+    order of the group sum, and torch's rsqrt against ``__frsqrt_rn``);
+    device times against the bytes bound, the plain version and
+    torch.var_mean."""
+    out = {}
+    for dt_name in ("bf16", "fp32"):
+        dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dt_name]
+        tot = dict(moments_ms=0.0, moments_bound=0.0, moments_plain_ms=0.0,
+                   moments_library_ms=0.0, reduce_ms=0.0, reduce_bound=0.0,
+                   reduce_plain_ms=0.0, moments_err=0.0, reduce_err=0.0, kept=1.0, levels=[])
+        for level, (c, ext) in enumerate(SP_LEVELS):
+            shape = (SP_BATCH, *ext, c)
+            act = lambda: torch.randn(shape, generator=gen, device=dev).to(dtype).permute(
+                0, 4, 1, 2, 3)
+            x, dy = act() + 0.5, act()
+            w = torch.rand(c, generator=gen, device=dev) + 0.5
+            b = torch.rand(c, generator=gen, device=dev) - 0.5
+            sums = gn.group_norm_sums(x)
+            ref = torch.stack(gn.group_norm_stats_plain(x))
+            m_err = float((sums - ref).abs().max())
+            if m_err > 1e-4 * float(ref.abs().max()):
+                raise AssertionError(f"gn_moments fold off {dt_name} level {level}: max|err| "
+                                     f"{m_err} against max |ref| {float(ref.abs().max())}")
+            spatial = x.numel() // (SP_BATCH * c)
+            folded = gn.fold_group_stats(sums[0], sums[1], spatial, GROUPS, w, 1e-5)
+            for got, want in zip(folded, gn.group_norm_moments(x, GROUPS, w, 1e-5)):
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+            stats = gn.group_norm_moments(x, GROUPS, w, 1e-5)
+            ab = gn.group_norm_backward_sums(x, dy, stats.mean, stats.rstd, w, b, GROUPS,
+                                             None, GN_ACT)
+            *_, a_p, b_p = gn.backward_sums_plain(x, dy, stats.mean, stats.rstd, w, b, None,
+                                                  GN_ACT)
+            ab_ref = torch.stack((a_p, b_p))
+            r_err = float((ab - ab_ref).abs().max())
+            if r_err > 1e-4 * float(ab_ref.abs().max()):
+                raise AssertionError(f"gn_bwd_reduce fold off {dt_name} level {level}: "
+                                     f"max|err| {r_err}")
+            coef = gn._bwd_reduce_cuda(x, dy, gn._backward_inputs(
+                x, dy, stats.mean, stats.rstd, w, b, None), GROUPS, None, GN_ACT)
+            cb, cc = gn.backward_coefficients(ab[0], ab[1], stats.rstd, w, GROUPS,
+                                              spatial * (c // GROUPS))
+            for got, want in ((cb, coef[2]), (cc, coef[3])):
+                torch.testing.assert_close(got, want, rtol=1e-5,
+                                           atol=1e-5 * float(want.abs().max()))
+            n_el, esz = x.numel(), x.element_size()
+            t_m, kept_m, _ = kernel_ms(torch, lambda: gn.group_norm_sums(x), "gn_moments")
+            t_r, kept_r, _ = kernel_ms(torch, lambda: gn.group_norm_backward_sums(
+                x, dy, stats.mean, stats.rstd, w, b, GROUPS, None, GN_ACT), "gn_bwd_reduce",
+                reps=10)
+            b_m = bound_ms(n_el * esz + 2 * SP_BATCH * c * 4, 3 * n_el)
+            b_r = bound_ms(2 * n_el * esz + 4 * SP_BATCH * c * 4 + 2 * c * 4, 12 * n_el)
+            t_mp = cuda_ms(lambda: gn.group_norm_stats_plain(x), reps=5)
+            t_rp = cuda_ms(lambda: gn.backward_sums_plain(x, dy, stats.mean, stats.rstd, w, b,
+                                                          None, GN_ACT), reps=3, warmup=1)
+            t_lib = cuda_ms(lambda: torch.var_mean(x, dim=(2, 3, 4), correction=0))
+            row = dict(level=level, shape=list(x.shape), moments_ms=t_m, moments_bound=b_m,
+                       reduce_ms=t_r, reduce_bound=b_r, moments_err=m_err, reduce_err=r_err,
+                       moments_plain_ms=t_mp, reduce_plain_ms=t_rp, var_mean_ms=t_lib)
+            tot["levels"].append(row)
+            for k, v in (("moments_ms", t_m), ("moments_bound", b_m), ("reduce_ms", t_r),
+                         ("reduce_bound", b_r), ("moments_plain_ms", t_mp),
+                         ("reduce_plain_ms", t_rp), ("moments_library_ms", t_lib)):
+                tot[k] += v
+            tot["moments_err"] = max(tot["moments_err"], m_err)
+            tot["reduce_err"] = max(tot["reduce_err"], r_err)
+            tot["kept"] = min(tot["kept"], kept_m, kept_r)
+            log(f"K1 fold off {dt_name} level {level} {tuple(x.shape)}: moments {t_m:.4f} ms "
+                f"device (bound {b_m:.4f}, {b_m / t_m:.0%}; plain {t_mp:.4f}, torch.var_mean "
+                f"{t_lib:.4f}), max|err| {m_err:.3g}; backward reduce {t_r:.4f} ms (bound "
+                f"{b_r:.4f}, {b_r / t_r:.0%}; plain {t_rp:.4f}), max|err| {r_err:.3g}; "
+                f"profiler kept {kept_m:g} and {kept_r:g}; folded after: equal to the fold-on "
+                "route within rtol 1e-5")
+            del x, dy, stats, ab, ab_ref, coef, ref, sums
+            torch.cuda.empty_cache()
+        log(f"K1 fold off {dt_name}, one call at each of the 5 level shapes: moments "
+            f"{tot['moments_ms']:.4f} ms (bound {tot['moments_bound']:.4f}), reduce "
+            f"{tot['reduce_ms']:.4f} ms (bound {tot['reduce_bound']:.4f})")
+        out[dt_name] = tot
+    return out
+
+
+def sp_batches(torch, dev, steps, extent, batch=SP_BATCH, classes=SP_CLASSES, seed=17):
+    """Seeded global batches on the card, the same in every process: nested
+    spheres of classes 1.. in noise, the image brighter by class."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    grid = torch.stack(torch.meshgrid(*(torch.arange(e, device=dev, dtype=torch.float32)
+                                        for e in extent), indexing="ij"))
+    out = []
+    for _ in range(steps):
+        centre = (torch.rand((batch, 3, 1, 1, 1), generator=g, device=dev) * 0.4 + 0.3) \
+            * torch.tensor(extent, device=dev).view(1, 3, 1, 1, 1)
+        dist = ((grid[None] - centre) ** 2).sum(1, keepdim=True).sqrt() / min(extent)
+        label = (classes - 1 - (dist * 2 * classes).clamp(0, classes - 1)).round().clamp_min(0)
+        label = label.to(torch.uint8)
+        data = torch.randn((batch, 1, *extent), generator=g, device=dev) * 0.5 + 0.4 * label
+        out.append({"data": data.contiguous(memory_format=torch.channels_last_3d),
+                    "label": label})
+    return out
+
+
+def sp_model(torch, dev, dtype, f_maps=32, num_levels=5, remat=False):
+    from tpu_mednet_torch.models import ResidualUNet3D
+
+    return ResidualUNet3D(1, SP_CLASSES, f_maps=f_maps, num_levels=num_levels, dtype=dtype,
+                          device=dev, remat=remat, generator=torch.Generator().manual_seed(0))
+
+
+def sp_train(torch, gn, P, dev, mesh, batches, dtype, *, f_maps=32, num_levels=5,
+             remat=False, timed=0, counts=None):
+    """SGD steps with mirror flips on all three axes on ``mesh`` (None: one
+    process) over the global ``batches``: losses, the state dict, and with
+    ``timed``, ms a step and the exchanges, space sums and K1/K2 launches
+    of each step."""
+    from tpu_mednet_torch.ops.augment import AugmentConfig
+    from tpu_mednet_torch.parallel import halo
+    from tpu_mednet_torch.parallel.mesh import DataMesh
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.train import OptimizerConfig, create_train_state, make_train_step
+
+    model = sp_model(torch, dev, dtype, f_maps, num_levels, remat)
+    state = create_train_state(model, optimizer=OptimizerConfig(**SP_SGD), seed=0)
+    step = make_train_step(SegmentationTask(model=model, loss="DICE"), mesh=mesh,
+                           augment=AugmentConfig(brightness_sigma=0.0, gamma_range=None,
+                                                 contrast_range=None, mirror_axes=(1, 2, 3)))
+    sums = [0]
+
+    def counting(orig):
+        def space_sum_(self, t):
+            sums[0] += 1
+            return orig(self, t)
+        return space_sum_
+
+    losses, per_step, step_ms = [], [], []
+    with wrapped(DataMesh, "space_sum_", counting):
+        for i, batch in enumerate(batches):
+            rows = mesh.rows(batch["data"].shape[0]) if mesh is not None else slice(None)
+            local = {k: v[rows] for k, v in batch.items()}
+            torch.cuda.synchronize()
+            before = (launch_counts(gn, P), halo.EXCHANGES, sums[0], halo.SECONDS)
+            t0 = time.perf_counter()
+            state, m = step(state, local)
+            losses.append(float(m["train_loss"]))  # waits for the step
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            after = launch_counts(gn, P)
+            if counts is not None:
+                add_counts(counts, before[0], after)
+            per_step.append(dict(launches={k: after[k] - before[0][k] for k in after},
+                                 exchanges=halo.EXCHANGES - before[1],
+                                 space_sums=sums[0] - before[2],
+                                 exchange_s=halo.SECONDS - before[3]))
+    out = dict(losses=losses, state={k: v.detach().cpu() for k, v in model.state_dict().items()},
+               per_step=per_step, step_ms=step_ms[-timed:] if timed else step_ms)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_trainer(torch, dev, root, mesh, tag, visualized=None):
+    """``Trainer.fit`` of the seg_organ model (bf16, 5 classes, host sampler
+    of 128^3 patches, batch 4) for 2 short epochs with validation on
+    ``mesh`` (None: one process); rank 0 of a mesh runs the MIP
+    visualizer's compute half (one eval forward of a batch's first row)."""
+    from tpu_mednet_torch.data import PatchSampler
+    from tpu_mednet_torch.tasks import SegmentationTask
+    from tpu_mednet_torch.train import Trainer
+    from tpu_mednet_torch.utils.plots import seg_sample_arrays
+
+    def keys(split):
+        return (root / f"organs_{split}.txt").read_text().split()
+
+    common = dict(patch_size=ORGAN_PATCH, image_group="images", label_group="labels")
+    train = PatchSampler(str(root / "organs.zarr"), keys("train"), 4,
+                         class_probabilities=[0.2] * 5, seed=0, **common)
+    val = PatchSampler(str(root / "organs.zarr"), keys("val"), 4, seed=1, **common)
+    hook = None
+    if visualized is not None:
+        def hook(trainer, batch, epoch, i):
+            arrays = seg_sample_arrays(trainer, batch)
+            visualized.append(list(arrays["pred"].shape))
+    task = SegmentationTask(model=sp_model(torch, dev, torch.bfloat16), loss="DICE")
+    trainer = Trainer(task, train, val_sampler=val, batch_size=ORGAN_BATCH, max_epochs=2,
+                      learning_rate=1e-3, log_dir=str(root / tag / "logs"),
+                      model_dir=str(root / tag / "model"), log_every=1,
+                      limit_train_batches=2, limit_val_batches=1, sample_visualizer=hook,
+                      log_interval=1, mesh=mesh)
+    t0 = time.perf_counter()
+    trainer.fit()
+    seconds = time.perf_counter() - t0
+    del trainer, task
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def sp_predict(torch, dev, mesh, vol):
+    """``predict_volume_spatial`` of the seeded volume in each mode on
+    ``mesh``: class maps, ms a volume and the peak allocated memory; and
+    this rank's slab of the logits the ``auto`` forward takes its map from
+    (fp32, on the host)."""
+    from tpu_mednet_torch.inference import predict_volume_spatial
+    from tpu_mednet_torch.models.blocks import space_axis
+    from tpu_mednet_torch.parallel import SpaceAxis, slab_plan
+    from tpu_mednet_torch.tasks import SegmentationTask
+
+    task = SegmentationTask(model=sp_model(torch, dev, torch.bfloat16).eval(), loss="DICE")
+    plan = slab_plan(vol.shape[1], mesh.n_space, 16)
+    x = torch.from_numpy(vol)[None][:, :, plan.slab(mesh.space_index)].to(dev)
+    with torch.inference_mode(), space_axis(task.model, SpaceAxis(mesh, plan)):
+        logits = task.model(x.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last_3d))[0].float().cpu()
+    out = {"logits": logits}
+    for mode, flips in (("auto", ()), ("auto", (0, 2)), ("explicit", ())):
+        tag = f"{mode}{''.join(map(str, flips))}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(2):  # the first call warms the kernels' plans
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            maps = predict_volume_spatial(task, vol, mesh, mode=mode, tta_flips=flips)
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[tag] = dict(maps=maps, ms=times[-1],
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del task
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank(torch, gn, P, dev, out_dir: Path, n_space: int) -> None:
+    """One rank of the spatial phase: joins the gloo group the parent's
+    variables describe (every rank on the one card) as a mesh of
+    ``world / n_space`` x ``n_space``; with one data row, the full-width
+    training (bf16 timed, fp32 with TF32 off), remat, ``Trainer.fit`` and
+    whole-volume inference, else the 2 x 2 run; writes ``rank<r>.pt``."""
+    from tpu_mednet_torch.parallel import halo, make_mesh, maybe_initialize_distributed
+
+    if not maybe_initialize_distributed("gloo"):
+        raise AssertionError("spatial rank: no process group to join")
+    world = torch.distributed.get_world_size()
+    mesh = make_mesh(dev, devices=[dev] * world, n_space=n_space)
+    reset_counts(gn, P)
+    counts = dict.fromkeys(launch_counts(gn, P), 0)
+    out = {}
+    if mesh.n_data == 1:
+        torch.cuda.reset_peak_memory_stats()
+        batches = sp_batches(torch, dev, SP_STEPS + SP_TIMED, SP_EXTENT)
+        out["bf16"] = sp_train(torch, gn, P, dev, mesh, batches, torch.bfloat16,
+                               timed=SP_TIMED, counts=counts)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            out["fp32"] = sp_train(torch, gn, P, dev, mesh, batches[:SP_STEPS], torch.float32,
+                                   counts=counts)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        del batches
+        small = sp_batches(torch, dev, 2, SP_SMALL["extent"])
+        kw = dict(f_maps=SP_SMALL["f_maps"], num_levels=SP_SMALL["num_levels"],
+                  counts=counts)
+        out["remat0"] = sp_train(torch, gn, P, dev, mesh, small, torch.bfloat16, **kw)
+        out["remat1"] = sp_train(torch, gn, P, dev, mesh, small, torch.bfloat16, remat=1, **kw)
+        visualized = [] if mesh.rank == 0 else None
+        out["trainer_s"] = sp_trainer(torch, dev, out_dir, mesh, "trainer", visualized)
+        out["visualized"] = visualized
+        vol = np.random.default_rng(4).normal(size=(1, *SP_VOLUME)).astype(np.float32)
+        out["predict"] = sp_predict(torch, dev, mesh, vol)
+    else:
+        batches = sp_batches(torch, dev, SP_STEPS, SP_SMALL["extent"])
+        out["mesh22"] = sp_train(torch, gn, P, dev, mesh, batches, torch.bfloat16,
+                                 f_maps=SP_SMALL["f_maps"], num_levels=SP_SMALL["num_levels"],
+                                 counts=counts)
+    out["launches"] = counts
+    out["exchange_s"] = halo.SECONDS
+    torch.save(out, out_dir / f"rank{mesh.rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def sp_launch(out_dir: Path, world: int, n_space: int):
+    """Start ``world`` ranks of ``chip_smoke.py --sp-rank`` on the card
+    (gloo), wait at most ``SP_TIMEOUT`` seconds, kill them on expiry, and
+    return each rank's output and the seconds it took."""
+    import os
+
+    from tpu_mednet_torch.parallel.multihost import free_port
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--sp-rank",
+                               str(out_dir), str(n_space)],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(world)]
+    rcs = []
+    try:
+        deadline = t0 + SP_TIMEOUT
+        for p in procs:
+            rcs.append(p.wait(timeout=max(1.0, deadline - time.perf_counter())))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    if rcs != [0] * world:
+        raise AssertionError(f"spatial ranks ({world} x {n_space}) exited {rcs}")
+    import torch
+
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(world)], \
+        seconds
+
+
+def sp_compare(torch, run, ranks, one, bound):
+    """Losses and every parameter of ranks against one process, within
+    ``bound`` x max |p|; the ranks bit-equal to each other."""
+    states = [r[run]["state"] for r in ranks]
+    bit_equal = all(torch.equal(states[0][k], s[k]) for s in states[1:] for k in states[0])
+    ref = one["state"]
+    keys = [k for k in ref if ref[k].is_floating_point()]
+    rel = {k: float((states[0][k].float() - ref[k].float()).abs().max())
+           / max(float(ref[k].float().abs().max()), 1e-30) for k in keys}
+    worst = max(rel, key=rel.get)
+    loss_err = max(abs(a - b) for a, b in zip(ranks[0][run]["losses"], one["losses"]))
+    return dict(ranks_bit_equal=bit_equal, worst=worst, worst_rel=rel[worst], loss_err=loss_err,
+                losses=ranks[0][run]["losses"], one_process_losses=one["losses"], bound=bound)
+
+
+def sp_maps_band(torch, gn, P, task, x, flips=()):
+    """One process's class map of (1, C, X, Y, Z) ``x`` (the kernel path),
+    the plain path's top-2 margin of the same activations, and max
+    |kernel - plain|: a class may differ only where that margin is at most
+    twice the difference (the tie band)."""
+    from tpu_mednet_torch.inference.common import tta_split_activations
+
+    with torch.inference_mode():
+        if flips:
+            act = tta_split_activations(task, x, flips)
+            with plain_kernels(gn, P):
+                act_p = tta_split_activations(task, x, flips)
+        else:
+            act = task.model(x.to(task.model.config.dtype))
+            with plain_kernels(gn, P):
+                act_p = task.model(x.to(task.model.config.dtype))
+        err = float((act.float() - act_p.float()).abs().max())
+        top2 = act_p.float().topk(2, dim=1).values
+        margin = (top2[:, 0] - top2[:, 1])[0]
+        maps = act.argmax(dim=1).to(torch.uint8)
+    return maps.cpu().numpy(), margin.cpu().numpy(), err
+
+
+def sp_inference_checks(torch, gn, P, dev, ranks):
+    """Each mode's class maps of both ranks against one process: the whole-
+    volume forward (``auto``), its ``tta_split_activations`` (``auto``
+    with flips 0 and 2), and for ``explicit`` the forward of each slab's
+    window of the volume zero-padded by the default halo, cropped; apart
+    only inside the tie band.  The ranks' ``auto`` logits are held to one
+    process's within the bf16 forward bound (``FWD_BF16_REL`` x max
+    |plain|), and the band takes the larger of their difference and the
+    kernel path's from the plain path."""
+    import torch.nn.functional as F
+
+    from tpu_mednet_torch.inference import receptive_halo
+    from tpu_mednet_torch.parallel import slab_plan
+    from tpu_mednet_torch.tasks import SegmentationTask
+
+    vol = np.random.default_rng(4).normal(size=(1, *SP_VOLUME)).astype(np.float32)
+    task = SegmentationTask(model=sp_model(torch, dev, torch.bfloat16).eval(), loss="DICE")
+    x = torch.from_numpy(vol)[None].to(dev).contiguous(memory_format=torch.channels_last_3d)
+    halo = -(-receptive_halo(5) // 16) * 16
+    want = {"auto": sp_maps_band(torch, gn, P, task, x),
+            "auto02": sp_maps_band(torch, gn, P, task, x, (0, 2))}
+    padded = F.pad(x, (0, 0, 0, 0, halo, halo))
+    plan = slab_plan(SP_VOLUME[0], 2, 16)
+    parts = [sp_maps_band(torch, gn, P, task,
+                          padded[:, :, a:a + n + 2 * halo].contiguous(
+                              memory_format=torch.channels_last_3d))
+             for a, n in zip(plan.offsets, plan.lengths)]
+    want["explicit"] = tuple(np.concatenate([p[i][:, halo:-halo] if i == 0 else
+                                             p[i][halo:-halo] for p in parts],
+                                            axis=1 if i == 0 else 0) for i in (0, 1)) + \
+        (max(p[2] for p in parts),)
+    with torch.inference_mode():
+        one = task.model(x.to(torch.bfloat16)).float()[0]
+        with plain_kernels(gn, P):
+            scale = float(task.model(x.to(torch.bfloat16)).float().abs().max())
+        split = torch.cat([r["predict"]["logits"] for r in ranks], dim=1).to(dev)
+        err_sp = float((split - one).abs().max())
+    del one, split
+    if err_sp > FWD_BF16_REL * scale:
+        raise AssertionError(f"spatial predict: the ranks' logits {err_sp} from one "
+                             f"process's, bound {FWD_BF16_REL} x {scale}")
+    out = {"logits_err": err_sp, "logits_scale": scale}
+    for tag, (maps, margin, err) in want.items():
+        err = max(err, err_sp)
+        row = {}
+        for r, rank in enumerate(ranks):
+            got = rank["predict"][tag]
+            flips = got["maps"][0] != maps[0]
+            outside = int((flips & (margin > 2 * err)).sum())
+            row[f"rank{r}"] = dict(differ=int(flips.sum()), outside=outside, ms=got["ms"],
+                                   peak_gib=got["peak_gib"])
+            if got["maps"].shape != (1, *SP_VOLUME) or outside:
+                raise AssertionError(f"spatial predict {tag} rank {r}: {int(flips.sum())} "
+                                     f"voxels differ from one process, {outside} outside the "
+                                     "tie band")
+        row["band_err"] = err
+        out[tag] = row
+        log(f"spatial predict {tag} of {SP_VOLUME} over 2 ranks: differs from one process on "
+            f"{[row[f'rank{r}']['differ'] for r in range(len(ranks))]} voxels, none outside "
+            f"the tie band (max |logit difference| {err:.3g}; the ranks' auto logits "
+            f"{err_sp:.3g} from one process's, bound {FWD_BF16_REL} x {scale:.3g}); "
+            f"ms a volume by rank "
+            f"{[round(row[f'rank{r}']['ms'], 2) for r in range(len(ranks))]}, peak "
+            f"{[round(row[f'rank{r}']['peak_gib'], 3) for r in range(len(ranks))]} GiB")
+    del task, x, padded
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_phase(torch, gn, P, grid_corners, dev, gen) -> dict:
+    """Spatial partitioning: K1's fold-off route against its plain version;
+    seg_organ's model at full width trained on 1 x 2 ranks against one
+    process (bf16 and fp32), a 2 x 2 mesh, remat 1 under the space axis,
+    ``Trainer.fit`` with the MIP hook, whole-volume inference in both
+    modes; launches of this process and of the ranks counted from 0."""
+    import tempfile
+
+    log_clocks("spatial")
+    t0 = time.perf_counter()
+    reset_counts(gn, P)
+    k1 = sp_gn(torch, gn, dev, gen)
+    reset_counts(gn, P)
+    counts = dict.fromkeys(launch_counts(gn, P), 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as tmp:
+        root = Path(tmp)
+        (root / "sp12").mkdir()
+        write_organ_store(root / "sp12")
+        ranks, seconds12 = sp_launch(root / "sp12", 2, 2)
+        ranks22, seconds22 = sp_launch(root / "sp22", 4, 2)
+        for r in ranks + ranks22:
+            add_counts(counts, dict.fromkeys(counts, 0), r["launches"])
+        # one process on the same global batches
+        one_counts = dict.fromkeys(counts, 0)
+        torch.cuda.reset_peak_memory_stats()
+        batches = sp_batches(torch, dev, SP_STEPS + SP_TIMED, SP_EXTENT)
+        one = {"bf16": sp_train(torch, gn, P, dev, None, batches, torch.bfloat16,
+                                timed=SP_TIMED, counts=one_counts)}
+        one_peak = torch.cuda.max_memory_allocated() / 2**30
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            one["fp32"] = sp_train(torch, gn, P, dev, None, batches[:SP_STEPS], torch.float32)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        del batches
+        one["mesh22"] = sp_train(torch, gn, P, dev, None,
+                                 sp_batches(torch, dev, SP_STEPS, SP_SMALL["extent"]),
+                                 torch.bfloat16, f_maps=SP_SMALL["f_maps"],
+                                 num_levels=SP_SMALL["num_levels"])
+        trainer_one_s = sp_trainer(torch, dev, root / "sp12", None, "one")
+        got_log = read_metrics(root / "sp12" / "trainer" / "logs" / "metrics.jsonl")
+        want_log = read_metrics(root / "sp12" / "one" / "logs" / "metrics.jsonl")
+        predict = sp_inference_checks(torch, gn, P, dev, ranks)
+
+    out = dict(k1=k1, seconds_1x2=seconds12, seconds_2x2=seconds22, launches=counts)
+    for run, bound in (("bf16", PARITY_REL["bf16"]), ("fp32", PARITY_REL["fp32"])):
+        out[run] = sp_compare(torch, run, ranks, one[run], bound)
+    out["mesh22"] = sp_compare(torch, "mesh22", ranks22, one["mesh22"], PARITY_REL["bf16"])
+    out["remat1"] = sp_compare(torch, "remat1", ranks, ranks[0]["remat0"], PARITY_REL["bf16"])
+    for run, row in out.items():
+        if run not in ("bf16", "fp32", "mesh22", "remat1"):
+            continue
+        log(f"spatial {run}: rank 0 losses {' '.join(f'{v:.5f}' for v in row['losses'])}, "
+            f"reference {' '.join(f'{v:.5f}' for v in row['one_process_losses'])} (max |diff| "
+            f"{row['loss_err']:.3g}); parameters: ranks bit-equal {row['ranks_bit_equal']}, "
+            f"rank vs reference max|diff|/max|ref| {row['worst_rel']:.3g} ({row['worst']}; "
+            f"bound {row['bound']})")
+        if not row["ranks_bit_equal"] or row["worst_rel"] > row["bound"] \
+                or row["loss_err"] > row["bound"]:
+            raise AssertionError(f"spatial {run}: the ranks disagree with each other or with "
+                                 "the reference")
+    # exact launches, exchanges and space sums of each full-width bf16 step
+    want = dict(gn_moments=27, gn_apply=27, gn_bwd_reduce=27, gn_bwd_apply=27,
+                gather_patches=0)
+    for r, rank in enumerate(ranks):
+        for i, s in enumerate(rank["bf16"]["per_step"]):
+            if s["launches"] != want or s["exchanges"] != SP_EXCHANGES_PER_STEP \
+                    or s["space_sums"] != SP_SPACE_SUMS_PER_STEP:
+                raise AssertionError(f"spatial bf16 step {i} rank {r}: {s}, expected launches "
+                                     f"{want}, {SP_EXCHANGES_PER_STEP} exchanges and "
+                                     f"{SP_SPACE_SUMS_PER_STEP} space sums")
+    step_ms = [float(np.median(r["bf16"]["step_ms"])) for r in ranks]
+    exch = [float(np.mean([s["exchange_s"] for s in r["bf16"]["per_step"][-SP_TIMED:]]))
+            for r in ranks]
+    out["step"] = dict(median_step_ms=step_ms,
+                       one_process_median_step_ms=float(np.median(one["bf16"]["step_ms"])),
+                       exchange_s_per_step=exch, peak_gib=[r["peak_gib"] for r in ranks],
+                       one_process_peak_gib=one_peak, exchange_s_total=[r["exchange_s"]
+                                                                        for r in ranks])
+    log(f"spatial step, global batch {SP_BATCH} of 128^3 bf16 at f_maps 32 over 1 x 2 ranks "
+        f"(time-sliced on one card, gloo staged through the host: not a scaling figure): "
+        f"median {step_ms} ms a step by rank, one process "
+        f"{out['step']['one_process_median_step_ms']:.2f} ms; exchanges {exch} s a step; "
+        f"peak allocated {out['step']['peak_gib']} GiB by rank, one process {one_peak:.3f} "
+        f"GiB; {SP_EXCHANGES_PER_STEP} exchanges and {SP_SPACE_SUMS_PER_STEP} space sums a "
+        "step, 27 launches of each K1 kernel")
+    # Trainer.fit: the logged losses against one process; the hook ran on rank 0
+    trainer = dict(seconds=ranks[0]["trainer_s"], one_process_seconds=trainer_one_s,
+                   visualized=ranks[0]["visualized"])
+    worst = 0.0
+    for name in ("train_loss", "val_loss"):
+        g = {rec["step"]: rec[name] for rec in got_log if name in rec}
+        w = {rec["step"]: rec[name] for rec in want_log if name in rec}
+        if sorted(g) != sorted(w) or not g:
+            raise AssertionError(f"spatial Trainer.fit: {name} logged at {sorted(g)}, one "
+                                 f"process at {sorted(w)}")
+        worst = max(worst, max(abs(g[s] - w[s]) for s in w))
+    trainer["loss_err"] = worst
+    if worst > PARITY_REL["bf16"] or len(ranks[0]["visualized"]) != 2:
+        raise AssertionError(f"spatial Trainer.fit: losses {worst} apart, visualizer calls "
+                             f"{ranks[0]['visualized']}")
+    log(f"spatial Trainer.fit (1 x 2, 2 epochs of 2 steps, validation, the MIP hook's forward "
+        f"on rank 0 alone: {ranks[0]['visualized']}): logged losses within {worst:.3g} of one "
+        f"process; {trainer['seconds']:.1f} s, one process {trainer_one_s:.1f} s")
+    out["trainer"] = trainer
+    out["predict"] = predict
+    out["seconds"] = time.perf_counter() - t0
+    log(f"spatial: launches {counts} (ranks); {out['seconds']:.1f} s, the 1 x 2 ranks "
+        f"{seconds12:.1f} s, the 2 x 2 ranks {seconds22:.1f} s")
+    return dict(counts=counts, spatial=out)
+
+
 def analytic_mfu(fwd, slice_, train) -> dict:
     """The analytic model FLOPs (``utils/flops.py``: 3x the forward's
     convolutions a train step) over the measured time, against the H100's
@@ -5090,10 +5660,14 @@ def main(argv) -> int:
     children = {"--landmarks": landmarks_phase, "--predict-surface": predict_surface_phase,
                 "--training-surface": training_surface_phase, "--tools": tools_phase,
                 "--deploy": deploy_phase, "--unet3d": unet3d_phase,
-                "--parallel": parallel_phase}
+                "--parallel": parallel_phase, "--spatial": spatial_phase}
     if argv[:1] == ["--dp-rank"]:  # a rank of par_dp, started by the --parallel child
         _build.build()
         dp_rank(torch, gn, P, dev, Path(argv[1]))
+        return 0
+    if argv[:1] == ["--sp-rank"]:  # a rank of sp_launch, started by the --spatial child
+        _build.build()
+        sp_rank(torch, gn, P, dev, Path(argv[1]), int(argv[2]))
         return 0
     if argv[:1] and argv[0] in children:  # a child of run_child
         _build.build()
@@ -5193,20 +5767,28 @@ def main(argv) -> int:
     par_all = run_child("--parallel", "parallel")
     par_counts = par_all["counts"]
 
+    # 16. spatial partitioning (K1's fold-off route, the dp x sp mesh at
+    # seg_organ's width against one process, remat, Trainer.fit, whole-
+    # volume inference in both modes), in a fresh process too; its ranks
+    # are gloo processes on the one card
+    sp_all = run_child("--spatial", "spatial")
+    sp_counts = sp_all["counts"]
+
     def launches(name):
         by_path = dict(serving=counts[name], training=train_counts[name],
                        entry_points=entry_counts[name], landmarks=ldmk_counts[name],
                        predict_surface=surface_counts[name],
                        training_surface=training_counts[name], tools=tools_counts[name],
                        deploy=deploy_counts[name], unet3d=u3_counts[name],
-                       parallel=par_counts[name])
+                       parallel=par_counts[name], spatial=sp_counts[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     def gather_launches(path, entry, landmarks, surface, training_surface, tools, deploy=0,
                         unet3d=0, parallel=0):
         by_path = dict(serving=0, training=0, entry_points=entry, landmarks=landmarks,
                        predict_surface=surface, training_surface=training_surface, tools=tools,
-                       deploy=deploy, unet3d=unet3d, parallel=parallel)
+                       deploy=deploy, unet3d=unet3d, parallel=parallel,
+                       spatial=sp_counts["gather_patches"])
         by_path[path] = counts["gather_patches"] if path == "serving" \
             else train_counts["gather_patches"]
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
@@ -5247,6 +5829,20 @@ def main(argv) -> int:
                      apply_route=r["apply_route"])
                 for r in u3_all["gn"]["cases"].values()]
 
+    spk = {dt: sp_all["spatial"]["k1"][dt] for dt in ("bf16", "fp32")}
+
+    def fold_off(kind):
+        """The fold-off route's row: one call at each of seg_organ's five
+        level shapes at two ranks."""
+        row = lambda dt: dict(
+            ms=spk[dt][f"{kind}_ms"], bound_ms=spk[dt][f"{kind}_bound"],
+            plain_ms=spk[dt][f"{kind}_plain_ms"],
+            library_ms=spk[dt]["moments_library_ms"] if kind == "moments" else None,
+            max_abs_err=spk[dt][f"{kind}_err"], profiler_kept=spk[dt]["kept"],
+            per=f"fold off, one call at each of seg_organ's 5 level shapes at two ranks "
+                f"(batch 4 of 64 x 128 x 128 at level 0), {dt}")
+        return dict(spatial_check=row("bf16"), spatial_check_fp32=row("fp32"))
+
     common = dict(route="cuda", bound_by="bytes", ok=True)
     kernels = [
         dict(name="gn_moments", source="tpu_mednet_torch/csrc/groupnorm.cu",
@@ -5257,7 +5853,7 @@ def main(argv) -> int:
              plain_ms=b16["moments_plain_ms"], bound_ms=b16["moments_bound"],
              library_ms=b16["moments_library_ms"], profiler_kept=b16["moments_kept"],
              library_call="torch.var_mean (the same moments up to a rescale)",
-             per="full-width bf16 forward, 27 calls",
+             per="full-width bf16 forward, 27 calls", **fold_off("moments"),
              landmarks_check=dict(ms=l16["moments_ms"], plain_ms=l16["moments_plain_ms"],
                                   bound_ms=l16["moments_bound"],
                                   library_ms=l16["moments_library_ms"],
@@ -5299,7 +5895,7 @@ def main(argv) -> int:
              **u3_checks("gn_bwd_reduce"),
              replaces="tpu_mednet/ops/pallas/groupnorm.py:149-175 (custom VJP of the "
                       "kernel at :94) with the normalize chain's autodiff",
-             **launches("gn_bwd_reduce"), max_abs_err=bwd["err"],
+             **launches("gn_bwd_reduce"), max_abs_err=bwd["err"], **fold_off("reduce"),
              ms=bwd["reduce_ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["reduce_bound"],
              profiler_kept=bwd["reduce_kept"],
              library_ms=bwd["library_ms"],
@@ -5416,6 +6012,20 @@ def main(argv) -> int:
         multitask_patches_per_s=par["multitask_dp"]["patches_per_s"],
         multitask_peak_gib=par["multitask_dp"]["peak_allocated_gib"],
         launches=par_counts, seconds=par["seconds"])}))
+    sp = sp_all["spatial"]
+    log(json.dumps({"spatial": {k: v for k, v in sp.items() if k != "k1"},
+                    "k1_fold_off": sp["k1"]}))
+    log(json.dumps({"spatial_summary": dict(
+        worst_rel={k: sp[k]["worst_rel"] for k in ("bf16", "fp32", "mesh22", "remat1")},
+        median_step_ms_by_rank=sp["step"]["median_step_ms"],
+        one_process_step_ms=sp["step"]["one_process_median_step_ms"],
+        peak_gib_by_rank=sp["step"]["peak_gib"],
+        one_process_peak_gib=sp["step"]["one_process_peak_gib"],
+        exchange_s_per_step=sp["step"]["exchange_s_per_step"],
+        predict_ms={k: [v[f"rank{r}"]["ms"] for r in range(2)]
+                    for k, v in sp["predict"].items() if k.startswith(("auto", "explicit"))},
+        trainer_loss_err=sp["trainer"]["loss_err"], launches=sp_counts,
+        seconds=sp["seconds"])}))
     log(json.dumps({"mfu": mfu}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -275,12 +275,13 @@ def test_predict_refuses_the_wrong_task(run, tmp_path):
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--gpus", "3"], SystemExit, "data-parallel size 3"),
-    (["--spatial_shards", "2"], NotImplementedError, "Multi-GPU"),
+    (["--spatial_shards", "2"], SystemExit, "must divide the device count"),
     (["--native_loader"], RuntimeError, "native loader requested but unavailable"),
     (["--neptune_project", "p"], None, "not installed"),
 ], ids=["extra0-Multi-GPU", "extra1-Multi-GPU", "extra2-native loader", "extra3-Neptune"])
 def test_train_refuses_what_waits(run, tmp_path, monkeypatch, caplog, extra, error, match):
-    """Spatial partitioning waits and raises; ``--gpus`` (ported) needs a
+    """``--spatial_shards`` (ported) must divide the device count, with
+    the JAX CLI's words; ``--gpus`` (ported) needs a
     batch that splits evenly over the ranks, as JAX's does;
     ``--native_loader`` (ported) requires the native pipeline and raises
     where its library is unavailable; ``--neptune_project`` (ported) warns

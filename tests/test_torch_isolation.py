@@ -107,6 +107,10 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DevicePatchSampler(None, ["s0"], 1, [4, 4, 4], heatmap_group="heatmaps",
                            reader=MemoryReader({**reader.store, **labels, **heatmaps}))
+    from tpu_mednet_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
     from tpu_mednet_torch.cli import train_ldmks
 
     assert train_ldmks.main(["-c", str(REPO / "configs" / "landmarks.yaml")]) == 2
@@ -125,3 +129,8 @@ def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         groupnorm.group_norm_backward(x, x, torch.zeros(1, 8), torch.ones(1, 8),
                                       torch.ones(8), torch.zeros(8), 2)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        groupnorm.group_norm_sums(x)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        groupnorm.group_norm_backward_sums(x, x, torch.zeros(1, 8), torch.ones(1, 8),
+                                           torch.ones(8), torch.zeros(8), 2)

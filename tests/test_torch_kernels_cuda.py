@@ -15,6 +15,8 @@ plus 1e-5 * max |ref| (the same elementwise arithmetic on coefficients
 that differ by their sums' order, rounded once); gathers byte-equal.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -427,3 +429,150 @@ def test_fused_gather_of_odd_rows_byte_equal(cuda_device, case):
     subjects = np.asarray([1, 0, 1, 1, 0], np.int32)
     _fused((first, second), corners, patch, subjects, (out_dtype, torch.float16))
     _fused((first,), corners, patch, subjects, (out_dtype,))
+
+
+# K1's fold-off route at seg_organ's level shapes at two space ranks: batch
+# 4 of a 64 x 128 x 128 slab at level 0, (channels, slab extent) by level
+_SLAB_LEVELS = [(32 * 2**i, (64 >> i, 128 >> i, 128 >> i)) for i in range(5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", range(len(_SLAB_LEVELS)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_fold_off_route_matches_plain_on_card(cuda_device, dtype, level):
+    """With the fold off, the moments kernel's per-(n, c) sums and the
+    backward reduce's A and B against their plain versions within 1e-4 x
+    max |ref| (per-(n, c) sums of another fp32 order); folded in torch
+    (``fold_group_stats``, ``backward_coefficients``), equal to the
+    fold-on route within rtol 1e-5 (another order of the group sum, and
+    torch's rsqrt against the kernel's ``__frsqrt_rn``); one launch each."""
+    c, ext = _SLAB_LEVELS[level]
+    shape = (4, c, *ext)
+    x = _activation(shape, dtype, cuda_device, 30 + level)
+    dy = _activation(shape, dtype, cuda_device, 50 + level) - 0.5
+    r = _activation(shape, dtype, cuda_device, 70 + level) if level % 2 else None
+    g = torch.Generator().manual_seed(level)
+    w = (torch.rand(c, generator=g) + 0.5).to(cuda_device)
+    b = (torch.rand(c, generator=g) - 0.5).to(cuda_device)
+    spatial = x.numel() // (4 * c)
+
+    launched = gn.STATS_LAUNCHES
+    sums = gn.group_norm_sums(x)
+    assert gn.STATS_LAUNCHES == launched + 1 and sums.shape == (2, 4, c)
+    ref = torch.stack(gn.group_norm_stats_plain(x))
+    assert float((sums - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    stats = gn.group_norm_moments(x, 8, w, 1e-5)
+    for got, want in zip(gn.fold_group_stats(sums[0], sums[1], spatial, 8, w, 1e-5), stats):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+    launched = gn.BWD_REDUCE_LAUNCHES
+    ab = gn.group_norm_backward_sums(x, dy, stats.mean, stats.rstd, w, b, 8, r, "e")
+    assert gn.BWD_REDUCE_LAUNCHES == launched + 1 and ab.shape == (2, 4, c)
+    *_, a_p, b_p = gn.backward_sums_plain(x, dy, stats.mean, stats.rstd, w, b, r, "e")
+    ab_ref = torch.stack((a_p, b_p))
+    assert float((ab - ab_ref).abs().max()) <= 1e-4 * float(ab_ref.abs().max())
+    coef = gn._bwd_reduce_cuda(x, dy, gn._backward_inputs(x, dy, stats.mean, stats.rstd, w, b,
+                                                          r), 8, r, "e")
+    for got, want in zip(gn.backward_coefficients(ab[0], ab[1], stats.rstd, w, 8,
+                                                  spatial * (c // 8)), coef[2:]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_slab_group_norm_function_of_one_slab_equals_group_norm_on_card(cuda_device):
+    """``SlabGroupNormFunction`` with nothing to add (one slab) against
+    ``GroupNormFunction``: the same four kernels, the fold moved to torch;
+    y and the gradients within the fold's rtol 1e-5 carried through
+    (1e-5 x max |ref|), dγ and dβ within 1e-4 x max |ref|."""
+    shape = (2, 64, 12, 10, 8)
+    x = _activation(shape, torch.float32, cuda_device, 90)
+    r = _activation(shape, torch.float32, cuda_device, 91)
+    dy = _activation(shape, torch.float32, cuda_device, 92)
+    w = torch.rand(64, device=cuda_device) + 0.5
+    b = torch.rand(64, device=cuda_device) - 0.5
+    outs = []
+    for slab in (False, True):
+        xs, rs = x.clone().requires_grad_(True), r.clone().requires_grad_(True)
+        ws, bs = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        if slab:
+            y = gn.SlabGroupNormFunction.apply(xs, ws, bs, rs, 8, 1e-5, "e", lambda t: t,
+                                               x[0, 0].numel())
+        else:
+            y = gn.GroupNormFunction.apply(xs, ws, bs, rs, 8, 1e-5, "e")
+        y.backward(dy)
+        outs.append((y.detach(), xs.grad, rs.grad, ws.grad, bs.grad))
+    for i, (got, want) in enumerate(zip(*outs)):
+        bound = (1e-4 if i >= 3 else 1e-5) * float(want.abs().max())
+        assert float((got - want).abs().max()) <= bound, i
+
+
+def _halo_rank(rank, port, out):
+    """One of two gloo ranks on ``cuda:0``: a halo of 1 and (0, 1) around
+    uneven CUDA slabs, with the gradient through it."""
+    import torch.distributed as dist
+
+    from tpu_mednet_torch.parallel import halo_exchange, make_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(dev, devices=[dev, dev], n_space=2)
+    g = torch.Generator().manual_seed(3)
+    whole = torch.randn((2, 4, 16, 6, 5), generator=g).to(torch.bfloat16)
+    grads = torch.randn((2, 4, 18, 6, 5), generator=g).to(torch.bfloat16)
+    rows = slice(0, 10) if rank == 0 else slice(10, 16)
+    x = whole[:, :, rows].to(dev).contiguous(memory_format=CL3D).requires_grad_(True)
+    y = halo_exchange(x, 1, mesh, lengths=(10, 6))
+    up = halo_exchange(x, (0, 1), mesh, lengths=(10, 6))
+    gy = grads[:, :, rows.start:rows.stop + 2].to(dev)
+    (y.float() * gy.float()).sum().backward()
+    torch.save({"y": y.detach().cpu(), "up": up.detach().cpu(), "grad": x.grad.cpu(),
+                "cuda": y.is_cuda and x.grad.is_cuda}, Path(out) / f"r{rank}.pt")
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_halo_exchange_of_cuda_slabs_through_gloo(cuda_device, tmp_path):
+    """Two gloo ranks on one card exchange rows of CUDA slabs (staged
+    through pinned host buffers): the padded slabs equal the zero-padded
+    volume's rows exactly, and the gradient of each slab adds its halo
+    rows' gradients sent back by the neighbour (within one bf16 rounding
+    of the sum); the ranks are killed after 120 s."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    from tpu_mednet_torch.parallel.multihost import free_port
+
+    ctx = mp.start_processes(_halo_rank, args=(free_port(), str(tmp_path)), nprocs=2,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + 120
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                pytest.fail("the halo ranks did not end within 120 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    g = torch.Generator().manual_seed(3)
+    whole = torch.randn((2, 4, 16, 6, 5), generator=g).to(torch.bfloat16)
+    grads = torch.randn((2, 4, 18, 6, 5), generator=g).to(torch.bfloat16).float()
+    padded = torch.nn.functional.pad(whole, (0, 0, 0, 0, 1, 1))
+    grad = torch.zeros((2, 4, 18, 6, 5))
+    outs = [torch.load(tmp_path / f"r{r}.pt") for r in range(2)]
+    for r, (a, n) in enumerate(((0, 10), (10, 6))):
+        assert outs[r]["cuda"]
+        assert torch.equal(outs[r]["y"], padded[:, :, a:a + n + 2])
+        assert torch.equal(outs[r]["up"], padded[:, :, a + 1:a + n + 2])
+        grad[:, :, a:a + n + 2] += grads[:, :, a:a + n + 2]
+    for r, (a, n) in enumerate(((0, 10), (10, 6))):
+        want = grad[:, :, a + 1:a + n + 1]
+        got = outs[r]["grad"].float()
+        assert bool(((got - want).abs() <= bf16_ulp(want) + 1e-6).all()), r
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value of ``t``."""
+    _, exp = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), exp - 8)

@@ -16,7 +16,8 @@ The host sampler runs through the native batch pipeline unless
 MIPs; they need matplotlib, and without it one warning says so and the run
 trains without them), a Neptune sink where the token and the client are
 there, and data-parallel ranks over one global batch, rank 0 alone
-writing.  ``--spatial_shards`` above 1 is not ported yet.
+writing.  ``--spatial_shards`` splits each sample's X extent over that
+many of the ranks, as in ``train_seg``.
 """
 
 from __future__ import annotations
@@ -63,10 +64,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except RuntimeError as exc:
         print(f"train_ldmks: {exc}", file=sys.stderr)
         return 2
-    if hparams.spatial_shards > 1:
-        raise NotImplementedError(
-            f"--spatial_shards {hparams.spatial_shards}: spatial partitioning is not "
-            "ported yet (ROADMAP §1, 'Multi-GPU')")
     if hparams.landmark_group and not hparams.device_sampler:
         raise SystemExit("--landmark_group (heatmaps rendered on the device) requires "
                          "--device_sampler")

@@ -18,8 +18,10 @@ as the JAX CLI does).  ``--gpus N`` trains data-parallel on N ranks, one a
 card, over one global batch of ``--batch_size``: it joins a ``torchrun``
 group where one launched it, else it starts the ranks of this host itself
 (NCCL); ``--device cpu --gpus N`` runs N gloo ranks on the CPU.  Rank 0
-alone writes logs, figures and checkpoints.  ``--spatial_shards`` above 1
-(spatial partitioning) is not ported yet.
+alone writes logs, figures and checkpoints.  ``--spatial_shards S``
+splits each sample's X extent over S of those ranks (a (gpus / S) x S
+mesh of data and space, as the JAX CLI's ``make_mesh(n_data, n_space)``;
+S must divide the device count, and the host sampler is required).
 """
 
 from __future__ import annotations
@@ -66,10 +68,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except RuntimeError as exc:
         print(f"train_seg: {exc}", file=sys.stderr)
         return 2
-    if hparams.spatial_shards > 1:
-        raise NotImplementedError(
-            f"--spatial_shards {hparams.spatial_shards}: spatial partitioning is not "
-            "ported yet (ROADMAP §1, 'Multi-GPU')")
     from tpu_mednet_torch.parallel.multihost import join_or_launch
 
     mesh, rc = join_or_launch("tpu_mednet_torch.cli.train_seg", argv, hparams, device, "seg")

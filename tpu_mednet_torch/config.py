@@ -131,8 +131,11 @@ def add_common_train_args(parser: argparse.ArgumentParser) -> None:
                         help="keep volumes resident on the card and gather "
                              "patches there (DevicePatchSampler)")
     parser.add_argument("--spatial_shards", type=int, default=1,
-                        help="spatial partitioning (not ported yet: more than 1 "
-                             "raises)")
+                        help="partition the patch X axis over this many "
+                             "devices per data-parallel replica (the mesh's "
+                             "'space' axis: spatially partitioned training "
+                             "with halo exchange) — for patches too large "
+                             "for one card")
     parser.add_argument("--native_loader", dest="native_loader",
                         action="store_true", default=None,
                         help="require the native (C++) batch pipeline "

@@ -81,6 +81,15 @@
 //    It now takes the forward's channel-owned walk, with mean, mul = rstd *
 //    gamma (the product taken once per thread), beta, coeff_b and coeff_c
 //    held in registers.
+//  - Spatial partitioning: where a volume is split along X over ranks, a
+//    GroupNorm's statistics span every slab.  A slab's folded mean and rstd
+//    cannot be turned back into sums exactly (the variance is clamped at 0,
+//    rstd went through rsqrt), so with fold = 0 the moments kernel stops at
+//    the per-(n, c) sum and sum of squares and the backward's reduce at A
+//    and B, as the TPU kernel stops at its per-lane sums.  The caller adds
+//    them over the slab's ranks and folds them from the global count
+//    (ops/groupnorm.py fold_group_stats, backward_coefficients); the applies
+//    are unchanged.
 #include <algorithm>
 
 #include "common.cuh"
@@ -159,6 +168,7 @@ struct MomentsParams {
   long long rows_per_block;
   int c, groups, stage_rows;
   float eps;
+  int fold;              // 0: mean/mul get the per-(n, c) sum/sum of squares
 };
 
 template <int V>
@@ -315,6 +325,13 @@ __global__ void gn_moments_kernel(const MomentsParams p) {
   __syncthreads();
   if (!sample_sums(red, row_slots, c, p.part, p.tickets)) return;
   float* tot = red + 2 * row_slots * c;  // (2, c), then mean and rstd per group
+  if (!p.fold) {  // the sums alone, to be added over a slab's ranks and folded
+    for (int ch = tid; ch < c; ch += blockDim.x) {
+      p.mean[(long long)n * c + ch] = tot[ch];
+      p.mul[(long long)n * c + ch] = tot[c + ch];
+    }
+    return;
+  }
   // the fold of ops/packed.py packed_group_norm_stats with flax's clamp,
   // each fp32 operation rounded on its own as in the plain version
   const int cg = c / p.groups;
@@ -635,12 +652,13 @@ struct BwdParams {
   const float* beta;     // (C)
   float* part;           // (N, blocks, 2, C) scratch
   int* tickets;          // (>= N), 0 between launches
-  float* out;            // (4, N, C) out: A, B, coeff_b, coeff_c
+  float* out;            // (4, N, C) out: A, B, coeff_b, coeff_c; (2, N, C) unfolded
   long long n;
   long long s;           // rows per sample
   long long rows_per_block;
   int c, groups, act;
   float slope;
+  int fold;              // 0: A and B alone
 };
 
 // blockDim = consumer threads; thread t owns channel vector t % vecs in row
@@ -704,6 +722,14 @@ __global__ void gn_bwd_reduce_kernel(const BwdParams p) {
   __syncthreads();
   if (!sample_sums(red, row_slots, c, p.part, p.tickets)) return;
   float* tot = red + 2 * row_slots * c;  // (2, c), then (gamma A, gamma B) per group
+  const long long nc = p.n * c;
+  if (!p.fold) {  // A and B alone: the coefficients wait for the sums of every slab
+    for (int ch = tid; ch < c; ch += blockDim.x) {
+      p.out[(long long)n * c + ch] = tot[ch];
+      p.out[nc + (long long)n * c + ch] = tot[c + ch];
+    }
+    return;
+  }
   // per group: sum of gamma * A and of gamma * B over its channels, then
   // dx = mul * dz + coeff_b * (x - mean) + coeff_c with
   // coeff_b = -rstd^2 * sum(gamma B) / M and coeff_c = -rstd * sum(gamma A) / M
@@ -722,7 +748,6 @@ __global__ void gn_bwd_reduce_kernel(const BwdParams p) {
     g_b[g] = b;
   }
   __syncthreads();
-  const long long nc = p.n * c;
   for (int ch = tid; ch < c; ch += blockDim.x) {
     const int g = ch / cg;
     const long long i = (long long)n * c + ch;
@@ -866,11 +891,13 @@ extern "C" {
 // per sample; part is (N, blocks, 2, C) fp32 scratch and tickets (>= N)
 // int32 zeros, left zero again.  bulk != 0 streams rows with bulk copies in
 // stages of stage_rows rows (x 16-byte aligned, C * esize a multiple of 16).
+// fold == 0 stops at the per-(n, c) fp32 sum and sum of squares, written to
+// mean and mul; gamma, eps and rstd are then unused.
 int tmt_gn_moments(const void* x, int dtype, long long n, long long s, int c,
                    int groups, const void* gamma, float eps, int blocks,
                    long long rows_per_block, int bulk, int stage_rows,
                    void* part, void* tickets, void* mean, void* mul,
-                   void* rstd, void* stream) {
+                   void* rstd, int fold, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n < 1 || n > 65535 || c < 1 || groups < 1 || c % groups || blocks < 1 ||
       (long long)blocks * rows_per_block < s)
@@ -878,7 +905,7 @@ int tmt_gn_moments(const void* x, int dtype, long long n, long long s, int c,
   MomentsParams p{x, static_cast<const float*>(gamma), static_cast<float*>(part),
                   static_cast<int*>(tickets), static_cast<float*>(mean),
                   static_cast<float*>(mul), static_cast<float*>(rstd), s,
-                  rows_per_block, c, groups, stage_rows, eps};
+                  rows_per_block, c, groups, stage_rows, eps, fold};
   if (dtype == kBF16) {
     if (!bulk) return launch_moments<__nv_bfloat16, 1, false>(p, n, blocks, st);
     if (!aligned16(x) || c % 8) return cudaErrorInvalidValue;
@@ -929,12 +956,12 @@ int tmt_gn_apply(const void* x, const void* residual, void* y, const void* mean,
 // A = sum dz, B = sum dz * xhat, and dx's coefficients coeff_b, coeff_c
 // (see gn_bwd_reduce_kernel).  act as in tmt_gn_apply; residual may be null.
 // part is (N, blocks, 2, C) fp32 scratch, tickets (>= N) int32 zeros, left
-// zero again.
+// zero again.  fold == 0 stops at A and B, out (2, N, C).
 int tmt_gn_bwd_reduce(const void* x, const void* dy, const void* residual, int dtype,
                       long long n, long long s, int c, int groups, const void* mean,
                       const void* rstd, const void* gamma, const void* beta, int act,
                       float slope, int blocks, long long rows_per_block, void* part,
-                      void* tickets, void* out, void* stream) {
+                      void* tickets, void* out, int fold, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n < 1 || n > 65535 || c < 1 || groups < 1 || c % groups || blocks < 1 ||
       (long long)blocks * rows_per_block < s)
@@ -943,7 +970,7 @@ int tmt_gn_bwd_reduce(const void* x, const void* dy, const void* residual, int d
                     static_cast<const float*>(rstd), static_cast<const float*>(gamma),
                     static_cast<const float*>(beta), static_cast<float*>(part),
                     static_cast<int*>(tickets), static_cast<float*>(out), n, s,
-                    rows_per_block, c, groups, act, slope};
+                    rows_per_block, c, groups, act, slope, fold};
   const bool vec = aligned16(x) && aligned16(dy) &&
                    (residual == nullptr || aligned16(residual));
   if (dtype == kBF16) {

@@ -21,6 +21,17 @@ final nonlinearity.  Conv, transposed conv, pooling, the nearest resize
 and BatchNorm's normalization go to ``torch.nn.functional`` (cuDNN), as
 the JAX package left them to XLA; BatchNorm's running statistics follow
 flax's update (``BatchNorm``).
+
+On a space axis (``space_axis``: the input's X split over the ranks of
+a data row, ``parallel/halo.py``) each module computes its part of the
+unsplit function, as GSPMD's partitioning of the JAX modules does: a 3^3
+convolution first exchanges its padding's rows of X with its neighbours
+and pads only Y and Z; the transposed convolution takes its right
+neighbour's first row (its last output row reads it) and crops the one
+row it makes past its slab; GroupNorm's sums are added over the data row
+before the fold (``gn.SlabGroupNormFunction``); BatchNorm's count is
+summed with its sums.  Pooling, the nearest resize and the 1x1x1 head
+stay local: every slab is a whole number of pooling windows.
 """
 
 from __future__ import annotations
@@ -86,7 +97,10 @@ def _cast(b: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
 class GroupNorm(nn.Module):
     """GroupNorm parameters (``weight``/``bias`` like ``nn.GroupNorm``) whose
     forward is K1, with an optional fused residual add and nonlinearity, and
-    whose gradient is K1's backward (``gn.group_norm``'s autograd Function)."""
+    whose gradient is K1's backward (``gn.group_norm``'s autograd Function).
+    On a space axis the statistics are the whole volume's."""
+
+    space = None
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  device=None):
@@ -99,6 +113,11 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
                 act: Optional[str] = None) -> torch.Tensor:
+        if self.space is not None:
+            spatial = self.space.extent(x.shape[2]) * x.shape[3] * x.shape[4]
+            return gn.SlabGroupNormFunction.apply(
+                x, self.weight, self.bias, residual, self.num_groups, self.eps, act,
+                self.space.reduce_, spatial)
         return gn.group_norm(x, self.num_groups, self.weight, self.bias,
                              self.eps, residual=residual, act=act)
 
@@ -143,8 +162,9 @@ class BatchNorm(nn.Module):
     With ``dp`` set (``set_batch_norm_mesh``: a data-parallel step over a
     ``DataMesh`` of more than one rank), training mode takes the global
     batch's statistics as flax does over a sharded batch: per-channel sums
-    of x and x² all-reduced inside autograd, mean E[x] and biased variance
-    E[x²] − E[x]² (clipped at 0) in fp32.
+    of x and x² all-reduced inside autograd over the global count (every
+    rank's elements: uneven X slabs hold different counts), mean E[x] and
+    biased variance E[x²] − E[x]² (clipped at 0) in fp32.
     """
 
     dp = None
@@ -192,7 +212,7 @@ class BatchNorm(nn.Module):
         dims = [0, *range(2, x.dim())]
         xf = x.float()
         s1, s2 = self.dp.all_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]))
-        count = n * self.dp.world_size
+        count = self.dp.count_sum(n)
         mean = s1 / count
         var = (s2 / count - mean * mean).clamp_min(0.0)  # flax clips at 0
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -206,6 +226,22 @@ def set_batch_norm_mesh(model: nn.Module, dp) -> None:
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.dp = dp
+
+
+@contextlib.contextmanager
+def space_axis(model: nn.Module, space):
+    """Inside the block every layer of ``model`` that needs it runs on X
+    slabs of ``space`` (a ``parallel.halo.SpaceAxis``); after it, and with
+    ``space`` None, on whole volumes (a forward elsewhere, on one rank,
+    then runs no collective)."""
+    layers = [m for m in model.modules() if isinstance(m, (GroupNorm, ConvLayer, DecoderStage))]
+    for m in layers:
+        m.space = space
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.space = None
 
 
 def batch_stat_buffers(model: nn.Module) -> List[torch.Tensor]:
@@ -223,6 +259,8 @@ class ConvLayer(nn.Module):
     norm is present (components.py:43); a norm before the conv normalizes
     the input channels, after it the output channels.
     """
+
+    space = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  order: str = "crg", num_groups: int = 8, padding: int = 1,
@@ -263,9 +301,7 @@ class ConvLayer(nn.Module):
         fuse_tail = self.plan[-1] == ("g", None)
         for i, (op, act) in enumerate(self.plan):
             if op == "c":
-                x = F.conv3d(x, _conv_weight(self.conv.weight, self.dtype),
-                             _cast(self.conv.bias, self.dtype), padding=self.padding)
-                x = x.contiguous(memory_format=CL3D)
+                x = self._conv(x).contiguous(memory_format=CL3D)
             elif op == "g":
                 if fuse_tail and i == len(self.plan) - 1:
                     return self.groupnorm(x, residual=residual, act=post_act)
@@ -277,6 +313,14 @@ class ConvLayer(nn.Module):
         if residual is not None:
             x = x + residual
         return gn.activation_plain(x, post_act)
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = _conv_weight(self.conv.weight, self.dtype), _cast(self.conv.bias, self.dtype)
+        pad = self.padding
+        if self.space is None or not pad:
+            return F.conv3d(x, w, b, padding=pad)
+        x = self.space.exchange(x, pad, pad).contiguous(memory_format=CL3D)
+        return F.conv3d(x, w, b, padding=(0, pad, pad))
 
 
 class DoubleConv(nn.Module):
@@ -386,7 +430,16 @@ class DecoderStage(nn.Module):
     - ``residual``: ``ConvTranspose3d(k=3, stride=2, padding=1,
       output_padding=1)`` doubles the extent, then the encoder feature is
       added.
+
+    On a space axis the transposed conv's output row ``2i + k - 1`` reads
+    input row ``i`` (k = 0, 1, 2): a slab's last output row reads the
+    right neighbour's first input row and no row reads the left one's, so
+    the slab takes one row from the right (zeros past the volume, where
+    ``output_padding`` adds a row that reads nothing), and the one output
+    row past its slab is cropped.
     """
+
+    space = None
 
     def __init__(self, in_channels: int, out_channels: int, block: str = "residual",
                  order: str = "cge", num_groups: int = 8,
@@ -411,9 +464,14 @@ class DecoderStage(nn.Module):
             x = torch.cat([encoder_features, x], dim=1)
         else:
             up = self.upsample
-            x = F.conv_transpose3d(x, _conv_weight(up.weight, self.dtype),
-                                   _cast(up.bias, self.dtype), stride=2, padding=1,
-                                   output_padding=1)
+            w, b = _conv_weight(up.weight, self.dtype), _cast(up.bias, self.dtype)
+            if self.space is None:
+                x = F.conv_transpose3d(x, w, b, stride=2, padding=1, output_padding=1)
+            else:
+                rows = 2 * x.shape[2]
+                x = self.space.exchange(x, 0, 1).contiguous(memory_format=CL3D)
+                x = F.conv_transpose3d(x, w, b, stride=2, padding=1,
+                                       output_padding=(0, 1, 1)).narrow(2, 0, rows)
             x = x + encoder_features
         return self.basic_module(x.contiguous(memory_format=CL3D))
 

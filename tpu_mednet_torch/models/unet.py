@@ -21,8 +21,11 @@ from torch's layer defaults — the JAX package's ``'torch'`` init scheme
 GroupNorm statistics across it, the port recomputes them with the stage.
 A BatchNorm's running statistics move in the forward only: the recompute
 runs under ``freeze_batch_stats``, as JAX's remat updates ``batch_stats``
-once.  Not ported: ``packed`` (a TPU layout with the same parameters and
-math).
+once.  On a space axis (``models/blocks.py``'s ``space_axis``) the
+recompute runs the stage's halo exchanges and GroupNorm sums again: every
+rank recomputes the same stages in the same order, so the collectives
+pair up.  Not ported: ``packed`` (a TPU layout with the same parameters
+and math).
 """
 
 from __future__ import annotations

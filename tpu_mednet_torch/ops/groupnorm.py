@@ -12,6 +12,13 @@ pass for dx (and the residual's gradient).  ``group_norm`` ties them into a
 ``torch.autograd.Function``.  On a CPU tensor their plain PyTorch versions
 below run instead, and any other device raises.
 
+For a volume split along X over ranks (``parallel/halo.py``), both reduces
+also stop at the per-(n, c) sums (``group_norm_sums``,
+``group_norm_backward_sums``: the kernels with their fold off), which
+``SlabGroupNormFunction`` adds over the slab's ranks and folds from the
+global count before the applies, as the TPU kernel's per-lane sums are
+all-reduced under the JAX package's ``space`` axis.
+
 The forward pair is registered as two ``torch.library`` custom ops,
 ``tpu_mednet_torch::gn_moments`` and ``tpu_mednet_torch::gn_apply``
 (each calls its wrapper below: the kernel on CUDA, the plain version on
@@ -53,7 +60,7 @@ _MOMENTS_ARGS = [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p,
 ]
 # the apply plan's fields (route, blocks, rows per block, threads, chunk)
 _PLAN_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
@@ -68,7 +75,7 @@ _BWD_REDUCE_ARGS = [
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 ]
 _BWD_APPLY_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -202,30 +209,38 @@ def _tickets(device: torch.device, n: int, pool=_TICKETS) -> torch.Tensor:
     return t
 
 
-def _group_norm_moments_cuda(x, num_groups, weight, eps):
+def _group_norm_moments_cuda(x, num_groups, weight, eps, fold=True):
+    """One launch of ``gn_moments_kernel``: the folded statistics, or with
+    ``fold`` off the (2, N, C) sums (``weight`` and ``eps`` unused)."""
     global STATS_LAUNCHES
     _build.require_cuda(x, "group_norm_moments")
     _check_activation(x, "group_norm_moments")
     n, c = x.shape[:2]
     s = x.numel() // (n * c) if n * c else 0
-    gamma = weight.float().contiguous()
-    if gamma.shape != (c,) or gamma.device != x.device:
-        raise ValueError("group_norm_moments: weight must be (C,) on x's device")
-    out = [torch.empty((n, c), dtype=torch.float32, device=x.device) for _ in range(3)]
-    if n == 0 or c == 0:
-        return GroupNormStats(*out)
-    plan = plan_moments(n, s, c, x.element_size(), x.data_ptr() % 16 == 0,
-                        torch.cuda.get_device_properties(x.device).multi_processor_count)
-    part = torch.empty((n, plan.blocks, 2, c), dtype=torch.float32, device=x.device)
-    fn = _build.kernel("tmt_gn_moments", _MOMENTS_ARGS)
-    err = fn(x.data_ptr(), _build.DTYPE_CODES[x.dtype], n, s, c, num_groups,
-             gamma.data_ptr(), eps, plan.blocks, plan.rows_per_block, int(plan.bulk),
-             plan.stage_rows, part.data_ptr(), _tickets(x.device, n).data_ptr(),
-             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-             _build.stream_of(x))
-    _build.check(err, "tmt_gn_moments")
-    STATS_LAUNCHES += 1
-    return GroupNormStats(*out)
+    gamma = None
+    if fold:
+        gamma = weight.float().contiguous()
+        if gamma.shape != (c,) or gamma.device != x.device:
+            raise ValueError("group_norm_moments: weight must be (C,) on x's device")
+        out = [torch.empty((n, c), dtype=torch.float32, device=x.device) for _ in range(3)]
+        ptrs = [t.data_ptr() for t in out]
+    else:
+        sums = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+        ptrs = [sums[0].data_ptr(), sums[1].data_ptr(), None]
+    if n * c and s:
+        plan = plan_moments(n, s, c, x.element_size(), x.data_ptr() % 16 == 0,
+                            torch.cuda.get_device_properties(x.device).multi_processor_count)
+        part = torch.empty((n, plan.blocks, 2, c), dtype=torch.float32, device=x.device)
+        fn = _build.kernel("tmt_gn_moments", _MOMENTS_ARGS)
+        err = fn(x.data_ptr(), _build.DTYPE_CODES[x.dtype], n, s, c, num_groups,
+                 None if gamma is None else gamma.data_ptr(), eps, plan.blocks,
+                 plan.rows_per_block, int(plan.bulk), plan.stage_rows, part.data_ptr(),
+                 _tickets(x.device, n).data_ptr(), *ptrs, int(fold), _build.stream_of(x))
+        _build.check(err, "tmt_gn_moments")
+        STATS_LAUNCHES += 1
+    elif not fold:
+        sums.zero_()
+    return GroupNormStats(*out) if fold else sums
 
 
 def group_norm_moments(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
@@ -241,6 +256,15 @@ def group_norm_moments(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
     if x.device.type == "cpu":
         return group_norm_moments_plain(x, num_groups, weight, eps)
     return _group_norm_moments_cuda(x, num_groups, weight, eps)
+
+
+def group_norm_sums(x: torch.Tensor) -> torch.Tensor:
+    """K1 moments with the fold off: (2, N, C) fp32 per-(n, c) sum and sum
+    of squares of one slab, to be added over the slabs of a volume before
+    ``fold_group_stats``.  On CUDA one launch of ``gn_moments_kernel``."""
+    if x.device.type == "cpu":
+        return torch.stack(group_norm_stats_plain(x))
+    return _group_norm_moments_cuda(x, 1, None, 0.0, fold=False)
 
 
 @torch.library.custom_op("tpu_mednet_torch::gn_moments", mutates_args=(),
@@ -445,12 +469,18 @@ def group_norm_backward_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.T
     """
     xm, mul, dz, coef = backward_terms_plain(x, dy, mean_c, rstd_c, weight, bias,
                                              num_groups, residual, act)
-    n, c = mean_c.shape
-    view = (n, c, 1, 1, 1)
+    dx, dr = _backward_apply_plain(x, xm, mul, dz, coef, residual)
+    return GroupNormGrads(dx, coef[1].sum(0).to(weight.dtype), coef[0].sum(0).to(bias.dtype),
+                          dr)
+
+
+def _backward_apply_plain(x, xm, mul, dz, coef, residual):
+    """dx = mul * dz + coeff_b * (x - mean) + coeff_c, and dr = dz, in x's
+    dtype."""
+    view = (*mul.shape, 1, 1, 1)
     dx = mul.view(view) * dz + coef[2].view(view) * xm + coef[3].view(view)
     dr = None if residual is None else dz.to(x.dtype).contiguous(memory_format=CL3D)
-    return GroupNormGrads(dx.to(x.dtype).contiguous(memory_format=CL3D),
-                          coef[1].sum(0).to(weight.dtype), coef[0].sum(0).to(bias.dtype), dr)
+    return dx.to(x.dtype).contiguous(memory_format=CL3D), dr
 
 
 def backward_terms_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor,
@@ -460,6 +490,19 @@ def backward_terms_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor
     """fp32 (x - mean, mul = rstd * gamma (N, C), dz, coef) of
     ``group_norm_backward_plain``; coef (4, N, C) holds A, B, coeff_b and
     coeff_c, as the reduce kernel's output does."""
+    xm, mul, dz, a, b = backward_sums_plain(x, dy, mean_c, rstd_c, weight, bias,
+                                            residual, act)
+    n, c = mean_c.shape
+    count = (x.numel() // max(1, n * c)) * (c // num_groups)
+    coeff_b, coeff_c = backward_coefficients(a, b, rstd_c, weight, num_groups, count)
+    return xm, mul, dz, torch.stack((a, b, coeff_b, coeff_c))
+
+
+def backward_sums_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor,
+                        rstd_c: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                        residual: Optional[torch.Tensor] = None,
+                        act: Optional[str] = None):
+    """fp32 (x - mean, mul, dz, A, B) of the backward, before the group fold."""
     n, c = mean_c.shape
     view = (n, c, 1, 1, 1)
     # the forward's z, each operation rounded as in the forward
@@ -472,19 +515,26 @@ def backward_terms_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor
     del z
     a = dz.sum(dim=(2, 3, 4))
     b = (dz * (xm * rstd_c.view(view))).sum(dim=(2, 3, 4))
+    return xm, mul, dz, a, b
+
+
+def backward_coefficients(a: torch.Tensor, b: torch.Tensor, rstd_c: torch.Tensor,
+                          weight: torch.Tensor, num_groups: int, count: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dx's per-(n, c) coefficients from A and B (N, C) over ``count``
+    elements a group: coeff_b = -rstd^2 * sum_g(gamma B) / M and
+    coeff_c = -rstd * sum_g(gamma A) / M."""
+    n, c = a.shape
     cg = c // num_groups
-    count = (x.numel() // max(1, n * c)) * cg
     gw = weight.float()
     sa = (gw * a).view(n, num_groups, cg).sum(-1).repeat_interleave(cg, dim=1)
     sb = (gw * b).view(n, num_groups, cg).sum(-1).repeat_interleave(cg, dim=1)
-    coeff_b = -(rstd_c * rstd_c * sb / count)
-    coeff_c = -(rstd_c * sa / count)
-    return xm, mul, dz, torch.stack((a, b, coeff_b, coeff_c))
+    return -(rstd_c * rstd_c * sb / count), -(rstd_c * sa / count)
 
 
-def _group_norm_backward_cuda(x, dy, mean_c, rstd_c, weight, bias, num_groups,
-                              residual=None, act=None):
-    global BWD_REDUCE_LAUNCHES, BWD_APPLY_LAUNCHES
+def _backward_inputs(x, dy, mean_c, rstd_c, weight, bias, residual):
+    """The backward kernels' checked operands: fp32 16-byte aligned
+    (mean, rstd, gamma, beta)."""
     _build.require_cuda(x, "group_norm_backward")
     _check_activation(x, "group_norm_backward")
     for t, what in ((dy, "dy"), (residual, "residual")):
@@ -494,38 +544,63 @@ def _group_norm_backward_cuda(x, dy, mean_c, rstd_c, weight, bias, num_groups,
             raise ValueError(f"group_norm_backward: {what} must match x in shape, "
                              "dtype, device and channels_last_3d layout")
     n, c = x.shape[:2]
-    s = x.numel() // (n * c)
     small = [t.float().contiguous() for t in (mean_c, rstd_c, weight, bias)]
     if any(t.device != x.device for t in small) or small[0].shape != (n, c) \
             or small[1].shape != (n, c) or small[2].shape != (c,) or small[3].shape != (c,):
         raise ValueError("group_norm_backward: mean/rstd must be (N, C) and "
                          "weight/bias (C,) on x's device")
-    mean_c, rstd_c, gamma, beta = (_aligned16(t) for t in small)
+    return tuple(_aligned16(t) for t in small)
+
+
+def _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act, fold=True):
+    """One launch of ``gn_bwd_reduce_kernel``: (4, N, C) A, B, coeff_b,
+    coeff_c, or with ``fold`` off (2, N, C) A and B."""
+    global BWD_REDUCE_LAUNCHES
+    n, c = x.shape[:2]
+    s = x.numel() // (n * c)
+    mean_c, rstd_c, gamma, beta = stats
     plan = plan_moments(n, s, c, x.element_size(), False,
                         torch.cuda.get_device_properties(x.device).multi_processor_count,
                         _BWD_BLOCKS_PER_SM)
     part = torch.empty((n, plan.blocks, 2, c), dtype=torch.float32, device=x.device)
-    coef = torch.empty((4, n, c), dtype=torch.float32, device=x.device)
-    res_ptr = None if residual is None else residual.data_ptr()
-    stream = _build.stream_of(x)
+    coef = torch.empty((4 if fold else 2, n, c), dtype=torch.float32, device=x.device)
     fn = _build.kernel("tmt_gn_bwd_reduce", _BWD_REDUCE_ARGS)
-    err = fn(x.data_ptr(), dy.data_ptr(), res_ptr, _build.DTYPE_CODES[x.dtype], n, s, c,
-             num_groups, mean_c.data_ptr(), rstd_c.data_ptr(), gamma.data_ptr(),
-             beta.data_ptr(), ACT_CODES[act], LEAKY_SLOPE, plan.blocks,
-             plan.rows_per_block, part.data_ptr(),
-             _tickets(x.device, n, _BWD_TICKETS).data_ptr(), coef.data_ptr(), stream)
+    err = fn(x.data_ptr(), dy.data_ptr(), None if residual is None else residual.data_ptr(),
+             _build.DTYPE_CODES[x.dtype], n, s, c, num_groups, mean_c.data_ptr(),
+             rstd_c.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ACT_CODES[act],
+             LEAKY_SLOPE, plan.blocks, plan.rows_per_block, part.data_ptr(),
+             _tickets(x.device, n, _BWD_TICKETS).data_ptr(), coef.data_ptr(), int(fold),
+             _build.stream_of(x))
     _build.check(err, "tmt_gn_bwd_reduce")
     BWD_REDUCE_LAUNCHES += 1
+    return coef
+
+
+def _bwd_apply_cuda(x, dy, stats, coef, residual, act):
+    """One launch of ``gn_bwd_apply_kernel`` from coef (4, N, C): dx, and
+    the residual's gradient where there is one."""
+    global BWD_APPLY_LAUNCHES
+    n, c = x.shape[:2]
+    mean_c, rstd_c, gamma, beta = stats
     dx = torch.empty_like(x, memory_format=CL3D)
     dr = None if residual is None else torch.empty_like(x, memory_format=CL3D)
     fn = _build.kernel("tmt_gn_bwd_apply", _BWD_APPLY_ARGS)
-    err = fn(x.data_ptr(), dy.data_ptr(), res_ptr, dx.data_ptr(),
-             None if dr is None else dr.data_ptr(), _build.DTYPE_CODES[x.dtype], n, s, c,
-             mean_c.data_ptr(), rstd_c.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-             coef.data_ptr(), ACT_CODES[act], LEAKY_SLOPE,
-             *_plan_fields(_apply_plan(x, dy, residual, dx, dr)), stream)
+    err = fn(x.data_ptr(), dy.data_ptr(), None if residual is None else residual.data_ptr(),
+             dx.data_ptr(), None if dr is None else dr.data_ptr(),
+             _build.DTYPE_CODES[x.dtype], n, x.numel() // (n * c), c, mean_c.data_ptr(),
+             rstd_c.data_ptr(), gamma.data_ptr(), beta.data_ptr(), coef.data_ptr(),
+             ACT_CODES[act], LEAKY_SLOPE,
+             *_plan_fields(_apply_plan(x, dy, residual, dx, dr)), _build.stream_of(x))
     _build.check(err, "tmt_gn_bwd_apply")
     BWD_APPLY_LAUNCHES += 1
+    return dx, dr
+
+
+def _group_norm_backward_cuda(x, dy, mean_c, rstd_c, weight, bias, num_groups,
+                              residual=None, act=None):
+    stats = _backward_inputs(x, dy, mean_c, rstd_c, weight, bias, residual)
+    coef = _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act)
+    dx, dr = _bwd_apply_cuda(x, dy, stats, coef, residual, act)
     return GroupNormGrads(dx, coef[1].sum(0).to(weight.dtype),
                           coef[0].sum(0).to(bias.dtype), dr)
 
@@ -570,6 +645,76 @@ class GroupNormFunction(torch.autograd.Function):
         g = group_norm_backward(x, dy, mean_c, rstd_c, weight, bias, ctx.num_groups,
                                 residual, ctx.act)
         return g.dx, g.dweight, g.dbias, g.dresidual, None, None, None
+
+
+def group_norm_backward_sums(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor,
+                             rstd_c: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                             num_groups: int, residual: Optional[torch.Tensor] = None,
+                             act: Optional[str] = None) -> torch.Tensor:
+    """K1's backward reduce with the fold off: (2, N, C) fp32 A = sum dz and
+    B = sum dz * xhat of one slab, to be added over the slabs of a volume
+    before ``backward_coefficients``.  On CUDA one launch of
+    ``gn_bwd_reduce_kernel``."""
+    if act not in ACT_CODES:
+        raise ValueError(f"unknown nonlinearity {act!r}")
+    if x.device.type == "cpu":
+        *_, a, b = backward_sums_plain(x, dy, mean_c, rstd_c, weight, bias, residual, act)
+        return torch.stack((a, b))
+    stats = _backward_inputs(x, dy, mean_c, rstd_c, weight, bias, residual)
+    return _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act, fold=False)
+
+
+def group_norm_backward_apply(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor,
+                              rstd_c: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                              coef: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                              act: Optional[str] = None
+                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1's backward apply from coef (4, N, C) = (A, B, coeff_b, coeff_c):
+    dx and the residual's gradient (None without a residual).  On CUDA one
+    launch of ``gn_bwd_apply_kernel``."""
+    if x.device.type == "cpu":
+        xm, mul, dz, _, _ = backward_sums_plain(x, dy, mean_c, rstd_c, weight, bias,
+                                                residual, act)
+        return _backward_apply_plain(x, xm, mul, dz, coef, residual)
+    stats = _backward_inputs(x, dy, mean_c, rstd_c, weight, bias, residual)
+    return _bwd_apply_cuda(x, dy, stats, coef.contiguous(), residual, act)
+
+
+class SlabGroupNormFunction(torch.autograd.Function):
+    """``group_norm`` of one X slab of a volume split over ranks, whose
+    statistics are the whole volume's: the moments kernel stops at the
+    slab's sums, ``reduce`` adds them over the slab's ranks in place, and
+    the fold takes ``spatial``, the volume's rows a sample; in the
+    backward, A and B are added likewise before dx's coefficients.
+    dweight and dbias are this slab's share, as every parameter gradient of
+    a rank is (``DataMesh.average_gradients`` sums them).  Still one launch
+    of each of K1's four kernels."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual, num_groups, eps, act, reduce, spatial):
+        sums = group_norm_sums(x)
+        reduce(sums)
+        stats = fold_group_stats(sums[0], sums[1], spatial, num_groups, weight, eps)
+        y = group_norm_apply(x, stats.mean, stats.mul, bias, residual, act)
+        ctx.save_for_backward(x, weight, bias, residual, stats.mean, stats.rstd)
+        ctx.num_groups, ctx.act, ctx.reduce = num_groups, act, reduce
+        ctx.count = spatial * (x.shape[1] // num_groups)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias, residual, mean_c, rstd_c = ctx.saved_tensors
+        dy = dy.contiguous(memory_format=CL3D)
+        ab = group_norm_backward_sums(x, dy, mean_c, rstd_c, weight, bias, ctx.num_groups,
+                                      residual, ctx.act)
+        dweight, dbias = ab[1].sum(0).to(weight.dtype), ab[0].sum(0).to(bias.dtype)
+        ctx.reduce(ab)
+        coeff_b, coeff_c = backward_coefficients(ab[0], ab[1], rstd_c, weight,
+                                                 ctx.num_groups, ctx.count)
+        dx, dr = group_norm_backward_apply(x, dy, mean_c, rstd_c, weight, bias,
+                                           torch.stack((ab[0], ab[1], coeff_b, coeff_c)),
+                                           residual, ctx.act)
+        return dx, dweight, dbias, dr, None, None, None, None, None
 
 
 def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor,

@@ -21,9 +21,10 @@ is computed in fp32.  No task calls the weighted, pixelwise and binary
 cross-entropies; they complete the reference's loss zoo.
 
 Under data parallelism (``dp``: a ``parallel.mesh.DataMesh`` of more than
-one rank, each holding its rows of the global batch) every sum over the
-batch goes through ``dp.all_sum`` before the division, so a loss is the
-JAX package's over the global batch; ``None`` is one process.
+one rank, each holding its rows of the global batch, or with a space axis
+its X slab of them) every sum over the batch goes through ``dp.all_sum``
+before the division, and so does every count, so a loss is the JAX
+package's over the global batch; ``None`` is one process.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def _mean(x: torch.Tensor, dp) -> torch.Tensor:
     """The mean over every element of the global batch."""
     if dp is None:
         return x.mean()
-    return dp.all_sum(x.sum()) / (x.numel() * dp.world_size)
+    return dp.all_sum(x.sum()) / dp.count_sum(x.numel())
 
 
 def flatten_channels(x: torch.Tensor) -> torch.Tensor:

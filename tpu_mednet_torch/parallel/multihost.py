@@ -150,10 +150,22 @@ def launch_local(module: str, argv: Sequence[str], nprocs: int) -> int:
     return 0
 
 
+def _space_shards(hparams, n_devices: int) -> int:
+    """``--spatial_shards``, refused with the JAX CLIs' words where it does
+    not divide the device count."""
+    n_space = max(int(getattr(hparams, "spatial_shards", 1) or 1), 1)
+    if n_devices % n_space:
+        raise SystemExit(
+            f"--spatial_shards {n_space} must divide the device count "
+            f"({n_devices})"
+        )
+    return n_space
+
+
 def join_or_launch(module: str, argv: Sequence[str], hparams, device: torch.device,
                    task: str):
-    """The training CLIs' data axis: ``(mesh, None)`` to train as one rank,
-    or ``(None, exit code)`` once this process has run the ranks itself.
+    """The training CLIs' mesh: ``(mesh, None)`` to train as one rank, or
+    ``(None, exit code)`` once this process has run the ranks itself.
 
     Under a launcher's variables the process joins that group (NCCL on
     CUDA, gloo on the CPU) and trains on ``cuda:LOCAL_RANK``.  Otherwise
@@ -161,7 +173,9 @@ def join_or_launch(module: str, argv: Sequence[str], hparams, device: torch.devi
     clamp it to ``len(jax.devices())``, and the clamp is printed (on the
     CPU, ``--gpus N`` is N gloo ranks, the counterpart of the JAX tests'
     virtual CPU devices); above one, ``launch_local`` runs the ranks.
-    ``--batch_size`` must split evenly over the ranks either way."""
+    ``--spatial_shards`` S must divide the ranks, which form an (N / S) x S
+    (data, space) mesh, and ``--batch_size`` must split evenly over its
+    data axis, either way."""
     from tpu_mednet_torch.config import validate_task_config
     from tpu_mednet_torch.parallel.mesh import DataMesh, make_mesh
 
@@ -170,18 +184,19 @@ def join_or_launch(module: str, argv: Sequence[str], hparams, device: torch.devi
         if device.type == "cuda":
             device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
             torch.cuda.set_device(device)
-        mesh = make_mesh(device, node_count=node_count())
+        n_space = _space_shards(hparams, int(os.environ["WORLD_SIZE"]))
+        mesh = make_mesh(device, node_count=node_count(), n_space=n_space)
         if hparams.gpus != mesh.world_size:
             logger.info("--gpus %d: training as rank %d of the launcher's %d", hparams.gpus,
                         mesh.rank, mesh.world_size)
-        validate_task_config(hparams, task, n_data=mesh.world_size)
+        validate_task_config(hparams, task, n_data=mesh.n_data)
         return mesh, None
     n = max(int(hparams.gpus), 1)
     if device.type == "cuda" and n > torch.cuda.device_count():
         n = torch.cuda.device_count()
         print(f"{name}: --gpus {hparams.gpus} clamped to {n}, the CUDA devices visible",
               flush=True)
-    validate_task_config(hparams, task, n_data=n)
+    validate_task_config(hparams, task, n_data=n // _space_shards(hparams, n))
     if n > 1:
         return None, launch_local(module, argv, n)
     return DataMesh(devices=(device,)), None

@@ -26,18 +26,46 @@ from tpu_mednet_torch.ops import losses as L
 from tpu_mednet_torch.ops.heatmap import heatmap_argmax_coords
 
 
+def _peaks(heatmaps: torch.Tensor, dp) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, L, 3) peak coordinates and (N, L) peak values of (N, L, X, Y, Z)
+    heatmaps; on a space axis, of the data row's whole volumes, the first
+    maximum in x, y, z order as on one (slabs lie in X order)."""
+    coords = heatmap_argmax_coords(heatmaps)
+    peak = heatmaps.amax(dim=tuple(range(2, heatmaps.dim())))
+    if dp is None or not dp.spatial:
+        return coords, peak
+    import torch.distributed as dist
+
+    def gather(t):
+        t = t.to(dp.collective_device()).contiguous()
+        parts = [torch.empty_like(t) for _ in range(dp.n_space)]
+        dist.all_gather(parts, t, group=dp.space_group)
+        return torch.stack(parts).cpu()
+
+    lengths = gather(torch.tensor([heatmaps.shape[2]]))[:, 0]
+    offset = int(lengths[:dp.space_index].sum())
+    coords = coords.cpu() + torch.tensor([offset, 0, 0])
+    peaks = gather(peak.detach().float().cpu())                   # (S, N, L)
+    best = (peaks == peaks.amax(0)).float().argmax(0)             # the first slab at the max
+    coords = gather(coords).gather(0, best[None, ..., None].expand(1, *coords.shape))[0]
+    return coords.to(heatmaps.device), peaks.amax(0).to(heatmaps.device)
+
+
 def landmark_coordinate_error(pred_heatmaps: torch.Tensor, true_heatmaps: torch.Tensor,
                               dp=None) -> torch.Tensor:
     """Mean Euclidean distance (voxels) between predicted and true heatmap
     peaks over (N, L, X, Y, Z) stacks; a landmark whose true heatmap is all
     zero in the patch (outside the crop) is left out of the mean.  With
-    ``dp``, over the global batch."""
-    pred = heatmap_argmax_coords(pred_heatmaps).float()
-    true = heatmap_argmax_coords(true_heatmaps).float()
-    dist = ((pred - true) ** 2).sum(dim=-1).sqrt()  # (N, L)
-    present = true_heatmaps.amax(dim=tuple(range(2, true_heatmaps.dim()))) > 0
+    ``dp``, over the global batch (on a space axis, the peaks of whole
+    volumes, counted once a data row)."""
+    pred, _ = _peaks(pred_heatmaps, dp)
+    true, true_peak = _peaks(true_heatmaps, dp)
+    dist = ((pred.float() - true.float()) ** 2).sum(dim=-1).sqrt()  # (N, L)
+    present = true_peak > 0
     total, count = (dist * present).sum(), present.sum().float()
     if dp is not None:
+        if dp.spatial and dp.space_index:
+            total, count = total * 0, count * 0  # the row's first rank counts it
         total, count = dp.all_sum(torch.stack([total, count]))
     return total / count.clamp_min(1.0)
 

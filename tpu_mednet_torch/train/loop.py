@@ -26,7 +26,14 @@ plain loop around the port's train and eval steps with
   node batch split between the node's ranks, or the device sampler's
   global draw gathered for the rank's rows alone) through the data-
   parallel steps, and rank 0 alone writes logs, figures and checkpoints,
-  where the JAX package's one controller writes them once.
+  where the JAX package's one controller writes them once;
+- spatial partitioning over a mesh with a space axis (JAX's Trainer over a
+  (data, space) mesh): the ranks of a data row take that row's rows of
+  the host sampler's batch at the full patch extent and the steps cut
+  their X slabs; JAX's refusals stand (the device sampler, a space axis
+  across nodes, a patch X extent the axis does not divide).  The MIP
+  visualizer's forward runs on rank 0 alone on the whole first row, with
+  no collective (the steps leave the model off the space axis).
 
 Metrics stay on the device: the loop reads them every ``log_every``
 steps, and validation sums them on the device and reads them once per
@@ -177,6 +184,25 @@ class Trainer:
         self.device = next(task.model.parameters()).device
         self.mesh = mesh if mesh is not None else DataMesh(devices=(self.device,))
         writer = self.mesh.rank == 0  # logs, figures and checkpoints: rank 0 alone
+        n_space = self.mesh.n_space
+        if n_space > 1:
+            if isinstance(train_sampler, DevicePatchSampler):
+                raise ValueError(
+                    "spatial partitioning requires the host sampler "
+                    "(DevicePatchSampler gathers its own sharding)")
+            if self.mesh.node_count > 1 and self.mesh.ranks_per_node % n_space:
+                n_local = self.mesh.ranks_per_node
+                raise ValueError(
+                    f"spatial partitioning across process boundaries "
+                    f"is not supported: the 'space' axis ({n_space}) "
+                    f"must divide the per-process device count "
+                    f"({n_local}) so every host owns whole spatial "
+                    f"rows of the mesh")
+            px = int(train_sampler.patch_size[0])
+            if px % n_space:
+                raise ValueError(
+                    f"patch X extent {px} not divisible by the 'space' "
+                    f"axis ({n_space})")
 
         # host PatchSamplers go through the native batch pipeline (fused C++
         # crop/convert/transpose into pinned buffers for the card), as in the

@@ -26,6 +26,15 @@ rows' draws; the loss's batch sums and BatchNorm's statistics are
 all-reduced inside autograd; the gradients are averaged over the ranks
 before the update (``DataMesh.all_sum`` says why that is the gradient of
 the global loss), so every rank holds the same parameters after it.
+
+With a space axis (a mesh of ``n_data x n_space`` ranks, ``n_space`` above
+1: JAX's ``train_batch_sharding`` over (data, X)) every rank of a data
+row gets that row's samples at the full patch extent, augments them there
+with the global batch's draws for its data index, then keeps its X slab
+(``parallel.mesh.slab_plan``); the model runs on the slab through the
+halo exchanges and GroupNorm's slab statistics (``models/blocks.py``),
+and the loss's sums and counts, BatchNorm's and the gradients' average
+go over every rank of the mesh.
 """
 
 from __future__ import annotations
@@ -34,13 +43,35 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from tpu_mednet_torch.models.blocks import batch_stat_buffers, set_batch_norm_mesh
+from tpu_mednet_torch.models.blocks import (batch_stat_buffers, set_batch_norm_mesh,
+                                            space_axis)
 from tpu_mednet_torch.ops.augment import (AugmentConfig, apply_augmentations,
                                           draw_augmentations, draw_rows)
 from tpu_mednet_torch.train.optim import clip_by_global_norm_, global_norm
 from tpu_mednet_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
+
+
+def space_slabber(model, mesh):
+    """``(space, slab)`` of a step on ``mesh``: the model's ``SpaceAxis``
+    (None off a space axis) and ``slab(data, label) -> (data, label)``,
+    which plans the batch's X extent over the data row, points the axis at
+    the plan and cuts this rank's slab (the identity off a space axis)."""
+    if mesh is None or not mesh.spatial:
+        return None, lambda *arrays: arrays
+    from tpu_mednet_torch.parallel.halo import SpaceAxis
+    from tpu_mednet_torch.parallel.mesh import slab_plan
+
+    space = SpaceAxis(mesh)
+    quantum = 2 ** (len(model.config.feature_maps) - 1)
+
+    def slab(*arrays):
+        space.plan = slab_plan(arrays[0].shape[2], mesh.n_space, quantum)
+        rows = space.plan.slab(mesh.space_index)
+        return tuple(a[:, :, rows] for a in arrays)
+
+    return space, slab
 
 
 def all_finite(loss: torch.Tensor, grads) -> torch.Tensor:
@@ -104,12 +135,14 @@ def make_train_step(task, augment: Optional[AugmentConfig] = None,
     the step count, and restores BatchNorm's running statistics; the
     augmentation draws have advanced the generator either way.  With a
     ``mesh`` of more than one rank, ``batch`` holds this rank's rows of
-    the global batch and the step is data-parallel (module docstring);
-    the metrics are the global batch's.
+    the global batch (its data index's, at the full patch extent, on a
+    space axis) and the step is data-parallel, or spatially partitioned
+    (module docstring); the metrics are the global batch's.
     """
     if ema_decay and not (0.0 < ema_decay < 1.0):
         raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
     dp = mesh if mesh is not None and mesh.parallel else None
+    space, slab = space_slabber(task.model, mesh)
 
     def step(state: TrainState, batch: Batch):
         if ema_decay and state.ema is None:
@@ -123,19 +156,21 @@ def make_train_step(task, augment: Optional[AugmentConfig] = None,
             draws = None
             if dp is not None:
                 n = data.shape[0]
-                draws = draw_rows(draw_augmentations(augment, (n * dp.world_size,
+                draws = draw_rows(draw_augmentations(augment, (n * dp.n_data,
                                                                *data.shape[1:]),
                                                      state.generator),
-                                  slice(dp.rank * n, (dp.rank + 1) * n))
+                                  dp.rows(n * dp.n_data))
             data, label = apply_augmentations(data, augment, state.generator, label=label,
                                               draws=draws)
+        data, label = slab(data, label)
         stats = batch_stat_buffers(model) if guard_nonfinite else []
         saved = [t.clone() for t in stats]
         set_batch_norm_mesh(model, dp)
-        outputs = model(data)
-        loss, aux = task.loss_fn(outputs, {"data": data, "label": label}, dp=dp)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with space_axis(model, space):  # through the backward: remat runs the stages again
+            outputs = model(data)
+            loss, aux = task.loss_fn(outputs, {"data": data, "label": label}, dp=dp)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         if dp is not None:
             dp.average_gradients([p.grad for p in state.params])
         loss = loss.detach()
@@ -171,17 +206,19 @@ def make_eval_step(task, use_ema: bool = False, mesh=None
     (``val_loss``, ``val_dice{c}``) as device tensors.  With a ``mesh`` of
     more than one rank the metrics' batch sums are all-reduced before their
     divisions, so every rank holds the global batch's metrics, as JAX's
-    sharded eval step gives them."""
+    sharded eval step gives them; on a space axis each rank runs its X
+    slab of its data index's rows, as the train step does."""
     dp = mesh if mesh is not None and mesh.parallel else None
+    space, slab = space_slabber(task.model, mesh)
 
     def step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         model = state.model
         model.eval()
         weights = state.ema if use_ema else None
-        with torch.inference_mode():
-            data = batch["data"].to(model.config.dtype)
+        with torch.inference_mode(), space_axis(model, space):
+            data, label = slab(batch["data"].to(model.config.dtype), batch["label"])
             outputs = _forward(model, data, weights)
-            return task.val_metrics(outputs, {"data": data, "label": batch["label"]}, dp=dp)
+            return task.val_metrics(outputs, {"data": data, "label": label}, dp=dp)
 
     return step
 
