@@ -345,6 +345,18 @@ GRID_STRIDE_U3_SUMS = (6.171, 11.283)
 GRID_STRIDE_U3_APPLY = {(192, 96): (3.25, 6.24), (384, 48): (1.05, 2.05),
                         (768, 24): (0.27, 0.51), (256, 24): (0.091, None),
                         (1, 96): (0.0382, 0.0467)}
+# Device ms of K1's backward reduce in its first design (gn_moments_kernel's
+# register path over x and dy, rows only split over blocks, one thread a
+# group in the fold), before the walk of plan_bwd_reduce (PERF.md section
+# 6, profiled on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this
+# run's for comparison, never a gate: per train step keyed by (dtype,
+# batch, level-0 channels, extent); per gcr UNet3D step; per UNet3D shape
+# (channels, extent) at batch 8, bf16; one call at each fold-off level
+# shape, summed, by dtype
+FIRST_REDUCE_SUMS = {("bf16", 32, 32, 96): 15.457, ("bf16", 4, 64, 96): 4.341}
+FIRST_REDUCE_U3_SUM = 4.583
+FIRST_REDUCE_U3 = {(1, 96): 0.0721}
+FIRST_REDUCE_FOLD_OFF = {"bf16": 0.3921, "fp32": 0.5310}
 TINY_SHAPE = (64, 64, 64)
 
 
@@ -524,6 +536,17 @@ def probe_profiler(torch, dev):
     """Log what ``torch.profiler`` records of five matmuls."""
     a = torch.randn((1024, 1024), device=dev)
     log(f"profiler probe: {device_rows(torch, lambda: a @ a, 5)}")
+
+
+def reduce_plan_text(gn, x, dy, residual, groups, act):
+    """The backward reduce's plan for these operands and its kernel
+    instance: route, grid, ring stage, registers a thread, blocks an SM."""
+    plan = gn.reduce_plan(x, dy, residual, act)
+    info = gn.reduce_info(x, groups, plan, residual is not None)
+    walk = f"ring of {plan.stage_rows}-row stages" if plan.stage_rows else "walk"
+    return (f"{plan.route} route, {walk}, {plan.blocks} blocks x {plan.chunks} chunks a "
+            f"sample of {plan.threads} threads, {info['registers']} registers a thread, "
+            f"{info['blocks_per_sm']} blocks an SM")
 
 
 def bf16_ulp(ref):
@@ -993,8 +1016,10 @@ def check_gn_backward(torch, gn, dev, gen, levels=LEVELS,
                 del y, xg, wg, bg, rg
                 row[tag] = dict(reduce=t_r, apply=t_a, plain=t_p, b_r=b_r, b_a=b_a,
                                 lib=t_lib, err=max(errs.values()))
+                plan_text = reduce_plan_text(gn, x, dy, res, GROUPS, GN_ACT)
                 log(f"K1 backward {dt_name} level {level} {tuple(x.shape)} residual="
-                    f"{res is not None}: reduce {t_r:.4f} ms device (bound {b_r:.4f}), "
+                    f"{res is not None}: reduce ({plan_text}) "
+                    f"{t_r:.4f} ms device (bound {b_r:.4f}), "
                     f"apply ({route} route) {t_a:.4f} ms (bound {b_a:.4f}); profiler kept "
                     f"{kept_r:g} and "
                     f"{kept_a:g} of the launches; plain {t_p:.4f} ms; "
@@ -1011,8 +1036,10 @@ def check_gn_backward(torch, gn, dev, gen, levels=LEVELS,
             torch.cuda.empty_cache()
         before = GRID_STRIDE_BWD_APPLY_SUMS.get((dt_name, batch, *levels[0][:2]),
                                                 "not recorded")
+        first = FIRST_REDUCE_SUMS.get((dt_name, batch, *levels[0][:2]), "not recorded")
         log(f"K1 backward {dt_name} per train step of batch {batch} (27 GroupNorms): "
-            f"reduce {tot['reduce_ms']:.4f} ms device (bound {tot['reduce_bound']:.4f}), "
+            f"reduce {tot['reduce_ms']:.4f} ms device (bound {tot['reduce_bound']:.4f}; "
+            f"first design {first}), "
             f"apply {tot['apply_ms']:.4f} ms (bound {tot['apply_bound']:.4f}; grid-stride "
             f"design {before}); "
             f"plain {tot['plain_ms']:.4f} ms; F.group_norm+F.elu autograd "
@@ -3827,6 +3854,8 @@ def check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt_name, reps=5):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = gn.plan_moments(batch, e**3, c, x.element_size(), x.data_ptr() % 16 == 0, sms)
     route = gn.plan_apply(batch, e**3, c, x.element_size(), x.data_ptr() % 16 == 0, sms).route
+    reduce_route = gn.reduce_plan(x, dy, act=None).route
+    reduce_text = reduce_plan_text(gn, x, dy, None, groups, None)
     n_el, esz = x.numel(), x.element_size()
     t = {name: kernel_ms(torch, fn, name, reps=reps)[:2] for name, fn in (
         ("gn_moments", moments), ("gn_apply", apply), ("gn_bwd_reduce", bwd),
@@ -3834,7 +3863,7 @@ def check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt_name, reps=5):
     small = 6 * batch * c * 4 + 2 * c * 4
     out = dict(
         c=c, groups=groups, extent=e, batch=batch, dtype=dt_name, bulk=plan.bulk,
-        apply_route=route,
+        apply_route=route, reduce_route=reduce_route,
         blocks_per_sample=plan.blocks, moments_err=m_err, apply_err=float(
             (y.float() - gn.group_norm_apply_plain(x, stats.mean, stats.mul, b).float())
             .abs().max()), bwd_err=max(errs.values()),
@@ -3864,12 +3893,14 @@ def check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt_name, reps=5):
                                     reps=2, warmup=1)
     before = GRID_STRIDE_U3_APPLY.get((c, e), (None, None)) \
         if (batch, dt_name) == (U3_BATCH, "bf16") else (None, None)
+    first = FIRST_REDUCE_U3.get((c, e)) if (batch, dt_name) == (U3_BATCH, "bf16") else None
     log(f"{tag}: bulk={plan.bulk} {plan.blocks} blocks/sample, apply route {route}; moments "
         f"{out['moments_ms']:.4f} ms device (bound {out['moments_bound']:.4f}, plain "
         f"{out['moments_plain_ms']:.4f}, torch.var_mean {out['moments_library_ms']:.4f}), apply "
         f"{out['apply_ms']:.4f} (bound {out['apply_bound']:.4f}, plain "
         f"{out['apply_plain_ms']:.4f}, F.group_norm {out['library_ms']:.4f}), backward reduce "
-        f"{out['reduce_ms']:.4f} (bound {out['reduce_bound']:.4f}) and apply "
+        f"({reduce_text}) {out['reduce_ms']:.4f} (bound {out['reduce_bound']:.4f}; first "
+        f"design {first or 'not recorded'}) and apply "
         f"{out['bwd_apply_ms']:.4f} (bound {out['bwd_apply_bound']:.4f}; plain "
         f"{out['bwd_plain_ms']:.4f}, F.group_norm autograd {out['bwd_library_ms']:.4f}); "
         f"grid-stride design's apply {before[0] or 'not recorded'}, backward apply "
@@ -3907,7 +3938,8 @@ def u3_gn(torch, gn, dev, gen):
         f"{per['reduce_ms']:.4f} (bound {per['reduce_bound']:.4f}), apply "
         f"{per['bwd_apply_ms']:.4f} (bound {per['bwd_apply_bound']:.4f}); the grid-stride "
         f"design's apply {GRID_STRIDE_U3_SUMS[0]} per forward, backward apply "
-        f"{GRID_STRIDE_U3_SUMS[1]} per step")
+        f"{GRID_STRIDE_U3_SUMS[1]} per step; the reduce's first design "
+        f"{FIRST_REDUCE_U3_SUM} per step")
     for name, c, groups, e, batch, dt in U3_EXTRA_CASES:
         cases[name] = check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt)
     return dict(per_forward=per, cases=cases, n_gn=n_gn)
@@ -5117,7 +5149,8 @@ def sp_gn(torch, gn, dev, gen):
             tot["kept"] = min(tot["kept"], kept_m, kept_r)
             log(f"K1 fold off {dt_name} level {level} {tuple(x.shape)}: moments {t_m:.4f} ms "
                 f"device (bound {b_m:.4f}, {b_m / t_m:.0%}; plain {t_mp:.4f}, torch.var_mean "
-                f"{t_lib:.4f}), max|err| {m_err:.3g}; backward reduce {t_r:.4f} ms (bound "
+                f"{t_lib:.4f}), max|err| {m_err:.3g}; backward reduce ("
+                f"{reduce_plan_text(gn, x, dy, None, GROUPS, GN_ACT)}) {t_r:.4f} ms (bound "
                 f"{b_r:.4f}, {b_r / t_r:.0%}; plain {t_rp:.4f}), max|err| {r_err:.3g}; "
                 f"profiler kept {kept_m:g} and {kept_r:g}; folded after: equal to the fold-on "
                 "route within rtol 1e-5")
@@ -5125,7 +5158,8 @@ def sp_gn(torch, gn, dev, gen):
             torch.cuda.empty_cache()
         log(f"K1 fold off {dt_name}, one call at each of the 5 level shapes: moments "
             f"{tot['moments_ms']:.4f} ms (bound {tot['moments_bound']:.4f}), reduce "
-            f"{tot['reduce_ms']:.4f} ms (bound {tot['reduce_bound']:.4f})")
+            f"{tot['reduce_ms']:.4f} ms (bound {tot['reduce_bound']:.4f}; first design "
+            f"{FIRST_REDUCE_FOLD_OFF[dt_name]})")
         out[dt_name] = tot
     return out
 
@@ -5814,7 +5848,8 @@ def main(argv) -> int:
                                   library_ms=r[lib], max_abs_err=r[err],
                                   profiler_kept=r["kept"], per=per)
         c1 = u3_all["gn"]["cases"]["c1_e96_bf16"]
-        c1_route = c1["apply_route"] if name in ("gn_apply", "gn_bwd_apply") else "register"
+        c1_route = (c1["apply_route"] if name in ("gn_apply", "gn_bwd_apply")
+                    else c1["reduce_route"] if name == "gn_bwd_reduce" else "register")
         return dict(unet3d_check=row(u3_all["gn"]["per_forward"], (
                         f"gcr UNet3D bf16 {'train step' if step else 'forward'} of batch "
                         f"{U3_BATCH}, {n_gn} calls")),

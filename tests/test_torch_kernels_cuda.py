@@ -294,6 +294,22 @@ _BWD_CASES = {
     "c4-odd-rows-bf16": ((2, 4, 3, 5, 7), torch.bfloat16, 0, 4),
     "c1-offset-bf16": ((2, 1, 12, 12, 12), torch.bfloat16, 1, 1),
     "c192-offset-bf16": ((2, 192, 4, 5, 6), torch.bfloat16, 3, 8),
+    # the reduce's routes: C = 1 packed over many blocks (in fp32 in
+    # _RING_CASES: here dγ at C = 1 is one sum over every sample, which
+    # cancels to far below its terms), level 4 of the batch-32 step split
+    # across channel chunks, the ring over many blocks
+    "c1-packed-many-blocks-bf16": ((8, 1, 32, 32, 32), torch.bfloat16, 0, 1),
+    "level4-chunks-bf16": ((32, 512, 6, 6, 6), torch.bfloat16, 0, 8),
+    "level4-chunks-fp32": ((8, 512, 6, 6, 6), torch.float32, 0, 8),
+    "ring-many-blocks-bf16": ((4, 32, 48, 48, 48), torch.bfloat16, 0, 8),
+}
+# what plan_bwd_reduce must pick at some of them
+_REDUCE_EXPECT = {
+    "c1-g1-bf16": dict(route="packed"), "c1-g1-fp32": dict(route="packed"),
+    "c1-packed-many-blocks-bf16": dict(route="packed"),
+    "level4-chunks-bf16": dict(route="vector", chunks=2),
+    "level4-chunks-fp32": dict(route="vector", chunks=4),
+    "c1-offset-bf16": dict(route="scalar"), "c4-odd-rows-bf16": dict(route="scalar"),
 }
 
 
@@ -312,10 +328,14 @@ def test_gn_backward_kernels_match_plain_on_card(cuda_device, case, act, residua
     w[0] = 0.0  # the statistics' rstd carries the gradient where gamma is 0
     b = (torch.rand(c, generator=g) - 0.5).to(cuda_device)
     stats = gn.group_norm_moments_plain(x, groups, w, 1e-5)
+    plan = gn.reduce_plan(x, dy, r, act)
+    for field, want in _REDUCE_EXPECT.get(case, {}).items():
+        assert getattr(plan, field) == want, (field, plan)
     launched = (gn.BWD_REDUCE_LAUNCHES, gn.BWD_APPLY_LAUNCHES)
     got = gn.group_norm_backward(x, dy, stats.mean, stats.rstd, w, b, groups, r, act)
     assert (gn.BWD_REDUCE_LAUNCHES, gn.BWD_APPLY_LAUNCHES) == (launched[0] + 1,
                                                                launched[1] + 1)
+    assert int(gn._BWD_TICKETS[x.device].abs().sum()) == 0
     ref = gn.group_norm_backward_plain(x, dy, stats.mean, stats.rstd, w, b, groups, r, act)
     assert got.dx.is_contiguous(memory_format=CL3D)
     assert_grads_close(got, ref, dtype)
@@ -323,6 +343,52 @@ def test_gn_backward_kernels_match_plain_on_card(cuda_device, case, act, residua
     for u, v in zip(got, again):
         assert u is None or torch.equal(u, v)
     assert int(gn._BWD_TICKETS[x.device].abs().sum()) == 0
+
+
+# (shape, dtype, groups): shapes both reduce walks take (one chunk a row,
+# 16-byte rows), several blocks a sample, with and without the residual
+_RING_CASES = {
+    "c32-bf16": ((4, 32, 40, 40, 40), torch.bfloat16, 8),
+    "c64-fp32": ((2, 64, 24, 24, 24), torch.float32, 8),
+    "c1-packed-bf16": ((8, 1, 48, 48, 48), torch.bfloat16, 1),
+    "c1-packed-fp32": ((8, 1, 32, 32, 32), torch.float32, 1),
+    "c256-level3-bf16": ((32, 256, 12, 12, 12), torch.bfloat16, 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("case", list(_RING_CASES))
+def test_gn_bwd_reduce_walk_and_ring_match_plain_on_card(cuda_device, case, residual, fold):
+    """The reduce on the walk and on the TMA ring (its planned stages, and
+    stages of half as many rows) against ``backward_terms_plain`` (A, B
+    and, folded, dx's coefficients) within 1e-4 x max |ref| per output;
+    each bitwise equal from call to call, the tickets zero after each."""
+    shape, dtype, groups = _RING_CASES[case]
+    x = _activation(shape, dtype, cuda_device, 80)
+    dy = _activation(shape, dtype, cuda_device, 81) - 0.5
+    r = _activation(shape, dtype, cuda_device, 82) - 0.5 if residual else None
+    c = shape[1]
+    g = torch.Generator().manual_seed(83)
+    w = (torch.rand(c, generator=g) + 0.5).to(cuda_device)
+    b = (torch.rand(c, generator=g) - 0.5).to(cuda_device)
+    stats = gn.group_norm_moments_plain(x, groups, w, 1e-5)
+    coef = gn.backward_terms_plain(x, dy, stats.mean, stats.rstd, w, b, groups, r, "e")[3]
+    ref = coef if fold else coef[:2]
+    inputs = gn._backward_inputs(x, dy, stats.mean, stats.rstd, w, b, r)
+    walk, ring = gn.reduce_plan(x, dy, r, ring=False), gn.reduce_plan(x, dy, r, ring=True)
+    assert not walk.stage_rows and ring.stage_rows and walk.blocks > 1 and ring.blocks > 1
+    for plan in (walk, ring, ring._replace(stage_rows=max(1, ring.stage_rows // 2))):
+        calls = []
+        for _ in range(2):
+            calls.append(gn._bwd_reduce_cuda(x, dy, inputs, groups, r, "e", fold=fold,
+                                             plan=plan))
+            assert int(gn._BWD_TICKETS[x.device].abs().sum()) == 0
+        assert torch.equal(calls[0], calls[1]), plan
+        for q in range(len(ref)):
+            err = float((calls[0][q] - ref[q]).abs().max())
+            assert err <= 1e-4 * float(ref[q].abs().max()), (plan, q, err)
 
 
 @pytest.mark.cuda
@@ -434,10 +500,12 @@ def test_fused_gather_of_odd_rows_byte_equal(cuda_device, case):
 # K1's fold-off route at seg_organ's level shapes at two space ranks: batch
 # 4 of a 64 x 128 x 128 slab at level 0, (channels, slab extent) by level
 _SLAB_LEVELS = [(32 * 2**i, (64 >> i, 128 >> i, 128 >> i)) for i in range(5)]
+# and one channel in one group (the reduce's packed route)
+_SLAB_CASES = _SLAB_LEVELS + [(1, (16, 32, 32))]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("level", range(len(_SLAB_LEVELS)))
+@pytest.mark.parametrize("level", range(len(_SLAB_CASES)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gn_fold_off_route_matches_plain_on_card(cuda_device, dtype, level):
     """With the fold off, the moments kernel's per-(n, c) sums and the
@@ -445,8 +513,10 @@ def test_gn_fold_off_route_matches_plain_on_card(cuda_device, dtype, level):
     max |ref| (per-(n, c) sums of another fp32 order); folded in torch
     (``fold_group_stats``, ``backward_coefficients``), equal to the
     fold-on route within rtol 1e-5 (another order of the group sum, and
-    torch's rsqrt against the kernel's ``__frsqrt_rn``); one launch each."""
-    c, ext = _SLAB_LEVELS[level]
+    torch's rsqrt against the kernel's ``__frsqrt_rn``); one launch each,
+    the reduce bitwise equal from call to call with its tickets zero."""
+    c, ext = _SLAB_CASES[level]
+    groups = min(8, c)
     shape = (4, c, *ext)
     x = _activation(shape, dtype, cuda_device, 30 + level)
     dy = _activation(shape, dtype, cuda_device, 50 + level) - 0.5
@@ -461,20 +531,25 @@ def test_gn_fold_off_route_matches_plain_on_card(cuda_device, dtype, level):
     assert gn.STATS_LAUNCHES == launched + 1 and sums.shape == (2, 4, c)
     ref = torch.stack(gn.group_norm_stats_plain(x))
     assert float((sums - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
-    stats = gn.group_norm_moments(x, 8, w, 1e-5)
-    for got, want in zip(gn.fold_group_stats(sums[0], sums[1], spatial, 8, w, 1e-5), stats):
+    stats = gn.group_norm_moments(x, groups, w, 1e-5)
+    for got, want in zip(gn.fold_group_stats(sums[0], sums[1], spatial, groups, w, 1e-5),
+                         stats):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
 
     launched = gn.BWD_REDUCE_LAUNCHES
-    ab = gn.group_norm_backward_sums(x, dy, stats.mean, stats.rstd, w, b, 8, r, "e")
+    ab = gn.group_norm_backward_sums(x, dy, stats.mean, stats.rstd, w, b, groups, r, "e")
     assert gn.BWD_REDUCE_LAUNCHES == launched + 1 and ab.shape == (2, 4, c)
+    assert int(gn._BWD_TICKETS[x.device].abs().sum()) == 0
+    assert torch.equal(ab, gn.group_norm_backward_sums(x, dy, stats.mean, stats.rstd, w, b,
+                                                       groups, r, "e"))
+    assert int(gn._BWD_TICKETS[x.device].abs().sum()) == 0
     *_, a_p, b_p = gn.backward_sums_plain(x, dy, stats.mean, stats.rstd, w, b, r, "e")
     ab_ref = torch.stack((a_p, b_p))
     assert float((ab - ab_ref).abs().max()) <= 1e-4 * float(ab_ref.abs().max())
     coef = gn._bwd_reduce_cuda(x, dy, gn._backward_inputs(x, dy, stats.mean, stats.rstd, w, b,
-                                                          r), 8, r, "e")
-    for got, want in zip(gn.backward_coefficients(ab[0], ab[1], stats.rstd, w, 8,
-                                                  spatial * (c // 8)), coef[2:]):
+                                                          r), groups, r, "e")
+    for got, want in zip(gn.backward_coefficients(ab[0], ab[1], stats.rstd, w, groups,
+                                                  spatial * (c // groups)), coef[2:]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 

@@ -40,9 +40,9 @@
 //    The block folds its row slots in shared memory in a fixed order and
 //    writes one partial per channel.  The block that draws a sample's last
 //    ticket adds the partials in block order and resets the ticket
-//    (sample_sums, shared with the backward's reduce), then folds channels
-//    into groups (flax's fast variance clamped at 0, rsqrt(var + eps),
-//    times gamma); a sample of one block skips the ticket.  The order of
+//    (sample_sums), then folds channels into groups (flax's fast variance
+//    clamped at 0, rsqrt(var + eps), times gamma); a sample of one block
+//    skips the ticket.  The order of
 //    every sum is fixed, so the results are identical from run to run.
 //  - Apply: y = (x - mean[n,c]) * mul[n,c] + beta[c] (+ residual) in fp32,
 //    then the nonlinearity, rounding once to the input dtype, with the same
@@ -68,12 +68,25 @@
 //      A = sum_s dz,  B = sum_s dz * xhat       (per (n, c); dbeta, dgamma
 //                                                 are their sums over n)
 //      dx = rstd*gamma*dz - rstd/M * sum_g gamma*A - (x - mean)*rstd^2/M * sum_g gamma*B
-//    The reduce is gn_moments_kernel's register path over x and dy with
-//    its own tickets and the same sample_sums: fixed-order partials, and
-//    the last block of a sample folds its groups into dx's two
-//    coefficients, so two calls are bitwise equal.  Its threads hold about 100 registers (two blocks per
-//    SM), so its grid is planned for several waves, not one, and B is
-//    summed as dz * (x - mean) and scaled by rstd once per partial.  The
+//    The reduce (gn_bwd_reduce_kernel) reads x and dy (and the residual)
+//    once; its bound is those bytes.  Its first design was the moments
+//    kernel's register path: one thread a channel vector, two rows' loads
+//    in flight, rows split over blocks only, a thread per group walking
+//    gamma in device memory for the fold; 65 % of the bound over a batch-32
+//    step, under half at C = 1 and at 6^3-12^3.  Measured on an H100
+//    (chip_bwd_reduce.py): the consumers are bound by latency and issue
+//    (an ELU step costs about 20 instructions an element), so resident
+//    warps decide the rate; a pairwise slot tree (integer divisions) and
+//    grids of several short waves made a first redesign slower than the
+//    old kernel at 6^3-12^3; a TMA ring beats the walk at ELU shapes only
+//    where it runs three blocks an SM (72 registers) with stages of whole
+//    rows a slot, and a second wave never helped.  So the
+//    reduce now takes the apply kernels' walk (see "backward reduce" below):
+//    one wave of blocks, channel chunks over grid z, a packed route at
+//    C < V, the rows of long ELU blocks streamed through a ring of bulk
+//    copies, slots folded in segments, and the sample's last block folding
+//    each group with a warp from gamma and rstd staged in shared memory.
+//    Every sum keeps a fixed order, so two calls are bitwise equal.  The
 //    apply writes dx and, for a residual, its gradient dz; its bound is x,
 //    dy (and the residual) read and dx (and dz) written once.  The first
 //    design was the forward apply's grid-stride loop with six coefficient
@@ -181,8 +194,8 @@ __device__ __forceinline__ void accumulate(const float (&v)[V], float (&sum)[V],
   }
 }
 
-// The cross-block sum of gn_moments_kernel and gn_bwd_reduce_kernel: its
-// fixed order is what makes both deterministic.  Called by every thread of
+// The cross-block sum of gn_moments_kernel: its fixed order is what makes
+// it deterministic.  Called by every thread of
 // the block after a __syncthreads, with red holding two sums per channel
 // for each of row_slots row slots (slot k's at red[k * c + ch] and
 // red[(row_slots + k) * c + ch]).  The block folds its slots in a fixed
@@ -642,10 +655,39 @@ __device__ __forceinline__ float grad_z(float xm, float dy, float r, float mul,
   return __fmul_rn(dy, activate_grad(t, act, slope));
 }
 
+// -- backward reduce: the apply walk, partials in a fixed order ------------
+//
+// gn_bwd_reduce_kernel walks a sample as the apply kernels do (ApplyWalk,
+// grid (blocks, N, chunks), thread t on vector z * chunk + t % chunk in row
+// slot t / chunk): its lanes keep their channels for the whole walk, on the
+// vector, packed (one 16-byte vector spans V / C rows, lane k on channel
+// k % C) and scalar routes.  Each thread sums dz and dz * (x - mean) per
+// lane in registers.  On the walk (kRing false) it streams its rows from
+// device memory, kReduceRows rows' loads of every operand (half with the
+// residual) issued before the first is used; on the ring (kRing true: one
+// chunk spans the row, so a block's rows are one contiguous span of each
+// operand) a producer thread keeps kStages stages of stage_rows rows of x,
+// dy (and the residual) in flight with bulk copies counted on one mbarrier
+// a stage, and the consumers read their vectors from shared memory.  The
+// block then adds its row slots in shared memory (segments of consecutive
+// slots at once, then the segments, in order), the lanes of each channel
+// in lane order, and writes one partial per channel of its chunk.  The block
+// that draws a sample's last ticket (blocks x chunks of them) adds the
+// partials in block order (16-byte loads, segments of blocks at once),
+// leaves the ticket 0, and, with fold on, stages gamma and rstd in shared
+// memory and folds each group with one warp (a fixed butterfly).
+
+// must match _REDUCE_THREADS, _REDUCE_ROWS and the blocks an SM holds
+// (_WALK_BLOCKS_PER_SM, _RING_BLOCKS_PER_SM) in ops/groupnorm.py: the
+// launch bounds (and the ring's producer warp) leave a thread 96 registers
+// on the walk, 72 on the ring
+constexpr int kReduceMaxThreads = 256;
+constexpr int kWalkBlocksPerSm = 2;
+constexpr int kRingBlocksPerSm = 3;
+constexpr int kReduceRows = 4;
+constexpr int kMaxRingBytes = 192 * 1024;   // kStages stages of every operand
+
 struct BwdParams {
-  const void* x;         // (N, S, C) GroupNorm input
-  const void* dy;        // (N, S, C) gradient of the output
-  const void* r;         // (N, S, C) residual, or null
   const float* mean;     // (N, C)
   const float* rstd;     // (N, C)
   const float* gamma;    // (C)
@@ -653,128 +695,435 @@ struct BwdParams {
   float* part;           // (N, blocks, 2, C) scratch
   int* tickets;          // (>= N), 0 between launches
   float* out;            // (4, N, C) out: A, B, coeff_b, coeff_c; (2, N, C) unfolded
+  ApplyWalk w;
   long long n;
-  long long s;           // rows per sample
-  long long rows_per_block;
-  int c, groups, act;
+  long long s;           // spatial rows per sample
+  int groups, act;
   float slope;
   int fold;              // 0: A and B alone
+  int stage_rows;        // rows of one ring stage (the ring only)
+  int tail_at;           // byte offset of the sample's sums after the ring
 };
 
-// blockDim = consumer threads; thread t owns channel vector t % vecs in row
-// slot t / vecs, as in gn_moments_kernel's register path.  A_nc = sum dz and
-// B_nc = sum dz * xhat over the block's rows, summed across blocks by
-// sample_sums; the sample's last block folds groups into dx's coefficients.
-template <typename T, int V, bool kResidual>
-__global__ void gn_bwd_reduce_kernel(const BwdParams p) {
-  extern __shared__ __align__(16) float red[];
-  const int c = p.c;
+// Shared memory of one block: the ring's barriers and stages (the ring
+// only), overlaid after the walk by the slot sums (2 x slots x chunk * V
+// floats) or the cross-block segments (2 C floats, or 4 a thread); then the
+// sample's sums, gamma, rstd (C each, the sums 2 C) and two per group.
+struct ReduceSmem {
+  size_t ring, reuse, tail, total;
+};
+
+inline ReduceSmem reduce_smem(const ApplyWalk& w, int v, int threads, int groups, int ops,
+                              int stage_rows, int esize) {
+  ReduceSmem m{};
+  m.ring = stage_rows > 0 ? (size_t)kStages * ops * stage_rows * w.row * esize : 0;
+  const size_t red = 2ull * threads * v * sizeof(float);
+  const size_t seg = std::max<size_t>(4ull * (threads + 32), 2ull * w.c) * sizeof(float);
+  m.reuse = std::max({m.ring, red, seg});
+  m.reuse = (m.reuse + 15) / 16 * 16;
+  m.tail = (4ull * w.c + 2ull * groups) * sizeof(float);
+  m.total = (stage_rows > 0 ? kBarrierBytes : 0) + m.reuse + m.tail;
+  return m;
+}
+
+template <typename T, int V, bool kResidual, bool kRing>
+__global__ void __launch_bounds__(kReduceMaxThreads + 32,
+                                  kRing ? kRingBlocksPerSm : kWalkBlocksPerSm)
+    gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                         const T* __restrict__ residual, const BwdParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const ApplyWalk& w = p.w;
+  const int c = w.c;
   const int n = blockIdx.y;
   const int tid = threadIdx.x;
-  const int vecs = c / V;
-  const int row_slots = blockDim.x / vecs;
-  const int slot = tid / vecs;
-  const int cv = tid - slot * vecs;
-  const bool active = slot < row_slots;
-  const long long row0 = blockIdx.x * p.rows_per_block;
-  const long long row1 = min(row0 + p.rows_per_block, p.s);
-  const long long base = (long long)n * p.s * c + cv * V;
-  const T* xs = static_cast<const T*>(p.x) + base;
-  const T* gs = static_cast<const T*>(p.dy) + base;
-  const T* rs = kResidual ? static_cast<const T*>(p.r) + base : nullptr;
+  const int consumers = kRing ? blockDim.x - 32 : blockDim.x;
+  const int slots = consumers / w.chunk;
+  const int slot = tid / w.chunk;
+  const int cl = tid - slot * w.chunk;
+  const int cv = blockIdx.z * w.chunk + cl;
+  const bool active = slot < slots && cv < w.vecs;
+  const long long b0 = blockIdx.x * w.rows_per_block;
+  const long long b1 = min(b0 + w.rows_per_block, w.rows);
+  const long long nc = (long long)n * c;
+  using R = typename Raw<T, V>::type;
 
-  // sb sums dz * (x - mean); times rstd once, for the block's partial
-  float sa[V], sb[V], mn[V], ml[V], bt[V];
+  const long long base = (long long)n * w.rows * w.row;
+  // the walk: a thread's rows r, r + slots, ... < b1, kRows rows of every
+  // operand loaded at a time (half as many with the residual's third
+  // operand: the same bytes in flight, registers for two blocks an SM);
+  // the first batch is issued before the coefficients, so the two loads'
+  // latencies overlap
+  constexpr int kRows = kResidual ? kReduceRows / 2 : kReduceRows;
+  long long r = b0 + slot;
+  const long long step = (long long)slots * w.row;
+  const long long off = base + r * w.row + (long long)cv * V;
+  const T* xp = x + off;
+  const T* gp = dy + off;
+  const T* rp = kResidual ? residual + off : nullptr;
+  R rx[kRows], rg[kRows], rr[kRows];
+  auto batch = [&]() {
+    if (!active || r + (kRows - 1) * slots >= b1) return false;
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int ch = cv * V + i;
-    mn[i] = p.mean[(long long)n * c + ch];
-    ml[i] = __fmul_rn(p.rstd[(long long)n * c + ch], p.gamma[ch]);
-    bt[i] = p.beta[ch];
-    sa[i] = sb[i] = 0.f;
-  }
+    for (int j = 0; j < kRows; ++j) {
+      rx[j] = load_raw<T, V>(xp + j * step);
+      rg[j] = load_raw<T, V>(gp + j * step);
+      if constexpr (kResidual) rr[j] = load_raw<T, V>(rp + j * step);
+    }
+    return true;
+  };
+  bool loaded = !kRing && batch();
+
+  float mn[V], ml[V], bt[V], sa[V], sb[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) mn[k] = ml[k] = bt[k] = sa[k] = sb[k] = 0.f;
   if (active) {
-#pragma unroll 2
-    for (long long row = row0 + slot; row < row1; row += row_slots) {
-      float v[V], g[V], r[V];
-      load_vec<T, V>(xs + row * c, v);
-      load_vec<T, V>(gs + row * c, g);
-      if constexpr (kResidual) load_vec<T, V>(rs + row * c, r);
+    load_coef<V>(p.mean + nc, w, cv, mn);
+    load_coef<V>(p.rstd + nc, w, cv, ml);
+    load_coef<V>(p.gamma, w, cv, bt);
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float xm = __fsub_rn(v[i], mn[i]);
-        const float dz = grad_z<kResidual>(xm, g[i], kResidual ? r[i] : 0.f, ml[i],
-                                           bt[i], p.act, p.slope);
-        sa[i] += dz;
-        sb[i] += dz * xm;
+    for (int k = 0; k < V; ++k) ml[k] = __fmul_rn(ml[k], bt[k]);
+    load_coef<V>(p.beta, w, cv, bt);
+  }
+  // dz = dy * act'(z) per lane, z recomputed with the forward's roundings
+  auto one = [&](const R& rx, const R& rg, const R& rr) {
+    float v[V], g[V], r[V];
+    unpack<T, V>(rx, v);
+    unpack<T, V>(rg, g);
+    if constexpr (kResidual) unpack<T, V>(rr, r);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float xm = __fsub_rn(v[k], mn[k]);
+      const float dz = grad_z<kResidual>(xm, g[k], kResidual ? r[k] : 0.f, ml[k], bt[k],
+                                         p.act, p.slope);
+      sa[k] = __fadd_rn(sa[k], dz);
+      sb[k] = __fmaf_rn(dz, xm, sb[k]);
+    }
+  };
+  unsigned char* region = smem;
+  if constexpr (kRing) {
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+    uint64_t* empty = full + kStages;
+    region = smem + kBarrierBytes;
+    T* ring = reinterpret_cast<T*>(region);
+    constexpr int ops = kResidual ? 3 : 2;
+    const int stage_elems = p.stage_rows * w.row;
+    const int stages =
+        b1 > b0 ? (int)((b1 - b0 + p.stage_rows - 1) / p.stage_rows) : 0;
+    if (tid == 0) {
+      for (int st = 0; st < kStages; ++st) {
+        mbar_init(&full[st], 1);
+        mbar_init(&empty[st], consumers / 32);
       }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid >= consumers) {
+      if (tid == consumers) {  // the producer
+        for (int k = 0; k < stages; ++k) {
+          const int st = k % kStages;
+          if (k >= kStages) mbar_wait(&empty[st], ((k / kStages) - 1) & 1);
+          const long long r = b0 + (long long)k * p.stage_rows;
+          const long long rows = min((long long)p.stage_rows, b1 - r);
+          const uint32_t bytes = (uint32_t)(rows * w.row * sizeof(T));
+          const long long at = base + r * w.row;
+          T* buf = ring + (long long)st * ops * stage_elems;
+          mbar_expect_tx(&full[st], ops * bytes);
+          bulk_load(buf, x + at, bytes, &full[st]);
+          bulk_load(buf + stage_elems, dy + at, bytes, &full[st]);
+          if constexpr (kResidual)
+            bulk_load(buf + 2 * stage_elems, residual + at, bytes, &full[st]);
+        }
+      }
+    } else {
+      for (int k = 0; k < stages; ++k) {
+        const int st = k % kStages;
+        mbar_wait(&full[st], (k / kStages) & 1);
+        if (active) {
+          const long long r = b0 + (long long)k * p.stage_rows;
+          const int rows = (int)min((long long)p.stage_rows, b1 - r);
+          const T* buf = ring + (long long)st * ops * stage_elems + cv * V;
+#pragma unroll 2
+          for (int j = slot; j < rows; j += slots) {
+            R rr{};
+            if constexpr (kResidual) rr = load_raw<T, V>(buf + 2 * stage_elems + j * w.row);
+            one(load_raw<T, V>(buf + j * w.row), load_raw<T, V>(buf + stage_elems + j * w.row),
+                rr);
+          }
+        }
+        __syncwarp();
+        if ((tid & 31) == 0) mbar_arrive(&empty[st]);
+      }
+    }
+    // every issued stage was waited for: the ring is free for the sums
+    __syncthreads();
+  } else if (active) {
+    while (loaded) {
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) one(rx[j], rg[j], rr[j]);
+      r += kRows * slots;
+      xp += kRows * step;
+      gp += kRows * step;
+      if constexpr (kResidual) rp += kRows * step;
+      loaded = batch();
+    }
+    for (; r < b1; r += slots) {
+      R rr{};
+      if constexpr (kResidual) rr = load_raw<T, V>(rp);
+      one(load_raw<T, V>(xp), load_raw<T, V>(gp), rr);
+      xp += step;
+      gp += step;
+      if constexpr (kResidual) rp += step;
     }
   }
 
-  if (active) {
+  // the block's partial.  red (2, slots, L) holds each thread's lane sums
+  // by lane column lc = (t % chunk) * V + k, B's scaled by rstd once.  The
+  // slots of each of the 2 L columns are added in order, in segs segments
+  // of consecutive slots at once (then the segments in order, into the
+  // first slot's row); channel j of the chunk then adds its lane columns
+  // j, j + C, ... (several only on the packed route) in order
+  const int L = w.chunk * V;
+  float* red = reinterpret_cast<float*>(region);
+  float* tot = reinterpret_cast<float*>(region + p.tail_at);  // (2, c)
+  if (slot < slots) {
+    float rs[V] = {};
+    if (active) load_coef<V>(p.rstd + nc, w, cv, rs);
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      red[slot * c + cv * V + i] = sa[i];
-      red[(row_slots + slot) * c + cv * V + i] =
-          sb[i] * p.rstd[(long long)n * c + cv * V + i];
+    for (int k = 0; k < V; ++k) {
+      red[slot * L + cl * V + k] = active ? sa[k] : 0.f;
+      red[(slots + slot) * L + cl * V + k] = active ? __fmul_rn(sb[k], rs[k]) : 0.f;
     }
   }
   __syncthreads();
-  if (!sample_sums(red, row_slots, c, p.part, p.tickets)) return;
-  float* tot = red + 2 * row_slots * c;  // (2, c), then (gamma A, gamma B) per group
-  const long long nc = p.n * c;
+  {
+    const int cols = 2 * L;
+    const int segs = max(1, min((int)blockDim.x / cols, slots));
+    const int per = (slots + segs - 1) / segs;
+    float a[2] = {0.f, 0.f};  // columns tid and tid + blockDim.x where segs is 1
+    if (tid < cols * segs) {
+      for (int q = 0; q < (segs == 1 ? 2 : 1); ++q) {
+        const int j = tid + q * blockDim.x;
+        if (j >= cols * segs) break;
+        const int col = j % cols, sg = j / cols;
+        const float* src = red + (col / L) * slots * L + col % L;
+        const int k1 = min(slots, (sg + 1) * per);
+        for (int k = sg * per; k < k1; ++k) a[q] = __fadd_rn(a[q], src[k * L]);
+      }
+    }
+    __syncthreads();
+    if (segs == 1) {
+      for (int q = 0; q < 2; ++q) {
+        const int col = tid + q * blockDim.x;
+        if (col < cols) red[(col / L) * slots * L + col % L] = a[q];
+      }
+    } else if (tid < cols * segs) {
+      red[(tid / cols) * cols + tid % cols] = a[0];  // segment sums (segs, 2, L)
+    }
+    __syncthreads();
+    if (segs > 1) {
+      float b[2] = {0.f, 0.f};
+      for (int q = 0; q < 2; ++q) {
+        const int col = tid + q * blockDim.x;
+        if (col < cols)
+          for (int sg = 0; sg < segs; ++sg) b[q] = __fadd_rn(b[q], red[sg * cols + col]);
+      }
+      __syncthreads();
+      for (int q = 0; q < 2; ++q) {
+        const int col = tid + q * blockDim.x;
+        if (col < cols) red[(col / L) * slots * L + col % L] = b[q];
+      }
+      __syncthreads();
+    }
+  }
+  const int ch0 = (int)(((long long)blockIdx.z * L) % c);
+  const int cb = min(L, c - ch0);
+  const int nb = gridDim.x, blocks = gridDim.x * gridDim.z;
+  float* part = blocks == 1 ? tot : p.part + ((long long)n * nb + blockIdx.x) * 2 * c;
+  for (int j = tid; j < 2 * cb; j += blockDim.x) {
+    const int sum = j / cb, ch = j - sum * cb;
+    const float* row = red + sum * slots * L;
+    float a = 0.f;
+    for (int lc = ch; lc < L; lc += c) a = __fadd_rn(a, row[lc]);
+    part[sum * c + ch0 + ch] = a;
+  }
+  float* s_gamma = tot + 2 * c;  // the fold's gamma and rstd of the sample
+  float* s_rstd = s_gamma + c;
+  if (blocks > 1) {
+    __shared__ int last_block;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last_block = atomicAdd(p.tickets + n, 1) == blocks - 1;
+    __syncthreads();
+    if (!last_block) return;
+    __threadfence();
+  }
+  // the sample's last block: gamma and rstd staged while the partials load
+  if (p.fold) {
+    for (int ch = tid; ch < c; ch += blockDim.x) {
+      s_gamma[ch] = p.gamma[ch];
+      s_rstd[ch] = p.rstd[nc + ch];
+    }
+  }
+  if (blocks > 1) {
+    // the partials of the sample's nb blocks in block order: each thread
+    // takes q values (one 16-byte load where 2 C is a multiple of 4) over
+    // a segment of consecutive blocks, segs segments at once; then each
+    // value adds its segments in order
+    const float* part_n = p.part + (long long)n * nb * 2 * c;
+    const int vals = 2 * c;
+    const int q = vals % 4 ? 1 : 4;
+    const int loads = vals / q;
+    const int segs = max(1, min((int)blockDim.x / loads, nb));
+    const int per = (nb + segs - 1) / segs;
+    for (int j = tid; j < loads * segs; j += blockDim.x) {
+      const int v = j % loads, sg = j / loads;
+      const int k1 = min(nb, (sg + 1) * per);
+      float* out = red + sg * vals + v * q;
+      if (q == 4) {
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4* src = reinterpret_cast<const float4*>(part_n) + v;
+#pragma unroll 8
+        for (int k = sg * per; k < k1; ++k) {
+          const float4 f = __ldcg(src + (long long)k * loads);
+          a.x = __fadd_rn(a.x, f.x);
+          a.y = __fadd_rn(a.y, f.y);
+          a.z = __fadd_rn(a.z, f.z);
+          a.w = __fadd_rn(a.w, f.w);
+        }
+        out[0] = a.x;
+        out[1] = a.y;
+        out[2] = a.z;
+        out[3] = a.w;
+      } else {
+        float a = 0.f;
+#pragma unroll 8
+        for (int k = sg * per; k < k1; ++k)
+          a = __fadd_rn(a, __ldcg(part_n + (long long)k * vals + v));
+        out[0] = a;
+      }
+    }
+    __syncthreads();
+    for (int v = tid; v < vals; v += blockDim.x) {
+      float a = 0.f;
+      for (int sg = 0; sg < segs; ++sg) a = __fadd_rn(a, red[sg * vals + v]);
+      tot[v] = a;
+    }
+    // every block of the sample has drawn
+    if (tid == 0) p.tickets[n] = 0;
+  }
+  __syncthreads();
+  const long long all = p.n * c;
   if (!p.fold) {  // A and B alone: the coefficients wait for the sums of every slab
     for (int ch = tid; ch < c; ch += blockDim.x) {
-      p.out[(long long)n * c + ch] = tot[ch];
-      p.out[nc + (long long)n * c + ch] = tot[c + ch];
+      p.out[nc + ch] = tot[ch];
+      p.out[all + nc + ch] = tot[c + ch];
     }
     return;
   }
-  // per group: sum of gamma * A and of gamma * B over its channels, then
+  // per group: sum of gamma * A and of gamma * B over its channels, one
+  // warp a group (lanes stride its channels, then a butterfly), then
   // dx = mul * dz + coeff_b * (x - mean) + coeff_c with
   // coeff_b = -rstd^2 * sum(gamma B) / M and coeff_c = -rstd * sum(gamma A) / M
+  float* g_a = s_rstd + c;
+  float* g_b = g_a + p.groups;
   const int cg = c / p.groups;
   const float count = (float)(p.s * cg);
-  float* g_a = tot + 2 * c;
-  float* g_b = g_a + p.groups;
-  for (int g = tid; g < p.groups; g += blockDim.x) {
+  const int warps = blockDim.x / 32, lane = tid & 31;
+  for (int g = tid / 32; g < p.groups && tid / 32 < warps; g += warps) {
     float a = 0.f, b = 0.f;
-    for (int j = 0; j < cg; ++j) {
+    for (int j = lane; j < cg; j += 32) {
       const int ch = g * cg + j;
-      a = __fadd_rn(a, __fmul_rn(p.gamma[ch], tot[ch]));
-      b = __fadd_rn(b, __fmul_rn(p.gamma[ch], tot[c + ch]));
+      a = __fadd_rn(a, __fmul_rn(s_gamma[ch], tot[ch]));
+      b = __fadd_rn(b, __fmul_rn(s_gamma[ch], tot[c + ch]));
     }
-    g_a[g] = a;
-    g_b[g] = b;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, o));
+      b = __fadd_rn(b, __shfl_xor_sync(0xffffffffu, b, o));
+    }
+    if (lane == 0) {
+      g_a[g] = a;
+      g_b[g] = b;
+    }
   }
   __syncthreads();
   for (int ch = tid; ch < c; ch += blockDim.x) {
     const int g = ch / cg;
-    const long long i = (long long)n * c + ch;
-    const float r = p.rstd[i];
-    p.out[i] = tot[ch];
-    p.out[nc + i] = tot[c + ch];
-    p.out[2 * nc + i] = -__fdiv_rn(__fmul_rn(__fmul_rn(r, r), g_b[g]), count);
-    p.out[3 * nc + i] = -__fdiv_rn(__fmul_rn(r, g_a[g]), count);
+    const float r = s_rstd[ch];
+    p.out[nc + ch] = tot[ch];
+    p.out[all + nc + ch] = tot[c + ch];
+    p.out[2 * all + nc + ch] = -__fdiv_rn(__fmul_rn(__fmul_rn(r, r), g_b[g]), count);
+    p.out[3 * all + nc + ch] = -__fdiv_rn(__fmul_rn(r, g_a[g]), count);
   }
 }
 
-template <typename T, int V, bool kResidual>
-cudaError_t launch_bwd_reduce(const BwdParams& p, int blocks, cudaStream_t stream) {
-  const int vecs = p.c / V;
-  const int threads = vecs <= kConsumers ? kConsumers : (vecs + 31) / 32 * 32;
-  const int row_slots = threads / vecs;
-  const size_t smem = 2ull * (row_slots * p.c + p.c + p.groups) * sizeof(float);
-  if (threads > 1024 || smem > 48 * 1024) return cudaErrorInvalidValue;
-  gn_bwd_reduce_kernel<T, V, kResidual>
-      <<<dim3(blocks, (unsigned)p.n), threads, smem, stream>>>(p);
-  return cudaGetLastError();
+// The kernel instance of one launch.
+template <typename T, int V>
+const void* reduce_fn(bool res, bool ring) {
+  return res ? (ring ? (const void*)gn_bwd_reduce_kernel<T, V, true, true>
+                     : (const void*)gn_bwd_reduce_kernel<T, V, true, false>)
+             : (ring ? (const void*)gn_bwd_reduce_kernel<T, V, false, true>
+                     : (const void*)gn_bwd_reduce_kernel<T, V, false, false>);
 }
 
-template <typename T, int V>
-cudaError_t launch_bwd_reduce_any(const BwdParams& p, int blocks, cudaStream_t stream) {
-  return p.r != nullptr ? launch_bwd_reduce<T, V, true>(p, blocks, stream)
-                        : launch_bwd_reduce<T, V, false>(p, blocks, stream);
+const void* pick_reduce(int dtype, int v, bool res, bool ring) {
+  if (dtype == kBF16)
+    return v == 8 ? reduce_fn<__nv_bfloat16, 8>(res, ring) : reduce_fn<__nv_bfloat16, 1>(res, ring);
+  return v == 4 ? reduce_fn<float, 4>(res, ring) : reduce_fn<float, 1>(res, ring);
+}
+
+// dynamic shared memory a block may take: Hopper's 227 KB less room for
+// the kernel's static shared memory
+constexpr int kMaxSmem = 224 * 1024;
+
+// Every reduce instance may take up to kMaxSmem of dynamic shared memory
+// (above 48 KB only after opting in), once per device.
+cudaError_t allow_reduce_smem() {
+  static bool set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (set[dev]) return cudaSuccess;
+  for (int dtype : {kBF16, kF32})
+    for (int v : {1, 16 / (dtype == kBF16 ? 2 : 4)})
+      for (bool res : {false, true})
+        for (bool ring : {false, true}) {
+          err = cudaFuncSetAttribute(pick_reduce(dtype, v, res, ring),
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+          if (err != cudaSuccess) return err;
+        }
+  set[dev] = true;
+  return cudaSuccess;
+}
+
+// A reduce launch from the plan's fields, checked (see tmt_gn_bwd_reduce):
+// its kernel, block threads and shared memory, or false.
+bool reduce_launch(int dtype, long long n, long long s, int c, int groups, bool res, int route,
+                   int blocks, long long rows_per_block, int threads, int chunk, int stage_rows,
+                   BwdParams& p, const void*& fn, int& block, ReduceSmem& m) {
+  int v = 0;
+  if ((dtype != kBF16 && dtype != kF32) || groups < 1 || c % groups || stage_rows < 0 ||
+      threads > kReduceMaxThreads ||
+      !apply_walk(route, dtype, n, s, c, blocks, rows_per_block, threads, chunk, p.w, v))
+    return false;
+  const bool ring = stage_rows > 0;
+  const int esize = dtype == kBF16 ? 2 : 4;
+  // the ring copies whole rows of 16-byte vectors, one chunk a row, and
+  // its consumers arrive a warp at a time
+  if (ring && (v == 1 || chunk != p.w.vecs || threads % 32 ||
+               (long long)kStages * (res ? 3 : 2) * stage_rows * p.w.row * esize > kMaxRingBytes))
+    return false;
+  m = reduce_smem(p.w, v, threads, groups, res ? 3 : 2, stage_rows, esize);
+  if (m.total > kMaxSmem) return false;
+  p.n = n;
+  p.s = s;
+  p.groups = groups;
+  p.stage_rows = stage_rows;
+  p.tail_at = (int)m.reuse;
+  fn = pick_reduce(dtype, v, res, ring);
+  block = threads + (ring ? 32 : 0);
+  return true;
 }
 
 struct BwdApplyParams {
@@ -955,33 +1304,68 @@ int tmt_gn_apply(const void* x, const void* residual, void* y, const void* mean,
 // and the forward's per-(n, c) mean and rstd, out (4, N, C) fp32 =
 // A = sum dz, B = sum dz * xhat, and dx's coefficients coeff_b, coeff_c
 // (see gn_bwd_reduce_kernel).  act as in tmt_gn_apply; residual may be null.
-// part is (N, blocks, 2, C) fp32 scratch, tickets (>= N) int32 zeros, left
-// zero again.  fold == 0 stops at A and B, out (2, N, C).
+// The launch follows ops/groupnorm.py plan_bwd_reduce: route, blocks, rows
+// per block, threads and chunk as tmt_gn_apply's (and its alignment
+// rules), stage_rows > 0 for the ring (vector or packed route, one chunk a
+// row, threads a multiple of 32; one producer warp more).  part is
+// (N, blocks, 2, C) fp32 scratch, tickets (>= N) int32 zeros, left zero
+// again.  fold == 0 stops at A and B, out (2, N, C).
 int tmt_gn_bwd_reduce(const void* x, const void* dy, const void* residual, int dtype,
                       long long n, long long s, int c, int groups, const void* mean,
                       const void* rstd, const void* gamma, const void* beta, int act,
-                      float slope, int blocks, long long rows_per_block, void* part,
-                      void* tickets, void* out, int fold, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n < 1 || n > 65535 || c < 1 || groups < 1 || c % groups || blocks < 1 ||
-      (long long)blocks * rows_per_block < s)
+                      float slope, int route, int blocks, long long rows_per_block, int threads,
+                      int chunk, int stage_rows, void* part, void* tickets, void* out, int fold,
+                      void* stream) {
+  BwdParams p{static_cast<const float*>(mean), static_cast<const float*>(rstd),
+              static_cast<const float*>(gamma), static_cast<const float*>(beta),
+              static_cast<float*>(part), static_cast<int*>(tickets), static_cast<float*>(out),
+              {}, 0, 0, 0, act, slope, fold, 0, 0};
+  const void* fn = nullptr;
+  int block = 0;
+  ReduceSmem m{};
+  if (!reduce_launch(dtype, n, s, c, groups, residual != nullptr, route, blocks,
+                     rows_per_block, threads, chunk, stage_rows, p, fn, block, m))
     return cudaErrorInvalidValue;
-  const BwdParams p{x, dy, residual, static_cast<const float*>(mean),
-                    static_cast<const float*>(rstd), static_cast<const float*>(gamma),
-                    static_cast<const float*>(beta), static_cast<float*>(part),
-                    static_cast<int*>(tickets), static_cast<float*>(out), n, s,
-                    rows_per_block, c, groups, act, slope, fold};
-  const bool vec = aligned16(x) && aligned16(dy) &&
-                   (residual == nullptr || aligned16(residual));
-  if (dtype == kBF16) {
-    return (vec && c % 8 == 0) ? launch_bwd_reduce_any<__nv_bfloat16, 8>(p, blocks, st)
-                               : launch_bwd_reduce_any<__nv_bfloat16, 1>(p, blocks, st);
-  }
-  if (dtype == kF32) {
-    return (vec && c % 4 == 0) ? launch_bwd_reduce_any<float, 4>(p, blocks, st)
-                               : launch_bwd_reduce_any<float, 1>(p, blocks, st);
-  }
-  return cudaErrorInvalidValue;
+  if (route != kRouteScalar &&
+      !(aligned16(x) && aligned16(dy) && (residual == nullptr || aligned16(residual))))
+    return cudaErrorInvalidValue;
+  if (route == kRouteVector &&
+      !(aligned16(mean) && aligned16(rstd) && aligned16(gamma) && aligned16(beta)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_reduce_smem();
+  if (err != cudaSuccess) return err;
+  void* args[] = {const_cast<void**>(&x), const_cast<void**>(&dy),
+                  const_cast<void**>(&residual), &p};
+  const dim3 grid(blocks, (unsigned)n, (p.w.vecs + chunk - 1) / chunk);
+  err = cudaLaunchKernel(fn, grid, dim3(block), args, m.total,
+                         static_cast<cudaStream_t>(stream));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The reduce's instance for one plan: info[0] registers a thread, info[1]
+// blocks an SM can hold, info[2] dynamic shared memory a block (bytes).
+int tmt_gn_bwd_reduce_info(int dtype, long long n, long long s, int c, int groups, int residual,
+                           int route, int blocks, long long rows_per_block, int threads,
+                           int chunk, int stage_rows, int* info) {
+  BwdParams p{};
+  const void* fn = nullptr;
+  int block = 0;
+  ReduceSmem m{};
+  if (!reduce_launch(dtype, n, s, c, groups, residual != 0, route, blocks, rows_per_block,
+                     threads, chunk, stage_rows, p, fn, block, m))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_reduce_smem();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr{};
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, block, m.total);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = per_sm;
+  info[2] = (int)m.total;
+  return cudaSuccess;
 }
 
 // GroupNorm backward, pass 2: dx (and dr = dz where residual is not null),

@@ -70,12 +70,18 @@ _APPLY_ARGS = [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     *_PLAN_ARGS, ctypes.c_void_p,
 ]
+# the reduce plan's fields: the apply plan's, then rows a ring stage
+_REDUCE_PLAN_ARGS = [*_PLAN_ARGS, ctypes.c_int]
 _BWD_REDUCE_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_float, *_REDUCE_PLAN_ARGS,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+]
+_REDUCE_INFO_ARGS = [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, *_REDUCE_PLAN_ARGS, ctypes.c_void_p,
 ]
 _BWD_APPLY_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -89,10 +95,23 @@ _BWD_APPLY_ARGS = [
 _STAGE_BYTES = 16 * 1024   # one bulk copy into one stage of the ring
 _CONSUMERS = 256           # threads that sum, one 16-byte vector each
 _BLOCKS_PER_SM = 2         # grid of about one wave at the largest shapes
-# the backward's reduce: several waves of blocks, so that a last partial
-# wave stays short (its blocks hold fewer per SM than the moments kernel's)
-_BWD_BLOCKS_PER_SM = 8
 _MIN_BLOCK_BYTES = 64 * 1024
+# the backward's reduce; _REDUCE_THREADS, _REDUCE_ROWS, _RING_STAGES and the
+# blocks an SM holds must match kReduceMaxThreads, kReduceRows, kStages,
+# kWalkBlocksPerSm and kRingBlocksPerSm in csrc/groupnorm.cu
+_REDUCE_THREADS = 256       # consumer threads a block, at most
+_REDUCE_ROWS = 4            # rows a thread loads before it uses the first (walk)
+_REDUCE_CHUNK = 32          # vectors of a row a block takes at most (grid z beyond)
+_WALK_BLOCKS_PER_SM = 2     # the launch bounds' promise: the grid is one wave
+_RING_BLOCKS_PER_SM = 3
+_RING_STAGES = 4
+_RING_BYTES = 64 * 1024     # the ring of a block: stages of every operand
+# stages a block streams at least where the planner takes the ring: with
+# ELU (an exp an element) the walk's two blocks an SM cannot hide the
+# arithmetic and the ring's three win from a few dozen stages; otherwise
+# the walk keeps up until blocks are long (chip_bwd_reduce.py)
+_RING_MIN_STAGES = 32
+_RING_MIN_STAGES_CHEAP_ACT = 256
 # apply launch plan; _APPLY_MAX_THREADS must match kApplyMaxThreads and
 # _APPLY_ROWS kApplyRows in csrc/groupnorm.cu
 _APPLY_THREADS = 256       # threads a block aims at
@@ -183,17 +202,17 @@ class MomentsPlan(NamedTuple):
 
 
 def plan_moments(n: int, s: int, c: int, esize: int, aligned: bool,
-                 sms: int, blocks_per_sm: int = _BLOCKS_PER_SM) -> MomentsPlan:
+                 sms: int) -> MomentsPlan:
     """Launch plan for N samples of S rows of C channels of ``esize`` bytes.
 
     Bulk copies need a 16-byte aligned base (``aligned``) and rows of a
     multiple of 16 bytes, and each consumer thread owns one 16-byte vector
-    of a row.  The grid aims at ``blocks_per_sm`` blocks per SM over all
+    of a row.  The grid aims at ``_BLOCKS_PER_SM`` blocks per SM over all
     samples, but never below ``_MIN_BLOCK_BYTES`` of input per block.
     """
     row_bytes = c * esize
     bulk = aligned and row_bytes % 16 == 0 and row_bytes // 16 <= _CONSUMERS
-    per_sample = max(1, min(-(-blocks_per_sm * sms // n),
+    per_sample = max(1, min(-(-_BLOCKS_PER_SM * sms // n),
                             -(-s * row_bytes // _MIN_BLOCK_BYTES)))
     rows_per_block = max(1, -(-s // per_sample))
     blocks = max(1, -(-s // rows_per_block))
@@ -310,6 +329,17 @@ class ApplyPlan(NamedTuple):
     rows_per_block: int
 
 
+def _walk_route(s: int, c: int, esize: int, aligned: bool) -> Tuple[str, int, int]:
+    """(route, elements an access, elements a row) of the walks the apply
+    kernels and the backward reduce share (``plan_apply``)."""
+    wide = 16 // esize
+    if aligned and c % wide == 0:
+        return "vector", wide, c
+    if aligned and c < wide and wide % c == 0 and s * c % wide == 0:
+        return "packed", wide, wide
+    return "scalar", 1, c
+
+
 @functools.lru_cache(maxsize=256)
 def plan_apply(n: int, s: int, c: int, esize: int, aligned: bool, sms: int) -> ApplyPlan:
     """Launch plan of both apply kernels for N samples of S rows of C
@@ -325,13 +355,7 @@ def plan_apply(n: int, s: int, c: int, esize: int, aligned: bool, sms: int) -> A
     ``_APPLY_BLOCKS_PER_SM`` blocks per SM, each thread taking
     ``_APPLY_ROWS`` to ``_APPLY_MAX_ROWS`` rows.
     """
-    wide = 16 // esize
-    if aligned and c % wide == 0:
-        route, vec, row = "vector", wide, c
-    elif aligned and c < wide and wide % c == 0 and s * c % wide == 0:
-        route, vec, row = "packed", wide, wide
-    else:
-        route, vec, row = "scalar", 1, c
+    route, vec, row = _walk_route(s, c, esize, aligned)
     rows = s * c // row
     vecs = row // vec
     chunk = -(-vecs // -(-vecs // _APPLY_MAX_THREADS))
@@ -351,6 +375,81 @@ def _plan_fields(plan: ApplyPlan) -> tuple:
     threads, chunk)."""
     return (APPLY_ROUTES.index(plan.route), plan.blocks, plan.rows_per_block,
             plan.threads, plan.chunk)
+
+
+class ReducePlan(NamedTuple):
+    """How ``gn_bwd_reduce_kernel`` walks one shape: ``plan_apply``'s
+    walk, and rows a ring stage (0: the walk streams from device memory)."""
+
+    route: str            # "vector", "packed" or "scalar" (APPLY_ROUTES)
+    vec: int              # elements per access: 16 / esize, or 1 (scalar)
+    row: int              # elements per row: C, or one vector (packed)
+    rows: int             # rows per sample
+    chunk: int            # vectors of a row per block
+    chunks: int           # blocks across a row (grid z)
+    threads: int          # chunk * row slots (the ring adds a producer warp)
+    blocks: int           # blocks per sample (grid x)
+    rows_per_block: int
+    stage_rows: int       # rows of one ring stage of each operand, or 0
+
+
+@functools.lru_cache(maxsize=256)
+def plan_bwd_reduce(n: int, s: int, c: int, esize: int, aligned: bool, sms: int,
+                    operands: int = 2, ring: Optional[bool] = None,
+                    act: Optional[str] = "e") -> ReducePlan:
+    """Launch plan of the backward reduce for N samples of S rows of C
+    channels of ``esize`` bytes, ``operands`` tensors read (x, dy and the
+    residual where there is one).
+
+    Routes as ``plan_apply``'s.  A block holds at most ``_REDUCE_CHUNK``
+    vectors of a row (grid z over the rest) in whole row slots of
+    ``_REDUCE_THREADS`` threads.  The grid is one wave: as many blocks as
+    the card holds at once (``_RING_BLOCKS_PER_SM`` or
+    ``_WALK_BLOCKS_PER_SM`` an SM), each rows_per_block rows in whole
+    steps of ``_REDUCE_ROWS`` rows a thread, so every block reads about as
+    much and the sample's last block alone adds a tail.  The ring needs
+    one chunk across the row, threads in whole warps and a 16-byte route;
+    its ``_RING_STAGES`` stages of every operand hold ``_RING_BYTES``
+    together, each a whole number of rows a row slot.  ``ring`` None takes
+    it where a block would stream at least ``_RING_MIN_STAGES`` stages
+    (``act`` ELU) or ``_RING_MIN_STAGES_CHEAP_ACT`` (any other).
+    """
+    route, vec, row = _walk_route(s, c, esize, aligned)
+    rows = s * c // row
+    vecs = row // vec
+    chunks = -(-vecs // _REDUCE_CHUNK)
+    chunk = -(-vecs // chunks)
+    fit = max(1, _REDUCE_THREADS // chunk)
+    slots = next((k for k in range(fit, 0, -1) if chunk * k % 32 == 0), fit)
+    threads = chunk * slots
+    can_ring = route != "scalar" and chunks == 1 and threads % 32 == 0
+    if ring and not can_ring:
+        raise ValueError(f"the ring cannot take {route} rows of {c} channels")
+    step = slots * _REDUCE_ROWS
+
+    def plan(per_sm, stage_rows):
+        per_sample = max(1, per_sm * sms // (n * chunks))
+        rows_per_block = max(step, -(-rows // per_sample // step) * step)
+        return ReducePlan(route, vec, row, rows, chunk, chunks, threads,
+                          -(-rows // rows_per_block), rows_per_block, stage_rows)
+
+    walk = plan(_WALK_BLOCKS_PER_SM, 0)
+    if not can_ring or ring is False:
+        return walk
+    stage_rows = _RING_BYTES // (_RING_STAGES * operands * row * esize)
+    stage_rows = stage_rows // slots * slots or max(1, stage_rows)
+    with_ring = plan(_RING_BLOCKS_PER_SM, stage_rows)
+    least = _RING_MIN_STAGES if act == "e" else _RING_MIN_STAGES_CHEAP_ACT
+    if ring or with_ring.rows_per_block >= least * stage_rows:
+        return with_ring
+    return walk
+
+
+def _reduce_fields(plan: ReducePlan) -> tuple:
+    """The reduce plan as the C entries take it (route, blocks, rows per
+    block, threads, chunk, rows a ring stage)."""
+    return (APPLY_ROUTES.index(plan.route), plan.blocks, plan.rows_per_block,
+            plan.threads, plan.chunk, plan.stage_rows)
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -552,23 +651,48 @@ def _backward_inputs(x, dy, mean_c, rstd_c, weight, bias, residual):
     return tuple(_aligned16(t) for t in small)
 
 
-def _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act, fold=True):
-    """One launch of ``gn_bwd_reduce_kernel``: (4, N, C) A, B, coeff_b,
-    coeff_c, or with ``fold`` off (2, N, C) A and B."""
+def reduce_plan(x: torch.Tensor, dy: torch.Tensor,
+                residual: Optional[torch.Tensor] = None, act: Optional[str] = "e",
+                **kw) -> ReducePlan:
+    """``plan_bwd_reduce`` for the reduce's operands and nonlinearity on
+    their card (``kw``: ``ring``)."""
+    n, c = x.shape[:2]
+    ops = (x, dy) if residual is None else (x, dy, residual)
+    return plan_bwd_reduce(n, x.numel() // (n * c), c, x.element_size(),
+                           all(t.data_ptr() % 16 == 0 for t in ops),
+                           torch.cuda.get_device_properties(x.device).multi_processor_count,
+                           len(ops), act=act, **kw)
+
+
+def reduce_info(x: torch.Tensor, num_groups: int, plan: ReducePlan,
+                residual: bool = False) -> Dict[str, int]:
+    """The reduce kernel's instance for ``plan`` on x's card: registers a
+    thread, blocks an SM holds and dynamic shared memory a block."""
+    n, c = x.shape[:2]
+    info = (ctypes.c_int * 3)()
+    fn = _build.kernel("tmt_gn_bwd_reduce_info", _REDUCE_INFO_ARGS)
+    _build.check(fn(_build.DTYPE_CODES[x.dtype], n, x.numel() // (n * c), c, num_groups,
+                    int(residual), *_reduce_fields(plan), ctypes.addressof(info)),
+                 "tmt_gn_bwd_reduce_info")
+    return dict(registers=info[0], blocks_per_sm=info[1], smem_bytes=info[2])
+
+
+def _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act, fold=True, plan=None):
+    """One launch of ``gn_bwd_reduce_kernel`` (``plan``: ``reduce_plan``'s
+    unless given): (4, N, C) A, B, coeff_b, coeff_c, or with ``fold`` off
+    (2, N, C) A and B."""
     global BWD_REDUCE_LAUNCHES
     n, c = x.shape[:2]
     s = x.numel() // (n * c)
     mean_c, rstd_c, gamma, beta = stats
-    plan = plan_moments(n, s, c, x.element_size(), False,
-                        torch.cuda.get_device_properties(x.device).multi_processor_count,
-                        _BWD_BLOCKS_PER_SM)
+    plan = plan or reduce_plan(x, dy, residual, act)
     part = torch.empty((n, plan.blocks, 2, c), dtype=torch.float32, device=x.device)
     coef = torch.empty((4 if fold else 2, n, c), dtype=torch.float32, device=x.device)
     fn = _build.kernel("tmt_gn_bwd_reduce", _BWD_REDUCE_ARGS)
     err = fn(x.data_ptr(), dy.data_ptr(), None if residual is None else residual.data_ptr(),
              _build.DTYPE_CODES[x.dtype], n, s, c, num_groups, mean_c.data_ptr(),
              rstd_c.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ACT_CODES[act],
-             LEAKY_SLOPE, plan.blocks, plan.rows_per_block, part.data_ptr(),
+             LEAKY_SLOPE, *_reduce_fields(plan), part.data_ptr(),
              _tickets(x.device, n, _BWD_TICKETS).data_ptr(), coef.data_ptr(), int(fold),
              _build.stream_of(x))
     _build.check(err, "tmt_gn_bwd_reduce")
