@@ -357,6 +357,12 @@ FIRST_REDUCE_SUMS = {("bf16", 32, 32, 96): 15.457, ("bf16", 4, 64, 96): 4.341}
 FIRST_REDUCE_U3_SUM = 4.583
 FIRST_REDUCE_U3 = {(1, 96): 0.0721}
 FIRST_REDUCE_FOLD_OFF = {"bf16": 0.3921, "fp32": 0.5310}
+# Device ms of K1's moments on the register path (one element a thread and
+# row) at the gcr UNet3D's one-channel input, before its packed route
+# (PERF.md section 6, profiled on an NVIDIA H100 80GB HBM3 at 700 W),
+# printed beside this run's for comparison, never a gate; keyed by
+# (channels, extent) at batch 8, bf16
+REGISTER_MOMENTS_U3 = {(1, 96): 0.0352}
 TINY_SHAPE = (64, 64, 64)
 
 
@@ -640,7 +646,7 @@ def check_gn(torch, gn, dev, gen, levels=LEVELS, batch=BATCH, dtypes=("bf16", "f
             log(f"K1 {dt_name} level {level} {tuple(x.shape)}: moments {t_m:.4f} ms device "
                 f"(profiler kept {kept_m:g}, apply {min(kept_a, kept_ar):g} of the launches; "
                 f"event {t_me:.4f}; plain {t_mp:.4f}, bound {b_m:.4f}, torch.var_mean "
-                f"{t_sl:.4f}), {launches:g} launch per GroupNorm, bulk={plan.bulk} "
+                f"{t_sl:.4f}), {launches:g} launch per GroupNorm, route {plan.route} "
                 f"{plan.blocks} blocks/sample, max|err| {m_err:.3g}, two calls bitwise "
                 f"equal; apply ({route} route) +elu {t_a:.4f} ms device (event {t_ae:.4f}; "
                 f"plain {t_ap:.4f}, "
@@ -3862,7 +3868,7 @@ def check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt_name, reps=5):
         ("gn_bwd_apply", bwd))}
     small = 6 * batch * c * 4 + 2 * c * 4
     out = dict(
-        c=c, groups=groups, extent=e, batch=batch, dtype=dt_name, bulk=plan.bulk,
+        c=c, groups=groups, extent=e, batch=batch, dtype=dt_name, moments_route=plan.route,
         apply_route=route, reduce_route=reduce_route,
         blocks_per_sample=plan.blocks, moments_err=m_err, apply_err=float(
             (y.float() - gn.group_norm_apply_plain(x, stats.mean, stats.mul, b).float())
@@ -3894,9 +3900,12 @@ def check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt_name, reps=5):
     before = GRID_STRIDE_U3_APPLY.get((c, e), (None, None)) \
         if (batch, dt_name) == (U3_BATCH, "bf16") else (None, None)
     first = FIRST_REDUCE_U3.get((c, e)) if (batch, dt_name) == (U3_BATCH, "bf16") else None
-    log(f"{tag}: bulk={plan.bulk} {plan.blocks} blocks/sample, apply route {route}; moments "
-        f"{out['moments_ms']:.4f} ms device (bound {out['moments_bound']:.4f}, plain "
-        f"{out['moments_plain_ms']:.4f}, torch.var_mean {out['moments_library_ms']:.4f}), apply "
+    register = REGISTER_MOMENTS_U3.get((c, e)) if (batch, dt_name) == (U3_BATCH, "bf16") \
+        else None
+    log(f"{tag}: moments route {plan.route} {plan.blocks} blocks/sample, apply route {route}; "
+        f"moments {out['moments_ms']:.4f} ms device (bound {out['moments_bound']:.4f}, plain "
+        f"{out['moments_plain_ms']:.4f}, torch.var_mean {out['moments_library_ms']:.4f}; "
+        f"register path {register or 'not recorded'}), apply "
         f"{out['apply_ms']:.4f} (bound {out['apply_bound']:.4f}, plain "
         f"{out['apply_plain_ms']:.4f}, F.group_norm {out['library_ms']:.4f}), backward reduce "
         f"({reduce_text}) {out['reduce_ms']:.4f} (bound {out['reduce_bound']:.4f}; first "
@@ -3942,6 +3951,12 @@ def u3_gn(torch, gn, dev, gen):
         f"{FIRST_REDUCE_U3_SUM} per step")
     for name, c, groups, e, batch, dt in U3_EXTRA_CASES:
         cases[name] = check_gn_case(torch, gn, dev, gen, c, groups, e, batch, dt)
+    # the one-channel input reads 16-byte vectors of 8 (bf16) or 4 (fp32)
+    # rows in every kernel, the moments included
+    for name in ("c1_e96_bf16", "c1_g1_fp32"):
+        routes = [cases[name][k] for k in ("moments_route", "apply_route", "reduce_route")]
+        if routes != ["packed"] * 3:
+            raise AssertionError(f"K1 {name}: routes {routes}, not packed")
     return dict(per_forward=per, cases=cases, n_gn=n_gn)
 
 
@@ -5849,20 +5864,22 @@ def main(argv) -> int:
                                   profiler_kept=r["kept"], per=per)
         c1 = u3_all["gn"]["cases"]["c1_e96_bf16"]
         c1_route = (c1["apply_route"] if name in ("gn_apply", "gn_bwd_apply")
-                    else c1["reduce_route"] if name == "gn_bwd_reduce" else "register")
+                    else c1["reduce_route"] if name == "gn_bwd_reduce" else c1["moments_route"])
         return dict(unet3d_check=row(u3_all["gn"]["per_forward"], (
                         f"gcr UNet3D bf16 {'train step' if step else 'forward'} of batch "
                         f"{U3_BATCH}, {n_gn} calls")),
                     c1_check=row(c1, f"one call at C = 1 in one group (the gcr input), batch "
                                      f"{U3_BATCH} of 96^3, bf16, the {c1_route} route"))
 
-    def by_shape(ms, bound, lib):
-        """The apply kernel's row per UNet3D shape (U3_GN_SHAPES, then the
-        one-channel-a-group cases)."""
+    def by_shape(ms, bound, lib, route="apply_route", names=None, **extra):
+        """A kernel's row per UNet3D shape (U3_GN_SHAPES, then the
+        one-channel-a-group cases), or per case of ``names``; ``extra``
+        maps more keys of the row to the case's."""
+        cases = u3_all["gn"]["cases"]
         return [dict(shape=f"{r['batch']} x {r['extent']}^3 x {r['c']} {r['dtype']}",
-                     ms=r[ms], bound_ms=r[bound], library_ms=r[lib],
-                     apply_route=r["apply_route"])
-                for r in u3_all["gn"]["cases"].values()]
+                     ms=r[ms], bound_ms=r[bound], library_ms=r[lib], **{route: r[route]},
+                     **{k: r[v] for k, v in extra.items()})
+                for r in (cases[k] for k in (names or cases))]
 
     spk = {dt: sp_all["spatial"]["k1"][dt] for dt in ("bf16", "fp32")}
 
@@ -5889,6 +5906,9 @@ def main(argv) -> int:
              library_ms=b16["moments_library_ms"], profiler_kept=b16["moments_kept"],
              library_call="torch.var_mean (the same moments up to a rescale)",
              per="full-width bf16 forward, 27 calls", **fold_off("moments"),
+             by_shape=by_shape("moments_ms", "moments_bound", "moments_library_ms",
+                               "moments_route", ("c1_e96_bf16", "c1_g1_fp32"),
+                               plain_ms="moments_plain_ms"),
              landmarks_check=dict(ms=l16["moments_ms"], plain_ms=l16["moments_plain_ms"],
                                   bound_ms=l16["moments_bound"],
                                   library_ms=l16["moments_library_ms"],

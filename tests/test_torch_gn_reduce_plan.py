@@ -30,6 +30,8 @@ import pytest
 import torch
 from flax import linen as nn
 
+from test_torch_kernels_cuda import _BWD_CASES, float64_sums
+from test_torch_kernels_cuda import _activation as _card_activation
 from tpu_mednet_torch.ops import groupnorm as gn
 
 CL3D = torch.channels_last_3d
@@ -370,3 +372,39 @@ def test_reduce_plan_refuses_the_ring_where_rows_are_not_one_span():
         gn.plan_bwd_reduce(32, 6**3, 512, 2, True, 132, 2, ring=True)
     with pytest.raises(ValueError, match="ring"):
         gn.plan_bwd_reduce(2, 105, 4, 2, True, 132, 2, ring=True)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("act", _ACTS)
+def test_c1_fp32_dgamma_dbeta_of_both_paths_against_float64(act, residual):
+    """The card case ``c1-packed-many-blocks-fp32`` on the CPU, its seeded
+    inputs alike: (8, 1, 32, 32, 32) fp32 in one group with gamma 0, so dγ
+    is one sum over 8 x 32768 terms that cancel (to -1.227 from a sum of
+    magnitudes of 1.2e5 with ELU and the residual).  The plain path's dγ,
+    dβ (fp32 on this CPU) and the emulated kernel's on its 132-SM plan
+    each lie within 1e-4 x |float64 sum| of the float64 sum of their own
+    fp32 terms (``float64_sums``)."""
+    shape, dtype, offset, groups = _BWD_CASES["c1-packed-many-blocks-fp32"]
+    cpu = torch.device("cpu")
+    x = _card_activation(shape, dtype, cpu, 12, offset)
+    dy = _card_activation(shape, dtype, cpu, 13, offset) - 0.5
+    r = _card_activation(shape, dtype, cpu, 14, offset) - 0.5 if residual else None
+    g = torch.Generator().manual_seed(15)
+    w = torch.rand(1, generator=g) + 0.5
+    w[0] = 0.0
+    b = torch.rand(1, generator=g) - 0.5
+    stats = gn.group_norm_moments_plain(x, groups, w, 1e-5)
+    f64 = float64_sums(x, dy, stats, w, b, groups, r, act)
+    plain = gn.group_norm_backward_plain(x, dy, stats.mean, stats.rstd, w, b, groups, r, act)
+    n, s = shape[0], x.numel() // shape[0]
+    plan = gn.plan_bwd_reduce(n, s, 1, 4, True, 132, 3 if residual else 2, act=act)
+    assert plan.route == "packed" and plan.blocks > 1
+    xm, dz = _terms(x, dy, r, stats.mean, stats.rstd, w, b, act)
+    coef = torch.from_numpy(emulate_reduce(plan, xm, dz, stats.rstd.numpy(), w.numpy(),
+                                           groups, s))
+    for path, got, ref in (("plain", plain.dweight, f64["dgamma_plain"]),
+                           ("plain", plain.dbias, f64["dbeta"]),
+                           ("kernel", coef[1].sum(0), f64["dgamma_kernel"]),
+                           ("kernel", coef[0].sum(0), f64["dbeta"])):
+        err = float((got.double() - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), (path, err, float(ref[0]))

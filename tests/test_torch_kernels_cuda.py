@@ -68,42 +68,55 @@ def test_gn_kernels_match_plain_on_card(cuda_device, dtype):
 
 
 # one shape per route of gn_moments_kernel: (shape, dtype, storage offset,
-# groups, bulk copies expected)
+# groups, route of plan_moments)
 _MOMENT_CASES = {
-    "bulk-bf16": ((2, 64, 6, 10, 12), torch.bfloat16, 0, 8, True),
-    "bulk-fp32-c12": ((2, 12, 5, 6, 7), torch.float32, 0, 4, True),
-    "register-bf16-c12": ((2, 12, 5, 6, 7), torch.bfloat16, 0, 4, False),
-    "register-unaligned": ((2, 32, 4, 5, 6), torch.bfloat16, 1, 8, False),
-    "rows-below-one-block": ((3, 32, 1, 2, 3), torch.float32, 0, 8, True),
-    "one-sample": ((1, 128, 12, 12, 12), torch.bfloat16, 0, 8, True),
-    "many-blocks": ((2, 32, 40, 40, 40), torch.bfloat16, 0, 8, True),
+    "bulk-bf16": ((2, 64, 6, 10, 12), torch.bfloat16, 0, 8, "bulk"),
+    "bulk-fp32-c12": ((2, 12, 5, 6, 7), torch.float32, 0, 4, "bulk"),
+    "register-bf16-c12": ((2, 12, 5, 6, 7), torch.bfloat16, 0, 4, "register"),
+    "register-unaligned": ((2, 32, 4, 5, 6), torch.bfloat16, 1, 8, "register"),
+    "rows-below-one-block": ((3, 32, 1, 2, 3), torch.float32, 0, 8, "bulk"),
+    "one-sample": ((1, 128, 12, 12, 12), torch.bfloat16, 0, 8, "bulk"),
+    "many-blocks": ((2, 32, 40, 40, 40), torch.bfloat16, 0, 8, "bulk"),
     # the landmark model's deepest level (f_maps 64): 1024 channels, 128 a
     # group; fp32 rows of 4096 B fill all 256 consumers, 4 rows a stage
-    "c1024-fp32": ((4, 1024, 6, 6, 6), torch.float32, 0, 8, True),
-    "c1024-bf16": ((4, 1024, 6, 6, 6), torch.bfloat16, 0, 8, True),
-    # UNet3D's input GroupNorm (order gcr): one channel in one group, rows
-    # of 2 or 4 bytes on the register route, every thread on the channel
-    "c1-g1-bf16": ((2, 1, 12, 12, 12), torch.bfloat16, 0, 1, False),
-    "c1-g1-fp32": ((2, 1, 12, 12, 12), torch.float32, 0, 1, False),
-    "c1-g1-many-blocks": ((2, 1, 64, 64, 64), torch.bfloat16, 0, 1, False),
+    "c1024-fp32": ((4, 1024, 6, 6, 6), torch.float32, 0, 8, "bulk"),
+    "c1024-bf16": ((4, 1024, 6, 6, 6), torch.bfloat16, 0, 8, "bulk"),
+    # UNet3D's input GroupNorm (order gcr): one channel in one group, read
+    # as packed 16-byte vectors of 8 (bf16) or 4 (fp32) rows
+    "c1-g1-bf16": ((2, 1, 12, 12, 12), torch.bfloat16, 0, 1, "packed"),
+    "c1-g1-fp32": ((2, 1, 12, 12, 12), torch.float32, 0, 1, "packed"),
+    "c1-g1-many-blocks": ((2, 1, 64, 64, 64), torch.bfloat16, 0, 1, "packed"),
+    "c1-fp32-many-blocks": ((2, 1, 64, 64, 64), torch.float32, 0, 1, "packed"),
+    # the packed route's other channel counts (lane k on channel k % C)
+    "c2-packed-bf16": ((2, 2, 10, 12, 14), torch.bfloat16, 0, 1, "packed"),
+    "c4-packed-bf16": ((2, 4, 10, 12, 14), torch.bfloat16, 0, 2, "packed"),
+    "c2-packed-fp32": ((2, 2, 10, 12, 14), torch.float32, 0, 2, "packed"),
+    # C < V where the packed route refuses: S * C not a multiple of V
+    # (S = 105), an offset base
+    "c2-odd-rows-register-bf16": ((2, 2, 3, 5, 7), torch.bfloat16, 0, 1, "register"),
+    "c1-offset-register-bf16": ((2, 1, 12, 12, 12), torch.bfloat16, 1, 1, "register"),
     # configs/seg_tiny.yaml's 8 channels in 8 groups: one channel a group
-    "c8-g8-bf16": ((2, 8, 10, 12, 14), torch.bfloat16, 0, 8, True),
-    "c8-g8-fp32": ((2, 8, 10, 12, 14), torch.float32, 0, 8, True),
+    "c8-g8-bf16": ((2, 8, 10, 12, 14), torch.bfloat16, 0, 8, "bulk"),
+    "c8-g8-fp32": ((2, 8, 10, 12, 14), torch.float32, 0, 8, "bulk"),
     # UNet3D's deepest concatenation: 768 bf16 channels, 1536-byte rows
-    "c768-concat-bf16": ((2, 768, 6, 6, 6), torch.bfloat16, 0, 8, True),
+    "c768-concat-bf16": ((2, 768, 6, 6, 6), torch.bfloat16, 0, 8, "bulk"),
 }
+
+
+def _moments_route(x):
+    n, c = x.shape[:2]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return gn.plan_moments(n, x.numel() // (n * c), c, x.element_size(),
+                           x.data_ptr() % 16 == 0, sms).route
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(_MOMENT_CASES))
 def test_gn_moments_kernel_matches_plain_on_card(cuda_device, case):
-    shape, dtype, offset, groups, bulk = _MOMENT_CASES[case]
+    shape, dtype, offset, groups, route = _MOMENT_CASES[case]
     x = _activation(shape, dtype, cuda_device, 7, offset)
-    n, c = shape[:2]
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    plan = gn.plan_moments(n, x.numel() // (n * c), c, x.element_size(),
-                           x.data_ptr() % 16 == 0, sms)
-    assert plan.bulk == bulk
+    c = shape[1]
+    assert _moments_route(x) == route
     w = torch.rand(c, generator=torch.Generator().manual_seed(8)).to(cuda_device) + 0.5
     launched = gn.STATS_LAUNCHES
     stats = gn.group_norm_moments(x, groups, w, 1e-5)
@@ -115,7 +128,8 @@ def test_gn_moments_kernel_matches_plain_on_card(cuda_device, case):
 @pytest.mark.cuda
 def test_gn_moments_kernel_is_deterministic(cuda_device):
     """Two calls are bitwise equal, with a call at another N between them,
-    and every sample's ticket is back at 0 after each launch."""
+    and every sample's ticket is back at 0 after each launch: on the bulk
+    route, and on the packed route with the fold on and off."""
     a = _activation((4, 32, 24, 24, 24), torch.bfloat16, cuda_device, 9)
     b = _activation((2, 64, 8, 8, 8), torch.bfloat16, cuda_device, 10)
     w32, w64 = torch.ones(32, device=cuda_device), torch.ones(64, device=cuda_device)
@@ -126,6 +140,17 @@ def test_gn_moments_kernel_is_deterministic(cuda_device):
     for u, v in zip(first, second):
         assert torch.equal(u, v)
     assert int(gn._TICKETS[a.device].abs().sum()) == 0
+    for dtype in (torch.bfloat16, torch.float32):
+        p = _activation((4, 1, 48, 48, 48), dtype, cuda_device, 11)
+        assert _moments_route(p) == "packed"
+        w1 = torch.full((1,), 1.5, device=cuda_device)
+        calls = []
+        for _ in range(2):
+            calls.append((*gn.group_norm_moments(p, 1, w1), gn.group_norm_sums(p)))
+            gn.group_norm_moments(b, 8, w64)
+            assert int(gn._TICKETS[p.device].abs().sum()) == 0
+        for u, v in zip(*calls):
+            assert torch.equal(u, v)
 
 
 # (shape, dtype, groups, storage offset, route of plan_apply): the apply
@@ -253,11 +278,14 @@ def _bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - 8)
 
 
-def assert_grads_close(got, ref, dtype):
-    """GroupNormGrads of the kernels against the plain closed form."""
+def assert_grads_close(got, ref, dtype, held=()):
+    """GroupNormGrads of the kernels against the plain closed form (but
+    the outputs ``held`` to float64 instead)."""
     for name, g, r in zip(got._fields, got, ref):
         if r is None:
             assert g is None, name
+            continue
+        if name in held:
             continue
         g, r = g.float(), r.float()
         scale = float(r.abs().max())
@@ -268,6 +296,54 @@ def assert_grads_close(got, ref, dtype):
         else:
             tol = _bf16_ulp(r) + 1e-5 * scale
         assert bool(((g - r).abs() <= tol).all()), (name, float((g - r).abs().max()), scale)
+
+
+# The cases whose dγ and dβ are held to float64 instead of to the plain
+# path: at the fp32 C = 1 case over many blocks dγ is one sum over 8 x
+# 32768 terms dz * xhat that cancel (with ELU and the residual to -1.227
+# from a sum of magnitudes of 1.2e5), and two fp32 sums in different
+# orders can each lie within 1e-4 x |dγ| of the exact sum yet differ from
+# each other by more.  Every other output and case keeps
+# assert_grads_close's bounds.
+_FLOAT64_CASES = ("c1-packed-many-blocks-fp32",)
+
+
+def hold_to_float64(got, ref, x, dy, stats, w, b, groups, r, act):
+    """dγ and dβ of the kernel and of the plain path, each within 1e-4 x
+    |float64 sum| of the float64 sum of its own fp32 terms (a line each
+    printed: the float64 sum, the conditioning sum |terms| / |sum| and
+    both paths' distances); the names held."""
+    f64 = float64_sums(x, dy, stats, w, b, groups, r, act)
+    for name, kernel64, plain64, mag in (
+            ("dweight", f64["dgamma_kernel"], f64["dgamma_plain"], f64["dgamma_mag"]),
+            ("dbias", f64["dbeta"], f64["dbeta"], f64["dbeta_mag"])):
+        paths = [(path, value.double() - exact, exact)
+                 for path, value, exact in (("kernel", getattr(got, name), kernel64),
+                                            ("plain", getattr(ref, name), plain64))]
+        print(f"{name} act={act} residual={r is not None}: float64 {plain64.tolist()}, "
+              f"conditioning {(mag / plain64.abs()).tolist()}, " + ", ".join(
+                  f"{path} off by {err.tolist()}" for path, err, _ in paths))
+        for path, err, exact in paths:
+            assert bool((err.abs() <= 1e-4 * exact.abs()).all()), (
+                name, path, err.tolist(), exact.tolist())
+    return ("dweight", "dbias")
+
+
+def float64_sums(x, dy, stats, w, b, groups, r, act):
+    """Per channel, in float64 from the fp32 terms each path forms: dγ as
+    the plain path sums it (dz * xhat, xhat = (x - mean) * rstd rounded
+    to fp32) and as the kernel does (rstd * sum dz * (x - mean) per
+    sample), dβ = sum dz, and the sums of magnitudes of dγ's and dβ's
+    terms."""
+    xm, _, dz, _ = gn.backward_terms_plain(x, dy, stats.mean, stats.rstd, w, b, groups, r, act)
+    n, c = stats.rstd.shape
+    dz64 = dz.double()
+    terms = dz64 * (xm * stats.rstd.view(n, c, 1, 1, 1)).double()
+    dims = (0, 2, 3, 4)
+    kernel = ((dz64 * xm.double()).sum(dim=(2, 3, 4)) * stats.rstd.double()).sum(0)
+    return dict(dgamma_plain=terms.sum(dim=dims), dgamma_kernel=kernel,
+                dbeta=dz64.sum(dim=dims), dgamma_mag=terms.abs().sum(dim=dims),
+                dbeta_mag=dz64.abs().sum(dim=dims))
 
 
 # (shape, dtype, storage offset, groups): the routes of both backward
@@ -294,11 +370,11 @@ _BWD_CASES = {
     "c4-odd-rows-bf16": ((2, 4, 3, 5, 7), torch.bfloat16, 0, 4),
     "c1-offset-bf16": ((2, 1, 12, 12, 12), torch.bfloat16, 1, 1),
     "c192-offset-bf16": ((2, 192, 4, 5, 6), torch.bfloat16, 3, 8),
-    # the reduce's routes: C = 1 packed over many blocks (in fp32 in
-    # _RING_CASES: here dγ at C = 1 is one sum over every sample, which
-    # cancels to far below its terms), level 4 of the batch-32 step split
-    # across channel chunks, the ring over many blocks
+    # the reduce's routes: C = 1 packed over many blocks (in fp32 dγ and dβ
+    # held to float64: _FLOAT64_CASES), level 4 of the batch-32
+    # step split across channel chunks, the ring over many blocks
     "c1-packed-many-blocks-bf16": ((8, 1, 32, 32, 32), torch.bfloat16, 0, 1),
+    "c1-packed-many-blocks-fp32": ((8, 1, 32, 32, 32), torch.float32, 0, 1),
     "level4-chunks-bf16": ((32, 512, 6, 6, 6), torch.bfloat16, 0, 8),
     "level4-chunks-fp32": ((8, 512, 6, 6, 6), torch.float32, 0, 8),
     "ring-many-blocks-bf16": ((4, 32, 48, 48, 48), torch.bfloat16, 0, 8),
@@ -307,6 +383,7 @@ _BWD_CASES = {
 _REDUCE_EXPECT = {
     "c1-g1-bf16": dict(route="packed"), "c1-g1-fp32": dict(route="packed"),
     "c1-packed-many-blocks-bf16": dict(route="packed"),
+    "c1-packed-many-blocks-fp32": dict(route="packed"),
     "level4-chunks-bf16": dict(route="vector", chunks=2),
     "level4-chunks-fp32": dict(route="vector", chunks=4),
     "c1-offset-bf16": dict(route="scalar"), "c4-odd-rows-bf16": dict(route="scalar"),
@@ -338,7 +415,9 @@ def test_gn_backward_kernels_match_plain_on_card(cuda_device, case, act, residua
     assert int(gn._BWD_TICKETS[x.device].abs().sum()) == 0
     ref = gn.group_norm_backward_plain(x, dy, stats.mean, stats.rstd, w, b, groups, r, act)
     assert got.dx.is_contiguous(memory_format=CL3D)
-    assert_grads_close(got, ref, dtype)
+    held = hold_to_float64(got, ref, x, dy, stats, w, b, groups, r, act) \
+        if case in _FLOAT64_CASES else ()
+    assert_grads_close(got, ref, dtype, held)
     again = gn.group_norm_backward(x, dy, stats.mean, stats.rstd, w, b, groups, r, act)
     for u, v in zip(got, again):
         assert u is None or torch.equal(u, v)
@@ -526,6 +605,7 @@ def test_gn_fold_off_route_matches_plain_on_card(cuda_device, dtype, level):
     b = (torch.rand(c, generator=g) - 0.5).to(cuda_device)
     spatial = x.numel() // (4 * c)
 
+    assert _moments_route(x) == ("packed" if c == 1 else "bulk")
     launched = gn.STATS_LAUNCHES
     sums = gn.group_norm_sums(x)
     assert gn.STATS_LAUNCHES == launched + 1 and sums.shape == (2, 4, c)

@@ -84,7 +84,7 @@ _LEVEL_PLANS = [((8, 96**3, 32), (33, 26811, 256)), ((8, 48**3, 64), (33, 3352, 
 def test_plan_moments_at_the_main_path_shapes(shape, expected):
     n, s, c = shape
     plan = gn.plan_moments(n, s, c, 2, True, 132)
-    assert plan == gn.MomentsPlan(True, *expected)
+    assert plan == gn.MomentsPlan("bulk", *expected)
     assert plan.stage_rows * c * 2 == gn._STAGE_BYTES
 
 
@@ -98,7 +98,7 @@ def test_plan_moments_at_the_main_path_shapes(shape, expected):
 ])
 def test_plan_moments_routes_and_covers_every_row(n, s, c, esize, aligned, bulk):
     plan = gn.plan_moments(n, s, c, esize, aligned, 132)
-    assert plan.bulk == bulk
+    assert (plan.route == "bulk") == bulk
     assert plan.stage_rows == (gn._STAGE_BYTES // (c * esize) if bulk else 0)
     # every row in exactly one block, no block empty
     assert plan.blocks * plan.rows_per_block >= s > (plan.blocks - 1) * plan.rows_per_block

@@ -34,9 +34,17 @@
 //    keep tens of KB per SM in flight.  Consumer threads each own one
 //    16-byte channel vector and a row slot, read their vectors from shared
 //    memory and accumulate in fp32 registers, then release the stage.  A
-//    shape the bulk copy cannot take (C * esize not a multiple of 16, an
-//    unaligned base) runs the register path, a strided scalar loop over
-//    rows in device memory; the wrapper chooses by shape.
+//    row of C < V channels (C dividing V and S * C, the gcr UNet3D's
+//    one-channel input) takes the packed route: the same ring over the
+//    sample read as S * C / V 16-byte vectors of V / C rows each, every
+//    lane on channel lane % C, V virtual channels to the consumers, and
+//    the lanes folded into channels in the block's partial.  Until then
+//    such a shape took the register path at one element a thread and row,
+//    12 % of its bound at 8 x 96^3 bf16 on an H100 (0.0352 ms against
+//    0.0042).  Any other shape the bulk copy cannot take (an unaligned
+//    base, C * esize not a multiple of 16 and no packed row) runs the
+//    register path, a strided scalar loop over rows in device memory; the
+//    wrapper's planner chooses the route and the C entry checks it.
 //    The block folds its row slots in shared memory in a fixed order and
 //    writes one partial per channel.  The block that draws a sample's last
 //    ticket adds the partials in block order and resets the ticket
@@ -169,6 +177,9 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 
 // -- moments ------------------------------------------------------------------
 
+// must match MOMENTS_ROUTES in ops/groupnorm.py
+enum MomentsRoute : int { kMomentsBulk = 0, kMomentsPacked = 1, kMomentsRegister = 2 };
+
 struct MomentsParams {
   const void* x;         // (N, S, C)
   const float* gamma;    // (C)
@@ -177,7 +188,7 @@ struct MomentsParams {
   float* mean;           // (N, C) out
   float* mul;            // (N, C) out
   float* rstd;           // (N, C) out: the backward needs it where gamma is 0
-  long long s;           // rows per sample
+  long long s;           // rows per sample (the packed route reads S * C / V vectors)
   long long rows_per_block;
   int c, groups, stage_rows;
   float eps;
@@ -240,36 +251,83 @@ __device__ __forceinline__ bool sample_sums(float* red, int row_slots, int c,
   return true;
 }
 
-// blockDim = consumers (+ 32 for the producer warp on the bulk path).
-// Consumer thread t sums channel vector t % vecs over the rows of slot
-// t / vecs; threads past vecs * row_slots only take part in the barriers.
-template <typename T, int V, bool kBulk>
+// The packed route's block partial, before sample_sums: red holds two
+// sums per lane for each of row_slots row slots (slot k's at
+// red[k * V + lane] and red[(row_slots + k) * V + lane]), lane on channel
+// lane % c.  Each of the 2 V columns adds its slots in segments of
+// consecutive slots (consumers / (2 V) segments at once), then the
+// segments in order; then channel ch adds its lanes ch, ch + c, ... in
+// order.  Called by every thread of the block after a __syncthreads; leaves
+// the block's (2, c) partial in red as sample_sums takes one row slot
+// (red[ch], red[c + ch]), and syncs.
+template <int V>
+__device__ __forceinline__ void fold_lanes(float* red, int row_slots, int c, int consumers) {
+  constexpr int cols = 2 * V;
+  const int tid = threadIdx.x;
+  const int segs = max(1, min(consumers / cols, row_slots));
+  const int per = (row_slots + segs - 1) / segs;
+  float a = 0.f;
+  if (tid < cols * segs) {
+    const int col = tid % cols, sg = tid / cols;
+    const float* src = red + (col / V) * row_slots * V + col % V;
+    const int k1 = min(row_slots, (sg + 1) * per);
+    for (int k = sg * per; k < k1; ++k) a += src[k * V];
+  }
+  __syncthreads();
+  if (tid < cols * segs) red[tid] = a;  // segment sums (segs, cols)
+  __syncthreads();
+  float* colsum = red + segs * cols;  // (2, V), past every segment sum and the partial
+  if (tid < cols) {
+    float b = 0.f;
+    for (int sg = 0; sg < segs; ++sg) b += red[sg * cols + tid];
+    colsum[tid] = b;
+  }
+  __syncthreads();
+  if (tid < 2 * c) {
+    const float* lanes = colsum + (tid < c ? 0 : V);
+    float b = 0.f;
+    for (int lane = tid % c; lane < V; lane += c) b += lanes[lane];
+    red[tid] = b;
+  }
+  __syncthreads();
+}
+
+// blockDim = consumers (+ 32 for the producer warp on the bulk and packed
+// routes).  The walk takes rows of `width` elements: a spatial row of C
+// channels (bulk, register), or one 16-byte vector of V / C spatial rows
+// (packed: V virtual channels, lane k on channel k % C).  Consumer thread t
+// sums vector t % vecs of a row over the rows of slot t / vecs; threads
+// past vecs * row_slots only take part in the barriers.
+template <typename T, int V, int kRoute>
 __global__ void gn_moments_kernel(const MomentsParams p) {
+  constexpr bool kBulk = kRoute != kMomentsRegister;  // rows streamed by bulk copies
   extern __shared__ __align__(128) unsigned char smem[];
   const int c = p.c;
+  const int width = kRoute == kMomentsPacked ? V : c;
   const int n = blockIdx.y;
   const int tid = threadIdx.x;
   const int consumers = kBulk ? blockDim.x - 32 : blockDim.x;
-  const int vecs = c / V;
+  const int vecs = width / V;
   const int row_slots = consumers / vecs;
   const int slot = tid / vecs;
   const int cv = tid - slot * vecs;
   const bool active = slot < row_slots;
+  const long long walk_rows = kRoute == kMomentsPacked ? p.s * c / V : p.s;
   const long long row0 = blockIdx.x * p.rows_per_block;
-  const long long row1 = min(row0 + p.rows_per_block, p.s);
+  const long long row1 = min(row0 + p.rows_per_block, walk_rows);
   const T* xs = static_cast<const T*>(p.x) + (long long)n * p.s * c;
 
   float sum[V], sq[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) sum[i] = sq[i] = 0.f;
 
-  float* red;  // 2 * row_slots * c floats, then the fold's 2 * (c + groups)
+  float* red;  // 2 * row_slots * width floats, then the fold's 2 * (c + groups)
   if constexpr (kBulk) {
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);
     uint64_t* empty = full + kStages;
     T* ring = reinterpret_cast<T*>(smem + kBarrierBytes);
     red = reinterpret_cast<float*>(smem + kBarrierBytes);
-    const int stage_elems = p.stage_rows * c;
+    const int stage_elems = p.stage_rows * width;
     const int stages =
         row1 > row0 ? (int)((row1 - row0 + p.stage_rows - 1) / p.stage_rows) : 0;
     if (tid == 0) {
@@ -287,9 +345,9 @@ __global__ void gn_moments_kernel(const MomentsParams p) {
           if (k >= kStages) mbar_wait(&empty[st], ((k / kStages) - 1) & 1);
           const long long r = row0 + (long long)k * p.stage_rows;
           const long long rows = min((long long)p.stage_rows, row1 - r);
-          const uint32_t bytes = (uint32_t)(rows * c * sizeof(T));
+          const uint32_t bytes = (uint32_t)(rows * width * sizeof(T));
           mbar_expect_tx(&full[st], bytes);
-          bulk_load(ring + st * stage_elems, xs + r * c, bytes, &full[st]);
+          bulk_load(ring + st * stage_elems, xs + r * width, bytes, &full[st]);
         }
       }
     } else {
@@ -303,7 +361,7 @@ __global__ void gn_moments_kernel(const MomentsParams p) {
 #pragma unroll 4
           for (int j = slot; j < rows; j += row_slots) {
             float v[V];
-            load_vec<T, V>(buf + j * c, v);
+            load_vec<T, V>(buf + j * width, v);
             accumulate<V>(v, sum, sq);
           }
         }
@@ -326,18 +384,24 @@ __global__ void gn_moments_kernel(const MomentsParams p) {
     }
   }
 
-  // the block's partial: row slots folded in a fixed order, one thread per
-  // (sum or sum of squares, channel)
+  // the block's partial: row slots (on the packed route, then the lanes of
+  // a channel) folded in a fixed order, one thread per (sum or sum of
+  // squares, channel)
   if (active) {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      red[slot * c + cv * V + i] = sum[i];
-      red[(row_slots + slot) * c + cv * V + i] = sq[i];
+      red[slot * width + cv * V + i] = sum[i];
+      red[(row_slots + slot) * width + cv * V + i] = sq[i];
     }
   }
   __syncthreads();
-  if (!sample_sums(red, row_slots, c, p.part, p.tickets)) return;
-  float* tot = red + 2 * row_slots * c;  // (2, c), then mean and rstd per group
+  int slots = row_slots;  // row slots of red after the packed route's fold
+  if constexpr (kRoute == kMomentsPacked) {
+    fold_lanes<V>(red, row_slots, c, consumers);
+    slots = 1;
+  }
+  if (!sample_sums(red, slots, c, p.part, p.tickets)) return;
+  float* tot = red + 2 * slots * c;  // (2, c), then mean and rstd per group
   if (!p.fold) {  // the sums alone, to be added over a slab's ranks and folded
     for (int ch = tid; ch < c; ch += blockDim.x) {
       p.mean[(long long)n * c + ch] = tot[ch];
@@ -372,18 +436,20 @@ __global__ void gn_moments_kernel(const MomentsParams p) {
   }
 }
 
-template <typename T, int V, bool kBulk>
+template <typename T, int V, int kRoute>
 cudaError_t launch_moments(const MomentsParams& p, long long n, int blocks,
                            cudaStream_t stream) {
-  const int vecs = p.c / V;
+  constexpr bool kBulk = kRoute != kMomentsRegister;
+  const int width = kRoute == kMomentsPacked ? V : p.c;
+  const int vecs = width / V;
   const int consumers = vecs <= kConsumers ? kConsumers : (vecs + 31) / 32 * 32;
   const int row_slots = consumers / vecs;
-  size_t smem = 2ull * (row_slots * p.c + p.c + p.groups) * sizeof(float);
+  size_t smem = 2ull * (row_slots * width + p.c + p.groups) * sizeof(float);
   int threads = consumers;
   if constexpr (kBulk) {
-    const size_t ring = (size_t)kStages * p.stage_rows * p.c * sizeof(T);
+    const size_t ring = (size_t)kStages * p.stage_rows * width * sizeof(T);
     if (vecs > kConsumers || p.stage_rows < 1 ||
-        (size_t)p.stage_rows * p.c * sizeof(T) > kMaxStageBytes)
+        (size_t)p.stage_rows * width * sizeof(T) > kMaxStageBytes)
       return cudaErrorInvalidValue;
     smem = kBarrierBytes + std::max(smem, ring);
     threads += 32;
@@ -395,7 +461,7 @@ cudaError_t launch_moments(const MomentsParams& p, long long n, int blocks,
     if (err != cudaSuccess) return err;
     if (dev >= 64) return cudaErrorInvalidDevice;
     if (!attr_set[dev]) {
-      err = cudaFuncSetAttribute(gn_moments_kernel<T, V, kBulk>,
+      err = cudaFuncSetAttribute(gn_moments_kernel<T, V, kRoute>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  kMaxBulkSmem);
       if (err != cudaSuccess) return err;
@@ -404,9 +470,19 @@ cudaError_t launch_moments(const MomentsParams& p, long long n, int blocks,
   }
   if (threads > 1024 || smem > (kBulk ? kMaxBulkSmem : 48 * 1024))
     return cudaErrorInvalidValue;
-  gn_moments_kernel<T, V, kBulk>
+  gn_moments_kernel<T, V, kRoute>
       <<<dim3(blocks, (unsigned)n), threads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The moments instance of one route: V-element vectors on the bulk and
+// packed routes, one element on the register path.
+template <typename T, int V>
+cudaError_t launch_moments_route(const MomentsParams& p, int route, long long n, int blocks,
+                                 cudaStream_t stream) {
+  if (route == kMomentsBulk) return launch_moments<T, V, kMomentsBulk>(p, n, blocks, stream);
+  if (route == kMomentsPacked) return launch_moments<T, V, kMomentsPacked>(p, n, blocks, stream);
+  return launch_moments<T, 1, kMomentsRegister>(p, n, blocks, stream);
 }
 
 __device__ __forceinline__ float activate(float t, int act, float slope) {
@@ -1236,36 +1312,42 @@ cudaError_t launch_bwd_apply(const void* x, const void* dy, const void* residual
 extern "C" {
 
 // Per-(n, c) fp32 mean, mul = rstd * gamma and rstd of x (N, S, C), C
-// channels in `groups` groups, into mean/mul/rstd (N, C).  blocks * rows_per_block >= S rows
-// per sample; part is (N, blocks, 2, C) fp32 scratch and tickets (>= N)
-// int32 zeros, left zero again.  bulk != 0 streams rows with bulk copies in
-// stages of stage_rows rows (x 16-byte aligned, C * esize a multiple of 16).
-// fold == 0 stops at the per-(n, c) fp32 sum and sum of squares, written to
-// mean and mul; gamma, eps and rstd are then unused.
+// channels in `groups` groups, into mean/mul/rstd (N, C).  The launch
+// follows ops/groupnorm.py plan_moments: route 0 (bulk: x 16-byte aligned,
+// C a multiple of V = 16 / esize; rows streamed by bulk copies in stages of
+// stage_rows rows), 1 (packed: x 16-byte aligned, C < V dividing V and
+// S * C; the walk's rows are the S * C / V 16-byte vectors of a sample,
+// stage_rows of them a stage) or 2 (register: any shape); blocks *
+// rows_per_block covers the walk's rows of a sample.  part is
+// (N, blocks, 2, C) fp32 scratch and tickets (>= N) int32 zeros, left zero
+// again.  fold == 0 stops at the per-(n, c) fp32 sum and sum of squares,
+// written to mean and mul; gamma, eps and rstd are then unused.
 int tmt_gn_moments(const void* x, int dtype, long long n, long long s, int c,
                    int groups, const void* gamma, float eps, int blocks,
-                   long long rows_per_block, int bulk, int stage_rows,
+                   long long rows_per_block, int route, int stage_rows,
                    void* part, void* tickets, void* mean, void* mul,
                    void* rstd, int fold, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n < 1 || n > 65535 || c < 1 || groups < 1 || c % groups || blocks < 1 ||
-      (long long)blocks * rows_per_block < s)
+  if (n < 1 || n > 65535 || s < 1 || c < 1 || groups < 1 || c % groups || blocks < 1 ||
+      (dtype != kBF16 && dtype != kF32))
     return cudaErrorInvalidValue;
+  const int wide = dtype == kBF16 ? 8 : 4;  // V
+  long long rows = s;
+  if (route == kMomentsBulk) {
+    if (!aligned16(x) || c % wide) return cudaErrorInvalidValue;
+  } else if (route == kMomentsPacked) {
+    if (!aligned16(x) || c >= wide || wide % c || (s * c) % wide) return cudaErrorInvalidValue;
+    rows = s * c / wide;
+  } else if (route != kMomentsRegister) {
+    return cudaErrorInvalidValue;
+  }
+  if ((long long)blocks * rows_per_block < rows) return cudaErrorInvalidValue;
   MomentsParams p{x, static_cast<const float*>(gamma), static_cast<float*>(part),
                   static_cast<int*>(tickets), static_cast<float*>(mean),
-                  static_cast<float*>(mul), static_cast<float*>(rstd), s,
-                  rows_per_block, c, groups, stage_rows, eps, fold};
-  if (dtype == kBF16) {
-    if (!bulk) return launch_moments<__nv_bfloat16, 1, false>(p, n, blocks, st);
-    if (!aligned16(x) || c % 8) return cudaErrorInvalidValue;
-    return launch_moments<__nv_bfloat16, 8, true>(p, n, blocks, st);
-  }
-  if (dtype == kF32) {
-    if (!bulk) return launch_moments<float, 1, false>(p, n, blocks, st);
-    if (!aligned16(x) || c % 4) return cudaErrorInvalidValue;
-    return launch_moments<float, 4, true>(p, n, blocks, st);
-  }
-  return cudaErrorInvalidValue;
+                  static_cast<float*>(mul), static_cast<float*>(rstd), s, rows_per_block,
+                  c, groups, stage_rows, eps, fold};
+  if (dtype == kBF16) return launch_moments_route<__nv_bfloat16, 8>(p, route, n, blocks, st);
+  return launch_moments_route<float, 4>(p, route, n, blocks, st);
 }
 
 // y = act((x - mean[n,c]) * mul[n,c] + beta[c] (+ residual)), x/residual/y

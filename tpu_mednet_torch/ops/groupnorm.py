@@ -120,6 +120,7 @@ _APPLY_ROWS = 4            # rows a thread loads before it uses the first
 _APPLY_BLOCKS_PER_SM = 32  # grid of many short blocks: the last wave stays short
 _APPLY_MAX_ROWS = 32       # rows a thread takes at most, in steps of _APPLY_ROWS
 APPLY_ROUTES = ("vector", "packed", "scalar")   # csrc/groupnorm.cu ApplyRoute
+MOMENTS_ROUTES = ("bulk", "packed", "register")  # csrc/groupnorm.cu MomentsRoute
 # per device: one int32 ticket per sample, zero between launches; the
 # backward's reduce has its own
 _TICKETS: Dict[torch.device, torch.Tensor] = {}
@@ -195,9 +196,9 @@ def group_norm_moments_plain(x: torch.Tensor, num_groups: int,
 class MomentsPlan(NamedTuple):
     """How ``gn_moments_kernel`` is launched for one activation shape."""
 
-    bulk: bool            # rows streamed by bulk copies (else the register path)
+    route: str            # "bulk", "packed" or "register" (MOMENTS_ROUTES)
     blocks: int           # blocks per sample
-    rows_per_block: int
+    rows_per_block: int   # rows of the walk: spatial rows, or 16-byte vectors (packed)
     stage_rows: int       # rows per bulk-copy stage (0 on the register path)
 
 
@@ -205,19 +206,30 @@ def plan_moments(n: int, s: int, c: int, esize: int, aligned: bool,
                  sms: int) -> MomentsPlan:
     """Launch plan for N samples of S rows of C channels of ``esize`` bytes.
 
-    Bulk copies need a 16-byte aligned base (``aligned``) and rows of a
-    multiple of 16 bytes, and each consumer thread owns one 16-byte vector
-    of a row.  The grid aims at ``_BLOCKS_PER_SM`` blocks per SM over all
-    samples, but never below ``_MIN_BLOCK_BYTES`` of input per block.
+    Bulk copies need a 16-byte aligned base (``aligned``).  The bulk route
+    takes rows of a multiple of 16 bytes, each consumer thread owning one
+    16-byte vector of a row; the packed route, for C < V = 16 / esize
+    dividing V and S * C (``_walk_route``'s packed rows), reads a sample as
+    S * C / V vectors, one row each, lane k on channel k % C.  Any other
+    shape takes the register path.  The grid aims at ``_BLOCKS_PER_SM``
+    blocks per SM over all samples, but never below ``_MIN_BLOCK_BYTES`` of
+    input per block.
     """
-    row_bytes = c * esize
-    bulk = aligned and row_bytes % 16 == 0 and row_bytes // 16 <= _CONSUMERS
+    walk, _, row = _walk_route(s, c, esize, aligned)
+    if walk == "vector" and c * esize // 16 <= _CONSUMERS:
+        route = "bulk"
+    elif walk == "packed":
+        route = "packed"
+    else:
+        route, row = "register", c
+    rows = s * c // row
+    row_bytes = row * esize
     per_sample = max(1, min(-(-_BLOCKS_PER_SM * sms // n),
-                            -(-s * row_bytes // _MIN_BLOCK_BYTES)))
-    rows_per_block = max(1, -(-s // per_sample))
-    blocks = max(1, -(-s // rows_per_block))
-    return MomentsPlan(bulk, blocks, rows_per_block,
-                       _STAGE_BYTES // row_bytes if bulk else 0)
+                            -(-rows * row_bytes // _MIN_BLOCK_BYTES)))
+    rows_per_block = max(1, -(-rows // per_sample))
+    blocks = max(1, -(-rows // rows_per_block))
+    return MomentsPlan(route, blocks, rows_per_block,
+                       0 if route == "register" else _STAGE_BYTES // row_bytes)
 
 
 def _tickets(device: torch.device, n: int, pool=_TICKETS) -> torch.Tensor:
@@ -253,8 +265,9 @@ def _group_norm_moments_cuda(x, num_groups, weight, eps, fold=True):
         fn = _build.kernel("tmt_gn_moments", _MOMENTS_ARGS)
         err = fn(x.data_ptr(), _build.DTYPE_CODES[x.dtype], n, s, c, num_groups,
                  None if gamma is None else gamma.data_ptr(), eps, plan.blocks,
-                 plan.rows_per_block, int(plan.bulk), plan.stage_rows, part.data_ptr(),
-                 _tickets(x.device, n).data_ptr(), *ptrs, int(fold), _build.stream_of(x))
+                 plan.rows_per_block, MOMENTS_ROUTES.index(plan.route), plan.stage_rows,
+                 part.data_ptr(), _tickets(x.device, n).data_ptr(), *ptrs, int(fold),
+                 _build.stream_of(x))
         _build.check(err, "tmt_gn_moments")
         STATS_LAUNCHES += 1
     elif not fold:
