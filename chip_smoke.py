@@ -3652,7 +3652,8 @@ def profile_hook(torch, gn, dev, root):
     events = json.loads(files[0].read_text())["traceEvents"]
     names = {e.get("name", "") for e in events}
     kernels = sorted(n for n in names if "gn_moments" in n or "gn_apply" in n)
-    steps = sum(e.get("name") == "train_step" for e in events if e.get("ph") == "X")
+    steps = sum(e.get("name") == "tpu_mednet_torch.train.step" for e in events
+                if e.get("ph") == "X")
     log(f"deploy: profiler hook: {files[0].name} ({files[0].stat().st_size / 2**20:.1f} MiB, "
         f"{len(events)} events, {steps} train_step spans) names K1 as {kernels}; "
         f"losses unprofiled {plain}, profiled {profiled}")
@@ -5089,6 +5090,21 @@ SP_VOLUME = (192, 176, 144)
 # backward; each GroupNorm adds its sums over the row once in each pass
 SP_EXCHANGES_PER_STEP = 2 * (27 + 4) - 1
 SP_SPACE_SUMS_PER_STEP = 2 * 27
+# halo exchanges a spatial rank posted and their host seconds (count_halo_posts)
+HALO_POSTS = [0, 0.0]
+
+
+def count_halo_posts(halo) -> None:
+    """Count and time, in ``HALO_POSTS``, every exchange this rank posts
+    (``halo._post``, called once an exchange that moves rows)."""
+    orig = halo._post
+
+    def post(*args):
+        t0 = time.perf_counter()
+        orig(*args)
+        HALO_POSTS[0] += 1
+        HALO_POSTS[1] += time.perf_counter() - t0
+    halo._post = post
 
 
 def sp_gn(torch, gn, dev, gen):
@@ -5212,7 +5228,6 @@ def sp_train(torch, gn, P, dev, mesh, batches, dtype, *, f_maps=32, num_levels=5
     ``timed``, ms a step and the exchanges, space sums and K1/K2 launches
     of each step."""
     from tpu_mednet_torch.ops.augment import AugmentConfig
-    from tpu_mednet_torch.parallel import halo
     from tpu_mednet_torch.parallel.mesh import DataMesh
     from tpu_mednet_torch.tasks import SegmentationTask
     from tpu_mednet_torch.train import OptimizerConfig, create_train_state, make_train_step
@@ -5236,7 +5251,7 @@ def sp_train(torch, gn, P, dev, mesh, batches, dtype, *, f_maps=32, num_levels=5
             rows = mesh.rows(batch["data"].shape[0]) if mesh is not None else slice(None)
             local = {k: v[rows] for k, v in batch.items()}
             torch.cuda.synchronize()
-            before = (launch_counts(gn, P), halo.EXCHANGES, sums[0], halo.SECONDS)
+            before = (launch_counts(gn, P), HALO_POSTS[0], sums[0], HALO_POSTS[1])
             t0 = time.perf_counter()
             state, m = step(state, local)
             losses.append(float(m["train_loss"]))  # waits for the step
@@ -5245,9 +5260,9 @@ def sp_train(torch, gn, P, dev, mesh, batches, dtype, *, f_maps=32, num_levels=5
             if counts is not None:
                 add_counts(counts, before[0], after)
             per_step.append(dict(launches={k: after[k] - before[0][k] for k in after},
-                                 exchanges=halo.EXCHANGES - before[1],
+                                 exchanges=HALO_POSTS[0] - before[1],
                                  space_sums=sums[0] - before[2],
-                                 exchange_s=halo.SECONDS - before[3]))
+                                 exchange_s=HALO_POSTS[1] - before[3]))
     out = dict(losses=losses, state={k: v.detach().cpu() for k, v in model.state_dict().items()},
                per_step=per_step, step_ms=step_ms[-timed:] if timed else step_ms)
     del model, state, step
@@ -5337,6 +5352,7 @@ def sp_rank(torch, gn, P, dev, out_dir: Path, n_space: int) -> None:
         raise AssertionError("spatial rank: no process group to join")
     world = torch.distributed.get_world_size()
     mesh = make_mesh(dev, devices=[dev] * world, n_space=n_space)
+    count_halo_posts(halo)
     reset_counts(gn, P)
     counts = dict.fromkeys(launch_counts(gn, P), 0)
     out = {}
@@ -5370,7 +5386,7 @@ def sp_rank(torch, gn, P, dev, out_dir: Path, n_space: int) -> None:
                                  f_maps=SP_SMALL["f_maps"], num_levels=SP_SMALL["num_levels"],
                                  counts=counts)
     out["launches"] = counts
-    out["exchange_s"] = halo.SECONDS
+    out["exchange_s"] = HALO_POSTS[1]
     torch.save(out, out_dir / f"rank{mesh.rank}.pt")
     torch.distributed.destroy_process_group()
 

@@ -41,7 +41,8 @@ def test_port_imports_no_jax_and_no_tpu_mednet():
                "tpu_mednet_torch.models.unet", "tpu_mednet_torch.utils.weights",
                "tpu_mednet_torch.utils.plots", "tpu_mednet_torch.utils.neptune_logger",
                "tpu_mednet_torch.cli.visualize", "tpu_mednet_torch.parallel",
-               "tpu_mednet_torch.parallel.mesh", "tpu_mednet_torch.parallel.multihost"}
+               "tpu_mednet_torch.parallel.mesh", "tpu_mednet_torch.parallel.multihost",
+               "tpu_mednet_torch.utils.tracing"}
         print(len(names), banned, sorted(new - set(names)))
         sys.exit(1 if banned or new - set(names) else 0)
     """)

@@ -1,9 +1,9 @@
 """The Trainer's profiler hook (``profile_dir``, ``profile_steps``), on the CPU.
 
 The counterpart of the JAX Trainer's ``jax.profiler`` window: steps 1 to
-``profile_steps`` of epoch 0 are traced with ``torch.profiler``, each
-under ``record_function("train_step")``, into one Chrome trace under
-``profile_dir``.  Held here: the trace holds those steps and K1's
+``profile_steps`` of epoch 0 are traced with ``torch.profiler`` into one
+Chrome trace under ``profile_dir``, each step under the program's own span
+(``utils/tracing.py``: ``tpu_mednet_torch.train.step`` in the trace).  Held here: the trace holds those steps and K1's
 autograd Function by name, nothing is written without ``profile_dir``, a window the
 epoch cuts short is closed at its end, and the step losses are the
 unprofiled run's, bit for bit.
@@ -19,6 +19,9 @@ from tests.test_torch_native_loader import build_sampler
 from tpu_mednet_torch.models import ResidualUNet3D
 from tpu_mednet_torch.tasks import SegmentationTask
 from tpu_mednet_torch.train import Trainer
+from tpu_mednet_torch.utils import tracing
+
+STEP_SPAN = tracing.PREFIX + "train.step"
 
 
 def _fit(profile_dir=None, profile_steps=5, limit=4):
@@ -53,7 +56,7 @@ def test_profile_window_traces_steps_and_keeps_losses(tmp_path):
     (trace,) = (tmp_path / "prof").iterdir()
     assert trace.name == "train_steps_1-2.pt.trace.json"
     names = _trace_names(trace)
-    assert names.count("train_step") == 2  # steps 1 and 2, not 0 or 3
+    assert names.count(STEP_SPAN) == 2  # steps 1 and 2, not 0 or 3
     # K1 under autograd, forward and backward (on the card the trace also
     # names its kernels)
     assert "GroupNormFunction" in names and "GroupNormFunctionBackward" in names
@@ -76,5 +79,5 @@ def test_profile_window_closed_at_epoch_end(tmp_path, caplog):
     assert "profile trace closed at epoch end after 3 steps" in caplog.text
     (trace,) = (tmp_path / "prof").iterdir()
     assert trace.name == "train_steps_1-2.pt.trace.json"
-    assert _trace_names(trace).count("train_step") == 2
+    assert _trace_names(trace).count(STEP_SPAN) == 2
     assert np.isfinite(_fit(limit=3)).all()

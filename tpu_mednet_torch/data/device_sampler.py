@@ -19,6 +19,10 @@ window's Gaussians are rendered on the device (``ops/heatmap.py``), cast
 to uint8 by truncation as the JAX package's ``astype`` does, and put
 before the class map.  Corners are drawn against each subject's true
 shape, so a patch never reads padding.
+
+While a profiler records, each batch is traced (``utils/tracing.py``):
+``sampler.batch``, with ``sampler.draw`` (the host's draws) and, with
+landmarks, ``sampler.render`` inside it.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from tpu_mednet_torch.data.readers import DataReader, open_reader
 from tpu_mednet_torch.data.sampling import get_labeled_position, get_random_patch_indices
 from tpu_mednet_torch.ops import patches
 from tpu_mednet_torch.ops.heatmap import batched_gaussian_heatmaps
+from tpu_mednet_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -174,7 +179,9 @@ class DevicePatchSampler:
         data, label = patches.extract_patches_stores((self.images, self.labels), corners,
                                                      self.patch_size, subj)
         if self.landmarks is not None:
-            label = torch.cat([self._render(subj, corners), label], dim=-1)
+            with tracing.span("sampler.render"):
+                heatmaps = self._render(subj, corners)
+            label = torch.cat([heatmaps, label], dim=-1)
         return {"data": data.permute(0, 4, 1, 2, 3), "label": label.permute(0, 4, 1, 2, 3)}
 
     def _render(self, subj: np.ndarray, corners: np.ndarray) -> torch.Tensor:
@@ -207,7 +214,11 @@ class DevicePatchSampler:
         if shuffle:
             items = self.rng.permutation(items)
         for start in range(0, len(items) - batch_size + 1, batch_size):
-            subj, corners = self.sample_indices(batch_size, subj=items[start:start + batch_size])
-            if rows is not None:
-                subj, corners = subj[rows], corners[rows]
-            yield self.gather(subj, corners)
+            with tracing.span("sampler.batch"):  # closed before the batch is handed on
+                with tracing.span("sampler.draw"):
+                    subj, corners = self.sample_indices(batch_size,
+                                                        subj=items[start:start + batch_size])
+                if rows is not None:
+                    subj, corners = subj[rows], corners[rows]
+                batch = self.gather(subj, corners)
+            yield batch

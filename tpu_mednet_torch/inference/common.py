@@ -17,6 +17,7 @@ device holding its own copy of the weights, placed once and reused.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from itertools import chain, combinations, count
@@ -28,6 +29,7 @@ import torch
 from tpu_mednet_torch._device import DeviceLike, resolve_device
 from tpu_mednet_torch.data.readers import DataReader, open_reader
 from tpu_mednet_torch.data.stores import VolumeGroup
+from tpu_mednet_torch.utils import tracing
 from tpu_mednet_torch.utils.memory import check_stitch_budget, param_bytes
 
 
@@ -253,38 +255,52 @@ def predict_on_device(
     volume ``i`` runs whole on ``devices[i % n]`` with that device's copy
     of the weights, so the results equal one device's.  The volumes the
     guard turned away go to ``spill(keys, reader, device)``, a host stitch
-    on ``device``.  An owned reader is closed either way.
+    on ``device``.  An owned reader is closed either way.  While a profiler
+    records, the call is traced (``utils/tracing.py``): ``serve.call``,
+    ``serve.prepare``, and per volume ``serve.upload``, ``serve.launch``,
+    ``serve.wait`` (a stream synchronisation, the wait the blocking copy back
+    would make) and ``serve.copy_back``.
     """
-    dev = resolve_device(device)
-    check_model_device(task, dev)
-    placement = round_robin_placement(task, devices)
-    runs = ([(d, make_predictor(t)) for d, t in zip(placement.devices, placement.tasks)]
-            if placement is not None else [(dev, make_predictor(task))])
-    for t in placement.tasks if placement is not None else (task,):
-        t.model.eval()  # BatchNorm on its running statistics
-    out_c = getattr(task, "num_heatmaps", 0) + 1
-    owns = reader is None
-    r = reader if reader is not None else open_reader(data_path, reader_cls)
-    try:
-        shapes = r.get_data_shape(subject_keys, image_group)
-        affines = r.get_data_attribute(subject_keys, image_group, "affine")
-        fit_keys, spill_keys = budget_split(
-            task, shapes, subject_keys, patch_size, patch_overlap, batch_size, stitch,
-            tta_flips, hbm_guard, hbm_budget, dev)
-        volumes = list(r.read(fit_keys, image_group, dtype=np.float16))
-        results = VolumeGroup()
+    with tracing.span("serve.call"), contextlib.ExitStack() as owned:
+        with tracing.span("serve.prepare"):
+            dev = resolve_device(device)
+            check_model_device(task, dev)
+            placement = round_robin_placement(task, devices)
+            runs = ([(d, make_predictor(t)) for d, t in zip(placement.devices, placement.tasks)]
+                    if placement is not None else [(dev, make_predictor(task))])
+            for t in placement.tasks if placement is not None else (task,):
+                t.model.eval()  # BatchNorm on its running statistics
+            out_c = getattr(task, "num_heatmaps", 0) + 1
+            r = reader if reader is not None else owned.enter_context(
+                contextlib.closing(open_reader(data_path, reader_cls)))
+            shapes = r.get_data_shape(subject_keys, image_group)
+            affines = r.get_data_attribute(subject_keys, image_group, "affine")
+            fit_keys, spill_keys = budget_split(
+                task, shapes, subject_keys, patch_size, patch_overlap, batch_size, stitch,
+                tta_flips, hbm_guard, hbm_budget, dev)
+            volumes = list(r.read(fit_keys, image_group, dtype=np.float16))
+            results = VolumeGroup()
 
         def dispatch(i, key, vol):
-            corners, n_tiles, pads = tile_plan(vol.shape[1:], patch_size, patch_overlap,
-                                               batch_size)
             on, predictor = runs[i % len(runs)]
-            return key, vol.shape[1:], predictor(upload_volume(vol, on), corners, n_tiles,
-                                                 pads)
+            with tracing.span("serve.upload", request=i):
+                # popped into the call, so that the predictor alone holds the
+                # unpadded volume and frees it once it has padded it
+                staged = [upload_volume(vol, on)]
+            with tracing.span("serve.launch", request=i):
+                corners, n_tiles, pads = tile_plan(vol.shape[1:], patch_size, patch_overlap,
+                                                   batch_size)
+                return i, key, vol.shape[1:], predictor(staged.pop(), corners, n_tiles, pads)
 
-        def finalize(key, img_size, out):
-            ds = results.require_dataset(key, (out_c, *img_size), np.uint8)
-            ds[:] = out.cpu().numpy()
-            ds.attrs["affine"] = np.asarray(affines[key]).tolist()
+        def finalize(i, key, img_size, out):
+            with tracing.span("serve.wait", request=i):
+                if out.is_cuda and tracing.enabled():
+                    # the wait the blocking copy below would make, timed apart from it
+                    torch.cuda.current_stream(out.device).synchronize()
+            with tracing.span("serve.copy_back", request=i):
+                ds = results.require_dataset(key, (out_c, *img_size), np.uint8)
+                ds[:] = out.cpu().numpy()
+                ds.attrs["affine"] = np.asarray(affines[key]).tolist()
 
         with torch.inference_mode():
             run_pipelined(zip(count(), fit_keys, volumes), dispatch, finalize)
@@ -293,7 +309,4 @@ def predict_on_device(
             dst = results.require_dataset(key, ds.array.shape, ds.array.dtype)
             dst[:] = ds.array
             dst.attrs.update(ds.attrs)
-    finally:
-        if owns:
-            r.close()
     return results

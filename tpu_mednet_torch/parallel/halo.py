@@ -10,7 +10,8 @@ port sends them point to point: NCCL's ``batch_isend_irecv`` for CUDA
 tensors on an NCCL group; on a gloo group, whose ``send``/``recv`` take CPU
 tensors only, CUDA rows are staged through pinned host buffers.  Every
 send and receive of an exchange is posted before any is waited for, so a
-ring cannot deadlock.
+ring cannot deadlock.  While a profiler records, each exchange is a span,
+``sp.halo_exchange`` (``utils/tracing.py``).
 
 - ``halo_exchange``: a slab padded with ``halo`` rows of its neighbours
   on each side (zeros beyond the volume's two ends), differentiable: the
@@ -32,16 +33,12 @@ reach past the next rank's slab, rows then coming from further ranks.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from tpu_mednet_torch.parallel.mesh import DataMesh, SlabPlan
-
-# counters: +1 a forward or backward exchange that moved rows between ranks
-EXCHANGES = 0
-SECONDS = 0.0          # host wall time inside those exchanges (their waits included)
+from tpu_mednet_torch.utils import tracing
 
 Halo = Union[int, Tuple[int, int]]
 
@@ -127,13 +124,12 @@ def _post(mesh: DataMesh, sends, recvs) -> None:
         w.copy_(buf, non_blocking=buf.is_pinned())
 
 
-def _timed_post(mesh: DataMesh, sends, recvs) -> None:
-    global EXCHANGES, SECONDS
+def _exchange(mesh: DataMesh, sends, recvs) -> None:
+    """Post one forward or backward exchange that moves rows between ranks
+    (traced as ``sp.halo_exchange``, its waits included)."""
     if sends or recvs:
-        t0 = time.perf_counter()
-        _post(mesh, sends, recvs)
-        EXCHANGES += 1
-        SECONDS += time.perf_counter() - t0
+        with tracing.span("sp.halo_exchange"):
+            _post(mesh, sends, recvs)
 
 
 def _gather(x: torch.Tensor, mesh: DataMesh, plan, dim: int) -> torch.Tensor:
@@ -160,7 +156,7 @@ def _gather(x: torch.Tensor, mesh: DataMesh, plan, dim: int) -> torch.Tensor:
             sends.append((dst, tag, x.narrow(dim, a, n)))
         elif dst == me:
             recvs.append((src, tag, out.narrow(dim, p, n)))
-    _timed_post(mesh, sends, recvs)
+    _exchange(mesh, sends, recvs)
     return out
 
 
@@ -182,7 +178,7 @@ def _scatter_add(g: torch.Tensor, mesh: DataMesh, plan, dim: int, shape) -> torc
                           g.device, fmt)
             recvs.append((dst, tag, buf))
             adds.append((a, n, buf))
-    _timed_post(mesh, sends, recvs)
+    _exchange(mesh, sends, recvs)
     for a, n, buf in adds:
         grad.narrow(dim, a, n).add_(buf)
     return grad

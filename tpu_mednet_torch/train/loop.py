@@ -16,9 +16,10 @@ plain loop around the port's train and eval steps with
 - early stopping, the plateau schedule, the non-finite policies, and
   JSONL/TensorBoard scalars under the reference's names;
 - the profiler hook: with ``profile_dir``, steps 1 to ``profile_steps`` of
-  epoch 0 are traced with ``torch.profiler`` (CPU and CUDA), each under
-  ``record_function("train_step")``, into a Chrome trace under
-  ``profile_dir`` (no CLI flag sets it, as in the JAX package);
+  epoch 0 are traced with ``torch.profiler`` (CPU and CUDA) into a Chrome
+  trace under ``profile_dir`` (no CLI flag sets it, as in the JAX
+  package), which holds the program's spans (``utils/tracing.py``: each
+  step's ``train.step`` and its phases, the device sampler's batches);
 - the MIP sample visualizer (``utils/plots.py``), called on every
   ``log_interval``-th validation batch, and extra metric sinks (Neptune);
 - data parallelism over a ``parallel.mesh.DataMesh``: ``batch_size`` is
@@ -42,7 +43,6 @@ epoch.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import signal
@@ -420,9 +420,7 @@ class Trainer:
                 if self.profile_dir and epoch == 0 and n_batches == 1:
                     self._start_profile()  # skip step 0 (first calls), trace steady steps
                 arrays = {"data": batch["data"], "label": batch["label"]}
-                with (torch.profiler.record_function("train_step") if self._profiler is not None
-                      else contextlib.nullcontext()):
-                    self.state, metrics = self.train_step(self.state, arrays)
+                self.state, metrics = self.train_step(self.state, arrays)
                 if self.nonfinite != "off":
                     nf = metrics["nonfinite"]
                     nonfinite_acc = nf if nonfinite_acc is None else nonfinite_acc + nf

@@ -7,7 +7,9 @@ on the device (the spatial transform and mirror flips move the label),
 forward, loss, ``backward`` (through K1's backward kernels), then the
 update of ``train/optim.py``: accumulation, clipping, the schedule's LR,
 the ``torch.optim`` step and the EMA.  The metrics stay device tensors, so the default step waits for
-nothing.
+nothing.  While a profiler records, a step is traced (``utils/tracing.py``):
+``train.step``, with ``train.augment``, ``train.forward_backward`` and
+``train.update`` inside it.
 
 ``guard_nonfinite`` is the one exception: JAX gates the update inside the
 jit with ``lax.cond``; the port computes the same finite flag on the
@@ -49,6 +51,7 @@ from tpu_mednet_torch.ops.augment import (AugmentConfig, apply_augmentations,
                                           draw_augmentations, draw_rows)
 from tpu_mednet_torch.train.optim import clip_by_global_norm_, global_norm
 from tpu_mednet_torch.train.state import TrainState
+from tpu_mednet_torch.utils import tracing
 
 Batch = Dict[str, torch.Tensor]
 
@@ -145,48 +148,52 @@ def make_train_step(task, augment: Optional[AugmentConfig] = None,
     space, slab = space_slabber(task.model, mesh)
 
     def step(state: TrainState, batch: Batch):
-        if ema_decay and state.ema is None:
-            raise ValueError("ema_decay is set but the train state holds no EMA: "
-                             "create it from an OptimizerConfig with ema_decay")
-        model = state.model
-        model.train()
-        data = batch["data"].to(model.config.dtype)
-        label = batch["label"]
-        if augment is not None:
-            draws = None
-            if dp is not None:
-                n = data.shape[0]
-                draws = draw_rows(draw_augmentations(augment, (n * dp.n_data,
-                                                               *data.shape[1:]),
-                                                     state.generator),
-                                  dp.rows(n * dp.n_data))
-            data, label = apply_augmentations(data, augment, state.generator, label=label,
-                                              draws=draws)
-        data, label = slab(data, label)
-        stats = batch_stat_buffers(model) if guard_nonfinite else []
-        saved = [t.clone() for t in stats]
-        set_batch_norm_mesh(model, dp)
-        with space_axis(model, space):  # through the backward: remat runs the stages again
-            outputs = model(data)
-            loss, aux = task.loss_fn(outputs, {"data": data, "label": label}, dp=dp)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        if dp is not None:
-            dp.average_gradients([p.grad for p in state.params])
-        loss = loss.detach()
-        metrics = {"train_loss": loss, **{k: v.detach() for k, v in aux.items()}}
-        norm = None
-        if track_grad_norm:
-            norm = metrics["grad_norm"] = global_norm([p.grad for p in state.params])
-        if guard_nonfinite:
-            finite = all_finite(loss, [p.grad for p in state.params])
-            metrics["nonfinite"] = (~finite).float()
-            if not bool(finite):  # the guard's host read
-                if stats:
-                    torch._foreach_copy_(stats, saved)
-                return state, metrics
-        apply_gradients(state, ema_decay, norm)
-        return state, metrics
+        with tracing.span("train.step"):
+            if ema_decay and state.ema is None:
+                raise ValueError("ema_decay is set but the train state holds no EMA: "
+                                 "create it from an OptimizerConfig with ema_decay")
+            model = state.model
+            model.train()
+            with tracing.span("train.augment"):
+                data = batch["data"].to(model.config.dtype)
+                label = batch["label"]
+                if augment is not None:
+                    draws = None
+                    if dp is not None:
+                        n = data.shape[0]
+                        draws = draw_rows(draw_augmentations(augment, (n * dp.n_data,
+                                                                       *data.shape[1:]),
+                                                             state.generator),
+                                          dp.rows(n * dp.n_data))
+                    data, label = apply_augmentations(data, augment, state.generator,
+                                                      label=label, draws=draws)
+                data, label = slab(data, label)
+            with tracing.span("train.forward_backward"):
+                stats = batch_stat_buffers(model) if guard_nonfinite else []
+                saved = [t.clone() for t in stats]
+                set_batch_norm_mesh(model, dp)
+                with space_axis(model, space):  # through the backward: remat runs the stages again
+                    outputs = model(data)
+                    loss, aux = task.loss_fn(outputs, {"data": data, "label": label}, dp=dp)
+                    state.optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                if dp is not None:
+                    dp.average_gradients([p.grad for p in state.params])
+                loss = loss.detach()
+                metrics = {"train_loss": loss, **{k: v.detach() for k, v in aux.items()}}
+            with tracing.span("train.update"):
+                norm = None
+                if track_grad_norm:
+                    norm = metrics["grad_norm"] = global_norm([p.grad for p in state.params])
+                if guard_nonfinite:
+                    finite = all_finite(loss, [p.grad for p in state.params])
+                    metrics["nonfinite"] = (~finite).float()
+                    if not bool(finite):  # the guard's host read
+                        if stats:
+                            torch._foreach_copy_(stats, saved)
+                        return state, metrics
+                apply_gradients(state, ema_decay, norm)
+            return state, metrics
 
     return step
 
