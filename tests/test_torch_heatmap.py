@@ -63,6 +63,20 @@ def test_batched_gaussian_heatmaps_match_jax():
         heatmap.gaussian_heatmap(torch.zeros(2, 4, 3), SHAPE, 1.0)
 
 
+@pytest.mark.parametrize("sigma", [4.0, [1.5, 2.0, 3.0, 2.5]])
+def test_heatmaps_from_a_sigma_tensor_equal_those_from_floats(sigma):
+    """The device sampler hands σ over as an fp32 tensor made once: the
+    heatmaps are those of the float or the list, bit for bit."""
+    rng = np.random.default_rng(3)
+    coords = torch.from_numpy(rng.uniform(-4, 16, size=(3, 4, 3)).astype(np.float32))
+    coords[1, 2] = -5000.0
+    want = heatmap.batched_gaussian_heatmaps(coords, SHAPE, sigma)
+    got = heatmap.batched_gaussian_heatmaps(coords, SHAPE,
+                                            torch.tensor(sigma, dtype=torch.float32))
+    assert want.any()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.parametrize("ties", [False, True])
 def test_heatmap_argmax_coords_match_jax(ties):
     rng = np.random.default_rng(1)

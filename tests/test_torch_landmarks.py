@@ -57,8 +57,9 @@ from tpu_mednet_torch import config
 from tpu_mednet_torch.cli import train_ldmks
 from tpu_mednet_torch.data import DevicePatchSampler, MemoryReader, PatchSampler
 from tpu_mednet_torch.models import ResidualUNet3D
-from tpu_mednet_torch.ops.heatmap import heatmap_argmax_coords
-from tpu_mednet_torch.tasks import LandmarkTask
+from tpu_mednet_torch.ops import losses as L
+from tpu_mednet_torch.ops.heatmap import batched_gaussian_heatmaps, heatmap_argmax_coords
+from tpu_mednet_torch.tasks import LandmarkTask, SegmentationTask
 from tpu_mednet_torch.train import (OptimizerConfig, Trainer, create_train_state,
                                     make_predict_step, make_train_step)
 from tpu_mednet_torch.utils.weights import load_jax_params, state_dict_from_jax
@@ -295,6 +296,104 @@ def test_device_sampler_with_a_landmark_group_matches_jax():
         pre_cast = np.asarray(jax_heatmaps(jnp.asarray(local), PATCH, SIGMA))
         _assert_heatmaps_close(label[..., :3], want_label[..., :3], pre_cast)
     assert label[..., :3].max() > 0
+
+
+@pytest.mark.parametrize("sigma", [SIGMA, [2.0, 3.0, 4.5]])
+def test_device_sampler_renders_with_its_held_sigma(sigma):
+    """The sampler's σ, a tensor made once on its device, renders the
+    windows' heatmaps of the float or the list, bit for bit."""
+    store = _store(SHAPES, seed=4)
+    keys = list(SHAPES)
+    port = DevicePatchSampler(None, keys, 2, PATCH, reader=MemoryReader(store), device="cpu",
+                              landmark_group="landmarks", heatmap_sigma=sigma, seed=5)
+    assert port.heatmap_sigma == sigma
+    subj, corners = port.sample_indices(4)
+    local = port.landmarks[torch.from_numpy(subj).long()] - torch.from_numpy(corners)[:, None]
+    want = batched_gaussian_heatmaps(local, PATCH, sigma).to(torch.uint8)
+    got = port.gather(subj, corners)["label"][:, :3]
+    assert want.any()
+    assert torch.equal(got, want)
+
+
+def _weighted(kind, loss):
+    """(task, outputs, batch, the loss from list weights): a 5-channel head
+    (landmarks: 3 heatmaps and 2 classes) and a batch for it."""
+    rng = np.random.default_rng(9)
+    model = ResidualUNet3D(1, 5, f_maps=4, num_levels=2, dtype=torch.float32, device="cpu")
+    outputs = torch.from_numpy(rng.normal(0, 3, size=(2, 5, 6, 5, 4)).astype(np.float32))
+    if kind == "landmarks":
+        task = LandmarkTask(model=model, loss_regression_weight=REG_WEIGHTS, loss_class=loss,
+                            loss_class_weight=CLASS_WEIGHTS)
+        hm = rng.integers(0, 256, size=(2, 3, 6, 5, 4))
+        label = np.concatenate([hm, rng.integers(0, 2, size=(2, 1, 6, 5, 4))], axis=1)
+
+        def by_lists(out, batch):
+            hm, labels = task.split_labels(batch)
+            return L.multitask_landmark_loss(
+                out[:, 3:], out[:, :3], labels, hm, regression_weights=list(REG_WEIGHTS),
+                class_loss=loss, class_weight=list(CLASS_WEIGHTS))[0]
+    else:
+        weight = [0.2, 1.0, 0.5, 0.7, 1.3]
+        task = SegmentationTask(model=model, loss=loss, loss_weight=weight)
+        label = rng.integers(0, 5, size=(2, 1, 6, 5, 4))
+        fn = L.dice_loss if loss == "DICE" else L.ce_loss
+
+        def by_lists(out, batch):
+            return fn(out, batch["label"][:, -1].long(), weight=list(weight))
+    batch = {"data": torch.zeros(2, 1, 6, 5, 4), "label": torch.from_numpy(label.astype(np.uint8))}
+    return task, outputs, batch, by_lists
+
+
+def _loss_and_grad(fn, outputs, batch):
+    out = outputs.clone().requires_grad_()
+    loss = fn(out, batch)
+    loss.backward()
+    return loss.detach(), out.grad
+
+
+@pytest.mark.parametrize("kind,loss", [("landmarks", "DICE"), ("landmarks", "CE"),
+                                       ("segmentation", "DICE"), ("segmentation", "CE")])
+def test_held_weights_give_the_list_weights_loss(kind, loss):
+    """A task's weights, held on the device from its first loss on, give
+    the loss and gradients of the same weights handed over as lists, bit for
+    bit; the second call takes the tensors the first made."""
+    task, outputs, batch, by_lists = _weighted(kind, loss)
+    want = _loss_and_grad(by_lists, outputs, batch)
+    got = _loss_and_grad(lambda out, b: task.loss_fn(out, b)[0], outputs, batch)
+    held = task._weights.on(outputs.device)
+    again = _loss_and_grad(lambda out, b: task.loss_fn(out, b)[0], outputs, batch)
+    assert task._weights.on(outputs.device)["cls"] is held["cls"]
+    assert held["cls"].dtype == torch.float32 and held["cls"].device == outputs.device
+    for a, b, c in zip(want, got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(b.view(torch.int32), c.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["landmarks", "segmentation"])
+def test_weights_first_held_in_inference_mode_serve_a_backward(kind):
+    """Weights first made under an eval step's inference mode are ordinary
+    tensors: a train step's backward can save them."""
+    task, outputs, batch, by_lists = _weighted(kind, "DICE")
+    with torch.inference_mode():
+        task.val_metrics(outputs, batch)
+    got = _loss_and_grad(lambda out, b: task.loss_fn(out, b)[0], outputs, batch)
+    want = _loss_and_grad(by_lists, outputs, batch)
+    for a, b in zip(want, got):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["landmarks", "segmentation"])
+def test_a_wrong_length_class_weight_raises_at_the_first_loss(kind):
+    model = ResidualUNet3D(1, 5, f_maps=4, num_levels=2, dtype=torch.float32, device="cpu")
+    if kind == "landmarks":  # 2 classes
+        task = LandmarkTask(model=model, loss_regression_weight=REG_WEIGHTS,
+                            loss_class_weight=[0.05, 1.0, 1.0])
+        label = torch.zeros(2, 4, 6, 5, 4, dtype=torch.uint8)
+    else:  # 5 classes
+        task = SegmentationTask(model=model, loss_weight=[0.05, 1.0])
+        label = torch.zeros(2, 1, 6, 5, 4, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="per-class weight has (3|2) entries.*loss_class_weight"):
+        task.loss_fn(torch.zeros(2, 5, 6, 5, 4), {"label": label})
 
 
 def test_samplers_refuse_mismatched_heatmaps():

@@ -18,7 +18,10 @@ coordinates instead of heatmap volumes; after K2's label gather each
 window's Gaussians are rendered on the device (``ops/heatmap.py``), cast
 to uint8 by truncation as the JAX package's ``astype`` does, and put
 before the class map.  Corners are drawn against each subject's true
-shape, so a patch never reads padding.
+shape, so a patch never reads padding.  The corners go up through pinned
+memory and σ lies on the device from the start, so a render waits for
+nothing queued on the card: a copy from pageable host memory would drain
+its queue every step.
 
 While a profiler records, each batch is traced (``utils/tracing.py``):
 ``sampler.batch``, with ``sampler.draw`` (the host's draws) and, with
@@ -131,9 +134,11 @@ class DevicePatchSampler:
         self.images = torch.from_numpy(stack(images, np.float32)).to(torch.bfloat16).to(dev)
         self.labels = torch.from_numpy(stack(labels, np.uint8)).to(dev)
         self.landmarks = None  # (S, L, 3) fp32 on the device
+        self.heatmap_sigma = heatmap_sigma
+        self._sigma = None  # heatmap_sigma as an fp32 tensor on the device, made once
         if landmarks is not None:
             self.landmarks = torch.from_numpy(np.stack(landmarks).astype(np.float32)).to(dev)
-        self.heatmap_sigma = heatmap_sigma
+            self._sigma = torch.as_tensor(heatmap_sigma, dtype=torch.float32).to(dev)
         logger.info("device store: %d subjects padded to %s, ~%.2f GB",
                     len(images), pad_shape.tolist(),
                     (self.images.nbytes + self.labels.nbytes) / 1e9)
@@ -193,8 +198,7 @@ class DevicePatchSampler:
         if dev.type == "cuda":  # without waiting for the card's queue
             index = index.pin_memory().to(dev, non_blocking=True)
         local = self.landmarks[index[:, 0].long()] - index[:, None, 1:].float()
-        hm = batched_gaussian_heatmaps(local, [int(p) for p in self.patch_size],
-                                       self.heatmap_sigma)
+        hm = batched_gaussian_heatmaps(local, [int(p) for p in self.patch_size], self._sigma)
         return hm.to(torch.uint8).permute(0, 2, 3, 4, 1)
 
     def batches(self, batch_size: int, shuffle: bool = True,

@@ -29,7 +29,7 @@ package's over the global batch; ``None`` is one process.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -82,6 +82,29 @@ def _class_weight(weight: Weight, num_classes: int, device) -> Optional[torch.Te
             f"{num_classes} classes (check --loss_weight / --loss_class_weight "
             "against out_channels)")
     return w
+
+
+class HeldWeights:
+    """A task's loss weights as the fp32 tensors a loss takes, made once per
+    device.  A list handed to a loss would be copied from pageable host
+    memory at every call, and such a copy waits for everything queued on
+    the card; a tensor already on the device passes through
+    ``_class_weight`` uncopied.  ``weights`` maps a name to its values (or
+    None) and the count they must match, checked when the tensor is made.
+    The tensors are made outside inference mode, so one first made in an
+    eval step can still be saved for a train step's backward."""
+
+    def __init__(self, **weights: Tuple[Weight, int]):
+        self._weights = weights
+        self._held: Dict[torch.device, Dict[str, Optional[torch.Tensor]]] = {}
+
+    def on(self, device: torch.device) -> Dict[str, Optional[torch.Tensor]]:
+        held = self._held.get(device)
+        if held is None:
+            with torch.inference_mode(False):
+                held = {name: _class_weight(w, n, device) for name, (w, n) in self._weights.items()}
+            self._held[device] = held
+        return held
 
 
 def compute_per_channel_dice(probs: torch.Tensor, target: torch.Tensor,
@@ -234,7 +257,8 @@ def landmark_loss(logits: torch.Tensor, heatmaps: torch.Tensor, dp=None) -> torc
 
 def multitask_landmark_loss(output_labels: torch.Tensor, output_heatmaps: torch.Tensor,
                             labels: torch.Tensor, heatmaps: torch.Tensor,
-                            regression_weights: Sequence[float], class_loss: str = "DICE",
+                            regression_weights: Union[torch.Tensor, Sequence[float]],
+                            class_loss: str = "DICE",
                             class_weight: Weight = None, regression_loss: str = "L2",
                             dp=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Segmentation plus landmark loss (reference landmarks.py:125-134):

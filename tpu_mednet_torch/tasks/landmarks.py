@@ -80,6 +80,11 @@ class LandmarkTask:
     loss_class_weight: Optional[Sequence[float]] = None
     loss_regression: str = "L2"  # 'L2' | 'L1'
 
+    def __post_init__(self):
+        self._weights = L.HeldWeights(
+            regression=(self.loss_regression_weight, len(self.loss_regression_weight)),
+            cls=(self.loss_class_weight, self.num_classes))
+
     @classmethod
     def from_hparams(cls, hparams, device: DeviceLike = None,
                      generator: Optional[torch.Generator] = None) -> "LandmarkTask":
@@ -127,13 +132,16 @@ class LandmarkTask:
     def loss_fn(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor], dp=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The loss over the batch, or with ``dp`` over the global batch
-        whose rows ``batch`` holds (``ops/losses.py``)."""
+        whose rows ``batch`` holds (``ops/losses.py``).  The weights are
+        held on the outputs' device from the first call on
+        (``HeldWeights``), where a wrong-length class weight raises."""
         heatmaps, labels = self.split_labels(batch)
         out_heatmaps, out_labels = self.split_outputs(outputs)
+        w = self._weights.on(outputs.device)
         total, cls, reg = L.multitask_landmark_loss(
             out_labels, out_heatmaps, labels, heatmaps,
-            regression_weights=self.loss_regression_weight, class_loss=self.loss_class,
-            class_weight=self.loss_class_weight, regression_loss=self.loss_regression, dp=dp)
+            regression_weights=w["regression"], class_loss=self.loss_class,
+            class_weight=w["cls"], regression_loss=self.loss_regression, dp=dp)
         return total, {"class_loss": cls, "regression_loss": reg}
 
     def val_metrics(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor], dp=None

@@ -37,6 +37,9 @@ class SegmentationTask:
     loss: str = "DICE"  # 'DICE' | 'CE'
     loss_weight: Optional[Sequence[float]] = None
 
+    def __post_init__(self):
+        self._weights = L.HeldWeights(cls=(self.loss_weight, self.out_channels))
+
     @classmethod
     def from_hparams(cls, hparams, device: DeviceLike = None,
                      generator: Optional[torch.Generator] = None
@@ -69,12 +72,15 @@ class SegmentationTask:
     def loss_fn(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor], dp=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The loss over the batch, or with ``dp`` over the global batch
-        whose rows ``batch`` holds (``ops/losses.py``)."""
+        whose rows ``batch`` holds (``ops/losses.py``).  The weight is held
+        on the outputs' device from the first call on (``HeldWeights``),
+        where a wrong-length weight raises."""
         labels = self.labels_from_batch(batch)
+        weight = self._weights.on(outputs.device)["cls"]
         if self.loss == "DICE":
-            loss = L.dice_loss(outputs, labels, weight=self.loss_weight, dp=dp)
+            loss = L.dice_loss(outputs, labels, weight=weight, dp=dp)
         elif self.loss == "CE":
-            loss = L.ce_loss(outputs, labels, weight=self.loss_weight, dp=dp)
+            loss = L.ce_loss(outputs, labels, weight=weight, dp=dp)
         else:
             raise ValueError(f"loss must be 'DICE' or 'CE', got {self.loss!r}")
         return loss, {}
