@@ -7,11 +7,12 @@ For every seed, in one process: the sound reading, the program's numbers
 against the reference's, as a run of the cell compares them (training:
 set-up and the first steps, with no window; serving: a short window at the
 cell's own load).  For the first ``--control-seeds`` seeds also the
-control, the reference with every convolution's operands rounded through
-float8 e4m3 (the precision below the configured bf16) in the program's
-place, and, for training, the half-batch fault planted in the reference
-(its loss over the first half of each batch only) and the state left
-unchanged (no run: the program's norms read 0).  Prints one JSON line a
+control, the cell's family's reference with every convolution's and
+matrix product's operands rounded through float8 e4m3 (the precision
+below the configured bf16) in the program's place, and, for training, the
+half-batch fault planted in the reference (its loss over the first half
+of each batch only) and the state left unchanged (no run: the program's
+norms read 0).  Prints one JSON line a
 seed and reading, then, per number, the largest sound reading and the
 least control and fault readings; writes them all to ``--out``.
 """
@@ -43,7 +44,7 @@ def main(argv=None) -> int:
     from h100bench.loops import serve, train
     from h100bench.reference import serve as ref_serve
     from h100bench.reference import train as ref_train
-    from h100bench.reference import unet
+    from h100bench.reference.precision import fp8_round
 
     if not torch.cuda.is_available():
         print("control: no CUDA device", file=sys.stderr)
@@ -66,7 +67,7 @@ def main(argv=None) -> int:
             if kind == "train":
                 store = data.training_subjects(cell.traffic, _classes(cell.cfg), seed, cell.device)
                 ref = record["readings"]["reference"]
-                for name, kw in (("control_fp8", {"quant": unet.fp8_round}),
+                for name, kw in (("control_fp8", {"quant": fp8_round}),
                                  ("fault_half_batch", {"half_batch": True})):
                     got = train.reference_readings(cell, store, **kw)
                     rows.append({"seed": seed, "reading": name, **ref_train.compare(got, ref)})
@@ -76,12 +77,12 @@ def main(argv=None) -> int:
                              **ref_train.compare(ref_train.unchanged(ref), ref)})
                 print(json.dumps(rows[-1]), flush=True)
             else:
-                t, cfg = cell.traffic, cell.cfg
+                t, cfg, fam = cell.traffic, cell.cfg, cell.family
                 pool = data.serving_pool(t, seed, cell.device)
-                params = data.weights(cfg, seed, cell.device)
-                gap = max(ref_serve.control_gap(cfg, params, pool[k], t["patch"], t["overlap"],
-                                                int(t["reference_rows"]), cell.device,
-                                                unet.fp8_round)
+                params = data.weights(fam, cfg, seed, cell.device)
+                gap = max(ref_serve.control_gap(fam, cfg, params, pool[k], t["patch"],
+                                                t["overlap"], int(t["reference_rows"]),
+                                                cell.device, fp8_round)
                           for k in record["judged"])
                 rows.append({"seed": seed, "reading": "control_fp8", "logit_gap": gap})
                 print(json.dumps(rows[-1]), flush=True)

@@ -14,8 +14,6 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from h100bench.reference import unet
-
 # sub-seeds of a run's seed, one per stream of draws
 STREAMS = {"weights": 0, "data": 1, "sampler": 2, "augment": 3, "order": 4, "sample": 5}
 
@@ -28,11 +26,12 @@ def seeds(seed: int) -> Dict[str, int]:
     return {k: sub_seed(seed, k) for k in STREAMS}
 
 
-def weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """The cell's fp32 parameters, keyed by the published state-dict names."""
+def weights(family, cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """The cell's fp32 parameters, keyed by the published state-dict names:
+    the family's split of one flat U[0, 1) draw."""
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, "weights"))
-    u = torch.rand(unet.param_count(cfg), generator=gen, device=device)
-    return unet.init_from_uniform(cfg, u)
+    u = torch.rand(family.param_count(cfg), generator=gen, device=device)
+    return family.init_from_uniform(cfg, u)
 
 
 def _noise(gen, shape, device) -> torch.Tensor:

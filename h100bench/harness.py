@@ -1,7 +1,9 @@
 """One run of one cell: find its files by name, drive its loop, judge and report.
 
 A cell of ``BENCHMARK.json`` names a configuration (its file, a JSON object
-of the model's sizes and the task's loss and optimizer) and a traffic mix
+of the model's sizes and the task's loss and optimizer, whose ``model``
+names its family: ``families/<model>.py``, the program's task, the
+seeded weights, the reference and the counts) and a traffic mix
 (``traffic/<name>.json``: which general loop drives the program, ``train``
 or ``serve``, and its parameters).  The loop returns a record of what it
 saw; each metric is read from the record by ``metrics/<name>.py`` (or, for
@@ -18,8 +20,9 @@ import json
 import math
 import sys
 import time
+import types
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -27,31 +30,67 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpu_mednet")
 
-# What the port's builder (``port_task``), the reference and ``counting``
-# implement.  A configuration naming anything else is refused before a run:
-# it would otherwise be measured, and judged, as this family.  Another family
-# comes with its own builder, reference and count, and its values here.
-IMPLEMENTED = {
-    "model": ("ResidualUNet3D",),
-    "join": ("transposed_conv_sum",),
-    "layer_order": ("cge",),
-    "optimizer": ("adam",),
-    "task": ("segmentation", "landmarks"),
-    "loss": ("DICE",),
-    "loss_class": ("DICE",),
-    "loss_regression": ("L2",),
-}
-OPTIONAL = ("loss", "loss_class", "loss_regression")  # keys of one task only
+FAMILIES = HERE / "families"
 
 
-def check_config(cfg: dict, where: str) -> None:
-    """Refuse a configuration the harness does not implement."""
-    for key, known in IMPLEMENTED.items():
-        if key in OPTIONAL and key not in cfg:
+def check_keys(cfg: dict, where: str, implemented: dict, optional: Sequence[str],
+               family: str) -> None:
+    """Refuse a configuration naming a value of a key that ``family`` does
+    not implement (``implemented``: key -> the values it does; a key of
+    ``optional`` is checked only where the configuration has it): it would
+    otherwise be measured, and judged, as this family."""
+    for key, known in implemented.items():
+        if key in optional and key not in cfg:
             continue
         if cfg.get(key) not in known:
             raise SystemExit(f"{where}: {key} {cfg.get(key)!r} is not implemented by "
-                             f"h100bench (it implements {', '.join(known)})")
+                             f"h100bench's {family} family (it implements {', '.join(known)})")
+
+
+def family_of(cfg: dict, where: str, families: Path = FAMILIES) -> types.ModuleType:
+    """The module ``<families>/<model>.py`` of the configuration's ``model``,
+    which has checked the configuration.  A family module gives, each a
+    function of the configuration:
+
+    - ``check(cfg, where)``: refuses the keys it does not implement;
+    - ``port_task(cfg, params, device)``: the program's task, its model
+      holding ``params``; ``optimizer(cfg)``: the fields of the program's
+      ``OptimizerConfig`` for the training loop;
+    - ``param_count(cfg)`` and ``init_from_uniform(cfg, u)``: the fp32
+      parameters, keyed by the published state-dict names, from one flat
+      U[0, 1) draw of that many floats (``data.weights``);
+    - the plain fp32 reference, importing nothing of the program:
+      ``forward(cfg, params, x, quant)`` (``quant`` applied to every
+      convolution's and matrix product's operands, for the control),
+      ``reference_loss(cfg)`` (its ``terms``, ``value`` and ``linearised``:
+      ``reference.train.Loss`` serves Dice and L2) and
+      ``reference_update(cfg, params, grads, m, v, step)``
+      (``reference.train.adam_`` serves Adam and AdamW);
+    - counts of one sample: ``forward_flops(cfg, patch)`` (every conv and
+      matmul FLOP, MFU's numerator), ``conv_flops(cfg, patch)``
+      (``conv_roofline``'s), ``norm_layers(cfg, patch)`` (K1's bytes);
+    - ``KERNEL_GROUPS``: name part -> a group of its own, which
+      ``trace.group_of`` checks before the shared rule, and
+      ``group_work(cfg, patch, train)``: each such group's work
+      (``{"flops": ..., "bytes": ...}``) a sample of a train step
+      (``train``) or a served tile, which the loops store in the
+      stretch's ``work`` scaled by the samples it ran.
+    """
+    path = Path(families) / f"{cfg.get('model')}.py"
+    if not path.is_file():
+        raise SystemExit(f"{where}: model {cfg.get('model')!r} has no family module: "
+                         f"{path} not found")
+    mod = _load(path, f"h100bench_family_{path.stem}")
+    mod.check(cfg, where)
+    return mod
+
+
+def _load(path: Path, name: str) -> types.ModuleType:
+    """The module of the file ``path``, found by file and not by package."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @dataclasses.dataclass
@@ -66,12 +105,14 @@ class Cell:
     seconds: float
     trace: bool
     device: torch.device
+    family: types.ModuleType         # the configuration's module under families/
     fault: Optional[str] = None      # a planted fault (tests of the comparison only)
     t_start: float = dataclasses.field(default_factory=time.perf_counter)
 
 
 def load_cell(workload: str, seed: int, seconds: float, trace: bool, device,
-              bench: Optional[dict] = None, t_start: Optional[float] = None) -> Cell:
+              bench: Optional[dict] = None, t_start: Optional[float] = None,
+              families: Path = FAMILIES) -> Cell:
     bench = bench or json.loads((ROOT / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
@@ -79,7 +120,7 @@ def load_cell(workload: str, seed: int, seconds: float, trace: bool, device,
     w = cells[workload]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
     cfg = json.loads((ROOT / conf["file"]).read_text())
-    check_config(cfg, conf["file"])
+    family = family_of(cfg, conf["file"], families)
     traffic = json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text())
     limits = json.loads((HERE / "limits" / f"{workload}.json").read_text())
 
@@ -90,7 +131,7 @@ def load_cell(workload: str, seed: int, seconds: float, trace: bool, device,
     reported = {m["name"] for m in e2e}
     layer = [m for m in bench["per_layer"] if mine(m) and m["moves"] in reported]
     cell = Cell(workload, cfg, traffic, limits, e2e, layer, int(seed), float(seconds),
-                bool(trace), torch.device(device))
+                bool(trace), torch.device(device), family)
     if t_start is not None:
         cell.t_start = t_start
     return cell
@@ -99,29 +140,6 @@ def load_cell(workload: str, seed: int, seconds: float, trace: bool, device,
 def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def dtype_of(cfg: dict) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float16": torch.float16,
-            "float32": torch.float32}[cfg["dtype"]]
-
-
-def port_task(cfg: dict, params: Dict[str, torch.Tensor], device):
-    """The program's task with its model holding ``params``."""
-    from tpu_mednet_torch.models import ResidualUNet3D
-    from tpu_mednet_torch.tasks import LandmarkTask, SegmentationTask
-
-    model = ResidualUNet3D(int(cfg["in_channels"]), int(cfg["out_channels"]),
-                           f_maps=int(cfg["f_maps"]), conv_layer_order=cfg["layer_order"],
-                           num_groups=int(cfg["num_groups"]), dtype=dtype_of(cfg),
-                           num_levels=int(cfg["num_levels"]), device=device)
-    model.load_state_dict(params, strict=True)
-    if cfg["task"] == "landmarks":
-        return LandmarkTask(model=model, loss_regression_weight=cfg["loss_regression_weight"],
-                            loss_class=cfg["loss_class"],
-                            loss_class_weight=cfg["loss_class_weight"],
-                            loss_regression=cfg["loss_regression"])
-    return SegmentationTask(model=model, loss=cfg["loss"], loss_weight=cfg.get("loss_weight"))
 
 
 def k1_launches() -> int:
@@ -136,10 +154,7 @@ def reader(name: str):
     for stem in (name, name.split(".")[0]):
         path = HERE / "metrics" / f"{stem}.py"
         if path.exists():
-            spec = importlib.util.spec_from_file_location(f"h100bench_metric_{stem}", path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            return mod.read
+            return _load(path, f"h100bench_metric_{stem}").read
     raise FileNotFoundError(f"no reader for metric {name!r} under {HERE / 'metrics'}")
 
 

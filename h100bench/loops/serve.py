@@ -41,10 +41,10 @@ def run(cell) -> dict:
     from tpu_mednet_torch.data import MemoryReader
     from tpu_mednet_torch.inference import predict_volumes_on_device
 
-    t, cfg, dev = cell.traffic, cell.cfg, cell.device
+    t, cfg, dev, fam = cell.traffic, cell.cfg, cell.device, cell.family
     pool = data.serving_pool(t, cell.seed, dev)
     keys = sorted(pool)
-    task = harness.port_task(cfg, data.weights(cfg, cell.seed, dev), dev)
+    task = fam.port_task(cfg, data.weights(fam, cfg, cell.seed, dev), dev)
     reader = MemoryReader({"images": pool})
     n_classes = int(cfg["out_channels"])
 
@@ -73,7 +73,7 @@ def run(cell) -> dict:
         if marks and time.perf_counter() - t0 >= marks[0] * cell.seconds:
             marks.pop(0)
             keys_in = [keys[next(order)] for _ in range(int(t["trace_requests"]))]
-            with trace.Stretch(harness.k1_launches) as s:
+            with trace.Stretch(harness.k1_launches, fam.KERNEL_GROUPS) as s:
                 for key in keys_in:
                     with record_function("h100bench.request"):
                         mask = request(key)
@@ -92,7 +92,10 @@ def run(cell) -> dict:
     failed += sum(int(m.max()) >= n_classes for m in kept.values())
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     done = len(served) + sum(len(k) for k in traced)
-    per_tile = counting.forward_flops(cfg, t["patch"])
+    per_tile = fam.forward_flops(cfg, t["patch"])
+    conv_tile = fam.conv_flops(cfg, t["patch"])
+    norms = fam.norm_layers(cfg, t["patch"])
+    tile_work = fam.group_work(cfg, t["patch"], False)
 
     def grid_tiles(keys_):
         return sum(data.extent_tiles(pool[k].shape[1:], t["patch"], t["overlap"]) for k in keys_)
@@ -111,9 +114,10 @@ def run(cell) -> dict:
         "attempted": done, "failed": failed,
     }
     readings = [dict(s.read(), requests=len(k), flops=grid_tiles(k) * per_tile,
-                     conv_flops=batch_tiles(k) * per_tile,
-                     k1_bytes=counting.k1_forward_bytes(cfg, t["patch"], batch_tiles(k)),
-                     k2_bytes=counting.k2_bytes(cfg, t["patch"], batch_tiles(k)))
+                     conv_flops=batch_tiles(k) * conv_tile,
+                     k1_bytes=counting.k1_forward_bytes(cfg, norms, batch_tiles(k)),
+                     k2_bytes=counting.k2_bytes(cfg, t["patch"], batch_tiles(k)),
+                     work=counting.scaled(tile_work, batch_tiles(k)))
                 for s, k in zip(stretches, traced)]
     if readings:
         r = max(readings, key=lambda r: r["kept"])
@@ -150,8 +154,8 @@ def judge(cell, pool: dict, kept: dict, keys: list) -> float:
     """The widest logit gap of the masks of ``keys`` under the reference."""
     if not keys:
         return float("inf")
-    t, cfg, dev = cell.traffic, cell.cfg, cell.device
-    params = data.weights(cfg, cell.seed, dev)
-    return max(ref_serve.widest_gap(cfg, params, pool[k], kept[k], t["patch"], t["overlap"],
-                                    int(t["reference_rows"]), dev)
+    t, cfg, dev, fam = cell.traffic, cell.cfg, cell.device, cell.family
+    params = data.weights(fam, cfg, cell.seed, dev)
+    return max(ref_serve.widest_gap(fam, cfg, params, pool[k], kept[k], t["patch"],
+                                    t["overlap"], int(t["reference_rows"]), dev)
                for k in keys)

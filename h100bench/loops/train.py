@@ -1,7 +1,8 @@
 """The general training loop: the program's train step fed by its device sampler.
 
 Set-up builds one train state (the seeded weights in the program's model,
-``create_train_state``, ``make_train_step`` with the mix's augmentation)
+``create_train_state`` with the family's optimizer, ``make_train_step``
+with the mix's augmentation)
 and one endless feed of ``DevicePatchSampler`` batches, and drives them
 through the first steps with the window's own call; those are the steps the
 reference follows.  The window then dispatches steps back to back for
@@ -49,7 +50,8 @@ def _feed(sampler, batch):
 
 
 def _grad_norms(state, names) -> dict:
-    """Each leaf's first gradient, from Adam's first moment after one step."""
+    """Each leaf's first gradient, from Adam's (or AdamW's) first moment
+    after one step."""
     beta1 = state.optimizer.param_groups[0]["betas"][0]
     out = {}
     for name, p in zip(names, state.params):
@@ -86,16 +88,16 @@ def _plant(cell, task, state):
 
 def run(cell) -> dict:
     from tpu_mednet_torch.ops.augment import AugmentConfig
-    from tpu_mednet_torch.train import create_train_state, make_train_step
+    from tpu_mednet_torch.train import OptimizerConfig, create_train_state, make_train_step
 
-    t, cfg, dev = cell.traffic, cell.cfg, cell.device
+    t, cfg, dev, fam = cell.traffic, cell.cfg, cell.device, cell.family
     seeds = data.seeds(cell.seed)
     n_classes = int(cfg["out_channels"]) - len(cfg.get("loss_regression_weight") or [])
     store = data.training_subjects(t, n_classes, cell.seed, dev)
-    task = harness.port_task(cfg, data.weights(cfg, cell.seed, dev), dev)
+    task = fam.port_task(cfg, data.weights(fam, cfg, cell.seed, dev), dev)
     names = [n for n, _ in task.model.named_parameters()]
-    state = create_train_state(task.model, learning_rate=float(cfg["learning_rate"]),
-                               seed=seeds["augment"])
+    state = create_train_state(task.model, seed=seeds["augment"],
+                               optimizer=OptimizerConfig(**fam.optimizer(cfg)))
     _plant(cell, task, state)
     aug = {k: tuple(v) if isinstance(v, list) else v for k, v in t["augment"].items()}
     step = make_train_step(task, augment=AugmentConfig(**aug))
@@ -124,7 +126,7 @@ def run(cell) -> dict:
     while time.perf_counter() - t0 < cell.seconds:
         if marks and time.perf_counter() - t0 >= marks[0] * cell.seconds:
             marks.pop(0)
-            with trace.Stretch(harness.k1_launches) as s:
+            with trace.Stretch(harness.k1_launches, fam.KERNEL_GROUPS) as s:
                 for _ in range(int(t["trace_steps"])):
                     with record_function("h100bench.sampler"):
                         batch = next(feed)
@@ -145,7 +147,7 @@ def run(cell) -> dict:
     first_losses = [float(v) for v in first_losses]
 
     n_steps, batch, patch = len(losses), int(t["batch"]), t["patch"]
-    step_flops = counting.train_step_flops(cfg, patch, batch)
+    step_flops = counting.train_step_flops(fam.forward_flops(cfg, patch), batch)
     traced = len(stretches) * int(t["trace_steps"])
     record = {
         "setup_s": setup_s, "window_s": window_s, "patches": n_steps * batch,
@@ -161,8 +163,12 @@ def run(cell) -> dict:
         r = max(readings, key=lambda r: r["kept"])
         r["steps"] = int(t["trace_steps"])
         r["flops"] = r["steps"] * step_flops
-        r["k1_bytes"] = r["steps"] * (counting.k1_forward_bytes(cfg, patch, batch)
-                                      + counting.k1_backward_bytes(cfg, patch, batch))
+        r["conv_flops"] = r["steps"] * counting.train_step_flops(fam.conv_flops(cfg, patch),
+                                                                 batch)
+        norms = fam.norm_layers(cfg, patch)
+        r["k1_bytes"] = r["steps"] * (counting.k1_forward_bytes(cfg, norms, batch)
+                                      + counting.k1_backward_bytes(cfg, norms, batch))
+        r["work"] = counting.scaled(fam.group_work(cfg, patch, True), r["steps"] * batch)
         if r["kept"] >= trace.MIN_KEPT:
             record["stretch"] = r
 
@@ -180,8 +186,9 @@ def reference_readings(cell, store, **kw) -> dict:
     """The reference's readings of the cell's first steps (``kw``: a
     rounding of the conv operands, or the half-batch fault, for the
     comparison's own checks)."""
-    cfg, dev = cell.cfg, cell.device
-    params = {k: v.clone().requires_grad_() for k, v in data.weights(cfg, cell.seed, dev).items()}
-    return ref_train.first_steps(cfg, cell.traffic, store, params, data.seeds(cell.seed), dev,
-                                 n_steps=int(cell.traffic["first_steps"]),
+    cfg, dev, fam = cell.cfg, cell.device, cell.family
+    params = {k: v.clone().requires_grad_()
+              for k, v in data.weights(fam, cfg, cell.seed, dev).items()}
+    return ref_train.first_steps(fam, cfg, cell.traffic, store, params, data.seeds(cell.seed),
+                                 dev, n_steps=int(cell.traffic["first_steps"]),
                                  rows=int(cell.traffic["reference_rows"]), **kw)

@@ -19,7 +19,7 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from h100bench.reference import unet
+from h100bench.reference.precision import exact_fp32
 
 
 def grid(shape: Sequence[int], patch: Sequence[int], overlap: Sequence[int]):
@@ -32,13 +32,13 @@ def grid(shape: Sequence[int], patch: Sequence[int], overlap: Sequence[int]):
     return corners, pads
 
 
-def core_logits(cfg: dict, params: Dict[str, torch.Tensor], volume: np.ndarray,
+def core_logits(family, cfg: dict, params: Dict[str, torch.Tensor], volume: np.ndarray,
                 patch: Sequence[int], overlap: Sequence[int], rows: int, device,
                 quant: Optional[Callable] = None
                 ) -> Iterator[Tuple[Tuple[slice, ...], torch.Tensor]]:
     """(the volume's voxels a core covers, their fp32 logits (K, ...)) for
     every tile of ``volume`` ((C, X, Y, Z) f16, on the host), ``rows``
-    tiles a forward."""
+    tiles a forward of ``family``'s reference."""
     shape = volume.shape[1:]
     corners, pads = grid(shape, patch, overlap)
     padded = torch.from_numpy(np.pad(volume.astype(np.float32), [(0, 0)] + pads)).to(device)
@@ -46,8 +46,8 @@ def core_logits(cfg: dict, params: Dict[str, torch.Tensor], volume: np.ndarray,
         block = corners[s:s + rows]
         tiles = torch.stack([padded[:, x:x + patch[0], y:y + patch[1], z:z + patch[2]]
                              for x, y, z in block])
-        with torch.no_grad(), unet.exact_fp32():
-            logits = unet.forward(cfg, params, tiles, quant)
+        with torch.no_grad(), exact_fp32():
+            logits = family.forward(cfg, params, tiles, quant)
         for corner, tile in zip(block, logits):
             ends = [min(c + p - 2 * o, n) for c, p, o, n in zip(corner, patch, overlap, shape)]
             where = tuple(slice(c, e) for c, e in zip(corner, ends))
@@ -57,12 +57,12 @@ def core_logits(cfg: dict, params: Dict[str, torch.Tensor], volume: np.ndarray,
             yield where, core
 
 
-def widest_gap(cfg: dict, params: Dict[str, torch.Tensor], volume: np.ndarray,
+def widest_gap(family, cfg: dict, params: Dict[str, torch.Tensor], volume: np.ndarray,
                served: np.ndarray, patch, overlap, rows: int, device) -> float:
     """The largest (best logit - logit of the served class) over the
     voxels of ``volume``; ``served`` is its (1, X, Y, Z) uint8 mask."""
     worst = 0.0
-    for where, ref in core_logits(cfg, params, volume, patch, overlap, rows, device):
+    for where, ref in core_logits(family, cfg, params, volume, patch, overlap, rows, device):
         cls = torch.from_numpy(np.ascontiguousarray(served[(0, *where)])).to(device).long()
         if int(cls.max()) >= ref.shape[0]:
             return float("inf")
@@ -70,13 +70,13 @@ def widest_gap(cfg: dict, params: Dict[str, torch.Tensor], volume: np.ndarray,
     return worst
 
 
-def control_gap(cfg: dict, params: Dict[str, torch.Tensor], volume: np.ndarray,
+def control_gap(family, cfg: dict, params: Dict[str, torch.Tensor], volume: np.ndarray,
                 patch, overlap, rows: int, device, quant: Callable) -> float:
     """``widest_gap`` of the classes that the reference computed with
     ``quant`` puts first: the precision control."""
     worst = 0.0
-    low = core_logits(cfg, params, volume, patch, overlap, rows, device, quant)
-    full = core_logits(cfg, params, volume, patch, overlap, rows, device)
+    low = core_logits(family, cfg, params, volume, patch, overlap, rows, device, quant)
+    full = core_logits(family, cfg, params, volume, patch, overlap, rows, device)
     for (_, q), (_, ref) in zip(low, full):
         cls = q.argmax(0, keepdim=True)
         worst = max(worst, float((ref.max(0).values - ref.gather(0, cls)[0]).max()))

@@ -12,8 +12,10 @@ a ``torch.Generator`` seeded as the program's step is (the configured
 ones of brightness N(0, sigma) per sample and channel, gamma per sample
 and contrast per sample and channel uniform in their ranges, then mirror
 flips with p 0.5 per axis and sample, in that order), and runs the
-network, the loss (soft Dice over the softmax, per-class weights on the
-intersection; for landmarks plus the weighted per-heatmap MSE) and Adam
+family's network (its ``forward``), loss (its ``reference_loss``; ``Loss``
+here: soft Dice over the softmax, per-class weights on the intersection;
+for landmarks plus the weighted per-heatmap MSE) and optimizer (its
+``reference_update``; ``adam_`` here: Adam, or AdamW with a weight decay)
 in float32.
 
 A batch too large for one pass runs in blocks of rows: a first pass
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from h100bench.reference import unet
+from h100bench.reference.precision import exact_fp32
 
 DICE_EPS = 1e-5
 BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
@@ -209,36 +211,42 @@ def _add(a: Optional[dict], b: dict) -> dict:
         {k: a[k] + b[k].detach() for k in a}
 
 
-def loss_and_grads(cfg: dict, params: Dict[str, torch.Tensor], x: torch.Tensor,
-                   label: torch.Tensor, loss: Loss, rows: int,
+def loss_and_grads(forward: Callable, cfg: dict, params: Dict[str, torch.Tensor],
+                   x: torch.Tensor, label: torch.Tensor, loss: Loss, rows: int,
                    quant: Optional[Callable] = None):
-    """(loss, {name: gradient}) of the batch, ``rows`` rows a pass."""
+    """(loss, {name: gradient}) of the batch through the reference
+    ``forward``, ``rows`` rows a pass."""
     for p in params.values():
         p.grad = None
     n = x.shape[0]
     if rows >= n:
-        value = loss.value(loss.terms(unet.forward(cfg, params, x, quant), label))
+        value = loss.value(loss.terms(forward(cfg, params, x, quant), label))
         value.backward()
         return float(value.detach()), {k: p.grad for k, p in params.items()}
     total = None
     with torch.no_grad():
         for s in range(0, n, rows):
-            total = _add(total, loss.terms(unet.forward(cfg, params, x[s:s + rows], quant),
+            total = _add(total, loss.terms(forward(cfg, params, x[s:s + rows], quant),
                                            label[s:s + rows]))
         if "count" in total:
             total["count"] = torch.tensor(float(label[:, 0].numel()), device=x.device)
     for s in range(0, n, rows):
-        t = loss.terms(unet.forward(cfg, params, x[s:s + rows], quant), label[s:s + rows])
+        t = loss.terms(forward(cfg, params, x[s:s + rows], quant), label[s:s + rows])
         t.pop("count", None)
         loss.linearised(t, total).backward()
     return float(loss.value(total)), {k: p.grad for k, p in params.items()}
 
 
 @torch.no_grad()
-def adam_(params: Dict[str, torch.Tensor], grads, m, v, step: int, lr: float) -> None:
+def adam_(params: Dict[str, torch.Tensor], grads, m, v, step: int, lr: float,
+          weight_decay: float = 0.0) -> None:
+    """Adam, torch's and optax's; with ``weight_decay``, AdamW (the decay
+    decoupled: each parameter first scaled by 1 - lr x weight_decay)."""
     b1, b2 = BETAS
     for k, p in params.items():
         g = grads[k]
+        if weight_decay:
+            p.mul_(1.0 - lr * weight_decay)
         m[k].mul_(b1).add_(g, alpha=1 - b1)
         v[k].mul_(b2).addcmul_(g, g, value=1 - b2)
         m_hat = m[k] / (1 - b1 ** step)
@@ -246,23 +254,26 @@ def adam_(params: Dict[str, torch.Tensor], grads, m, v, step: int, lr: float) ->
         p.sub_(lr * m_hat / (v_hat.sqrt() + ADAM_EPS))
 
 
-def first_steps(cfg: dict, traffic: dict, data: dict, params: Dict[str, torch.Tensor],
-                seeds: dict, device, n_steps: int = 3, rows: int = 8,
-                quant: Optional[Callable] = None, half_batch: bool = False) -> dict:
+def first_steps(family, cfg: dict, traffic: dict, data: dict,
+                params: Dict[str, torch.Tensor], seeds: dict, device, n_steps: int = 3,
+                rows: int = 8, quant: Optional[Callable] = None,
+                half_batch: bool = False) -> dict:
     """The readings of the cell's first ``n_steps`` steps from ``params``
-    (fp32, on ``device``; updated in place): each step's loss, each leaf's
-    norm of the first gradient, and of the change after ``n_steps``.
-    ``half_batch`` takes the loss over the first half of each batch only
-    (a fault the comparison must catch)."""
-    with unet.exact_fp32():
-        return _first_steps(cfg, traffic, data, params, seeds, device, n_steps, rows, quant,
-                            half_batch)
+    (fp32, on ``device``; updated in place) through the reference of
+    ``family`` (its module under ``families/``): each step's loss, each
+    leaf's norm of the first gradient, and of the change after
+    ``n_steps``.  ``half_batch`` takes the loss over the first half of
+    each batch only (a fault the comparison must catch)."""
+    with exact_fp32():
+        return _first_steps(family, cfg, traffic, data, params, seeds, device, n_steps, rows,
+                            quant, half_batch)
 
 
-def _first_steps(cfg, traffic, data, params, seeds, device, n_steps, rows, quant, half_batch):
+def _first_steps(family, cfg, traffic, data, params, seeds, device, n_steps, rows, quant,
+                 half_batch):
     sampler = Sampler(data, traffic, seeds["sampler"]).batches()
     gen = torch.Generator(device=device).manual_seed(seeds["augment"])
-    loss = Loss(cfg)
+    loss = family.reference_loss(cfg)
     start = {k: p.detach().clone() for k, p in params.items()}
     m = {k: torch.zeros_like(p) for k, p in params.items()}
     v = {k: torch.zeros_like(p) for k, p in params.items()}
@@ -274,11 +285,12 @@ def _first_steps(cfg, traffic, data, params, seeds, device, n_steps, rows, quant
         x, label = augment(x, label, traffic.get("augment", {}), gen)
         if half_batch:
             x, label = x[: x.shape[0] // 2], label[: label.shape[0] // 2]
-        value, grads = loss_and_grads(cfg, params, x, label, loss, rows, quant)
+        value, grads = loss_and_grads(family.forward, cfg, params, x, label, loss, rows,
+                                      quant)
         losses.append(value)
         if step == 1:
             first = {k: float(g.norm()) for k, g in grads.items()}
-        adam_(params, grads, m, v, step, float(cfg["learning_rate"]))
+        family.reference_update(cfg, params, grads, m, v, step)
     change = {k: float((p.detach() - start[k]).norm()) for k, p in params.items()}
     return {"losses": losses, "grad_norms": first, "change_norms": change}
 

@@ -19,7 +19,6 @@ precision there.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -133,24 +132,3 @@ def forward(cfg: dict, p: Dict[str, torch.Tensor], x: torch.Tensor,
         x = F.conv_transpose3d(q(x), q(w), b, stride=2, padding=1, output_padding=1) + skip
         x = _block(p, f"decoders.{j}.basic_module", x, ng, q)
     return F.conv3d(q(x), q(p["final_conv.weight"]), p["final_conv.bias"])
-
-
-def fp8_round(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded through float8 e4m3 with a per-tensor scale (its
-    absolute maximum onto 448), back in ``t``'s dtype; the gradient passes
-    straight through.  The precision control's conv operands."""
-    with torch.no_grad():
-        scale = 448.0 / t.detach().abs().amax().clamp_min(1e-12)
-        r = (t.detach() * scale).to(torch.float8_e4m3fn).to(t.dtype) / scale
-    return t + (r - t).detach() if t.requires_grad else r
-
-
-@contextlib.contextmanager
-def exact_fp32():
-    """fp32 matrix products and convolutions without TF32 inside the block."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

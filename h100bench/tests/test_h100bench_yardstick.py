@@ -20,12 +20,14 @@ sys.path.insert(0, str(ROOT))
 from h100bench import counting, data, harness  # noqa: E402
 from h100bench.reference import train as ref_train  # noqa: E402
 from h100bench.reference import unet  # noqa: E402
+from h100bench.reference.precision import fp8_round  # noqa: E402
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CONFIGS = {c["name"]: json.loads((ROOT / c["file"]).read_text()) for c in BENCH["configs"]}
 TRAFFIC = {w["name"]: json.loads((ROOT / "h100bench" / "traffic" / f"{w['traffic']}.json")
                                  .read_text()) for w in BENCH["workloads"]}
 CELLS = [(w["name"], w["config"]) for w in BENCH["workloads"]]
+FAMILY = {name: harness.family_of(cfg, name) for name, cfg in CONFIGS.items()}
 
 
 def tiny_cfg(name: str, **kw) -> dict:
@@ -36,14 +38,15 @@ def tiny_cfg(name: str, **kw) -> dict:
 def test_flops_equal_the_program_count(workload, config):
     from tpu_mednet_torch.utils import flops
 
-    cfg, t = CONFIGS[config], TRAFFIC[workload]
-    fm = counting.feature_maps(cfg)
+    cfg, t, fam = CONFIGS[config], TRAFFIC[workload], FAMILY[config]
+    fm = unet.feature_maps(cfg)
     patch = tuple(t["patch"])
     want = flops.unet_forward_flops(cfg["in_channels"], cfg["out_channels"], fm, patch)
-    assert counting.forward_flops(cfg, patch) == want
+    assert fam.forward_flops(cfg, patch) == want
+    assert fam.conv_flops(cfg, patch) == want
     batch = t["batch"]
-    assert counting.train_step_flops(cfg, patch, batch) == flops.unet_train_step_flops(
-        cfg["in_channels"], cfg["out_channels"], fm, patch, batch)
+    assert counting.train_step_flops(fam.forward_flops(cfg, patch), batch) == \
+        flops.unet_train_step_flops(cfg["in_channels"], cfg["out_channels"], fm, patch, batch)
 
 
 def test_the_published_sizes():
@@ -51,8 +54,8 @@ def test_the_published_sizes():
     for name, cfg in CONFIGS.items():
         assert cfg["parameters"] == unet.param_count(cfg), name
     # the organ step's 3 x forward of 32 samples (PR 9's 512.44 GFLOP a 96^3 sample)
-    assert abs(counting.forward_flops(CONFIGS["resunet3d_organ_f32"], (96,) * 3) / 1e9
-               - 512.44) < 0.01
+    organ = "resunet3d_organ_f32"
+    assert abs(FAMILY[organ].forward_flops(CONFIGS[organ], (96,) * 3) / 1e9 - 512.44) < 0.01
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -61,10 +64,10 @@ def test_k1_bytes_are_the_layers_own(name):
     input, residual and output sizes give the bytes ``counting`` counts."""
     from tpu_mednet_torch.models.blocks import GroupNorm
 
-    cfg = dict(CONFIGS[name], f_maps=8, num_levels=3)
+    cfg, fam = dict(CONFIGS[name], f_maps=8, num_levels=3), FAMILY[name]
     patch, batch = (16, 16, 16), 2
-    task = harness.port_task(dict(cfg, dtype="float32"),
-                             data.weights(cfg, 1, torch.device("cpu")), "cpu")
+    task = fam.port_task(dict(cfg, dtype="float32"),
+                         data.weights(fam, cfg, 1, torch.device("cpu")), "cpu")
     seen = []
 
     def hook(mod, args, kwargs, out):
@@ -77,13 +80,14 @@ def test_k1_bytes_are_the_layers_own(name):
             m.register_forward_hook(hook, with_kwargs=True)
     with torch.no_grad():
         task.model(torch.zeros(batch, 1, *patch))
-    assert sorted(s[:3] for s in seen) == sorted(counting.group_norms(cfg, patch))
+    norms = fam.norm_layers(cfg, patch)
+    assert sorted(s[:3] for s in seen) == sorted(norms)
     elems = sum(s[3] for s in seen)
-    assert counting.k1_forward_bytes(dict(cfg, dtype="float32"), patch, batch) == 4 * elems
-    assert counting.k1_forward_bytes(cfg, patch, batch) == 2 * elems
+    assert counting.k1_forward_bytes(dict(cfg, dtype="float32"), norms, batch) == 4 * elems
+    assert counting.k1_forward_bytes(cfg, norms, batch) == 2 * elems
     # backward: x and dy (and the residual) in, dx (and its gradient) out
     back = sum(x[0] * x[1] * batch * (5 if x[2] else 3) for x in seen)
-    assert counting.k1_backward_bytes(cfg, patch, batch) == 2 * back
+    assert counting.k1_backward_bytes(cfg, norms, batch) == 2 * back
 
 
 def test_k2_bytes():
@@ -93,9 +97,9 @@ def test_k2_bytes():
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_reference_forward_equals_the_program(name):
-    cfg = tiny_cfg(name, dtype="float32")
-    params = data.weights(cfg, 5, torch.device("cpu"))
-    task = harness.port_task(cfg, params, "cpu")
+    cfg, fam = tiny_cfg(name, dtype="float32"), FAMILY[name]
+    params = data.weights(fam, cfg, 5, torch.device("cpu"))
+    task = fam.port_task(cfg, params, "cpu")
     x = torch.randn(2, 1, 16, 16, 16, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         got = task.model(x)
@@ -105,8 +109,8 @@ def test_reference_forward_equals_the_program(name):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_reference_loss_equals_the_program(name):
-    cfg = tiny_cfg(name, dtype="float32")
-    task = harness.port_task(cfg, data.weights(cfg, 5, torch.device("cpu")), "cpu")
+    cfg, fam = tiny_cfg(name, dtype="float32"), FAMILY[name]
+    task = fam.port_task(cfg, data.weights(fam, cfg, 5, torch.device("cpu")), "cpu")
     g = torch.Generator().manual_seed(1)
     logits = torch.randn(4, cfg["out_channels"], 8, 8, 8, generator=g)
     n_hm = len(cfg.get("loss_regression_weight") or [])
@@ -128,8 +132,9 @@ def test_reference_loss_equals_the_program(name):
     assert torch.allclose(a.grad, b.grad, rtol=1e-4, atol=1e-9)
 
 
-def tiny_cell(workload: str, fault=None, seed=12345678901, **cfg_kw):
-    cell = harness.load_cell(workload, seed, 1.0, False, "cpu", bench=BENCH)
+def tiny_cell(workload: str, fault=None, seed=12345678901, bench=BENCH,
+              families=harness.FAMILIES, **cfg_kw):
+    cell = harness.load_cell(workload, seed, 1.0, False, "cpu", bench=bench, families=families)
     cell.cfg = dict(cell.cfg, f_maps=4, num_levels=3, **cfg_kw)
     t = dict(cell.traffic)
     if t["loop"] == "train":
@@ -190,13 +195,13 @@ def test_the_precision_control_is_not_correct(workload):
         n_classes = cfg["out_channels"] - len(cfg.get("loss_regression_weight") or [])
         store = data.training_subjects(t, n_classes, cell.seed, dev)
         ref = train.reference_readings(cell, store)
-        low = train.reference_readings(cell, store, quant=unet.fp8_round)
+        low = train.reference_readings(cell, store, quant=fp8_round)
         checks = ref_train.compare(low, ref)
     else:
         pool = data.serving_pool(t, cell.seed, dev)
-        params = data.weights(cfg, cell.seed, dev)
-        checks = {"logit_gap": max(ref_serve.control_gap(cfg, params, v, t["patch"], t["overlap"],
-                                                         2, dev, unet.fp8_round)
+        params = data.weights(cell.family, cfg, cell.seed, dev)
+        checks = {"logit_gap": max(ref_serve.control_gap(cell.family, cfg, params, v, t["patch"],
+                                                         t["overlap"], 2, dev, fp8_round)
                                    for v in pool.values())}
     judged = harness.judge(checks, cell.limits)
     assert any(c["value"] > c["limit"] for c in judged.values()), judged
@@ -217,8 +222,8 @@ def test_unmoved_convs_pass_the_median_leaf_and_fail_the_worst():
 def test_a_configuration_the_harness_lacks_is_refused(key, value):
     cfg = dict(CONFIGS["resunet3d_organ_f32"], **{key: value})
     with pytest.raises(SystemExit, match=key):
-        harness.check_config(cfg, "configs/x.json")
-    harness.check_config(CONFIGS["resunet3d_organ_f32"], "configs/x.json")
+        harness.family_of(cfg, "configs/x.json")
+    harness.family_of(CONFIGS["resunet3d_organ_f32"], "configs/x.json")
 
 
 def _imports(path: Path):

@@ -3,23 +3,25 @@
 ``Stretch`` runs ``torch.profiler`` (host and device activity) between two
 device synchronisations.  Its reading: the device's busy seconds (the
 union of every kernel's and copy's interval), device seconds by layer
-group, the share of K1's counted statistics launches whose records the
-profiler kept (it drops records now and then; a reading that kept too few
-is not used), the top device operations and the idle gaps named by what
-the host was doing in them (the innermost ``h100bench.*`` span and host
-operator open at the gap's start).
+group (the family's own groups first, then the shared ones), the share of
+K1's counted statistics launches whose records the profiler kept (it
+drops records now and then; a reading that kept too few is not used), the
+top device operations and the idle gaps named by what the host was doing
+in them (the innermost ``h100bench.*`` or program (``tpu_mednet_torch.*``)
+span and host operator open at the gap's start).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import torch
 
 MIN_KEPT = 0.9
 NAMED_GAPS = 200  # the longest gaps named by host activity; the rest summed
 SPAN = "h100bench."
+PROGRAM_SPAN = "tpu_mednet_torch."  # the program's spans (its utils/tracing.py)
 
 # conv kernels are matched by these name parts, unless a layout-copy part
 # also appears (cuDNN's NCDHW <-> NDHWC transposes are "other")
@@ -29,9 +31,18 @@ COPY_PARTS = ("tonhwc", "tonchw", "transpose", "elementwise", "copy", "nchwto", 
               "reduce", "memcpy", "memset")
 
 
-def group_of(name: str) -> str:
-    """The layer group of a device operation's name."""
+def _own_group(low: str, parts: Mapping[str, str]):
+    """The group of the first of the family's name ``parts`` in ``low``."""
+    return next((g for p, g in parts.items() if p.lower() in low), None)
+
+
+def group_of(name: str, parts: Mapping[str, str] = {}) -> str:
+    """The layer group of a device operation's name: the family's own group
+    where one of its name ``parts`` matches, else the shared rule's."""
     low = name.lower()
+    own = _own_group(low, parts)
+    if own is not None:
+        return own
     if "gn_" in low:
         return "k1"
     if "gather_stores" in low:
@@ -41,9 +52,12 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def op_label(name: str) -> str:
+def op_label(name: str, parts: Mapping[str, str] = {}) -> str:
     """A short label of a device operation for the breakdown."""
     low = name.lower()
+    own = _own_group(low, parts)
+    if own is not None:
+        return f"{own} {name[:56]}"
     for part, label in (("gn_bwd_reduce", "K1 gn_bwd_reduce"), ("gn_bwd_apply", "K1 gn_bwd_apply"),
                         ("gn_moments", "K1 gn_moments"), ("gn_apply", "K1 gn_apply"),
                         ("gather_stores", "K2 gather_stores")):
@@ -70,14 +84,16 @@ def _merge(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
 
 
 class Stretch:
-    """``with Stretch(counter) as s: ...`` profiles the block; ``s.read()``
-    reduces it, after the window has closed.  ``counter()`` returns K1's
-    count of statistics launches so far; ``s.host_s`` is the block's whole
-    time after the work queued before it, the profiler's start and stop
-    included."""
+    """``with Stretch(counter, parts) as s: ...`` profiles the block;
+    ``s.read()`` reduces it, after the window has closed.  ``counter()``
+    returns K1's count of statistics launches so far; ``parts`` are the
+    family's kernel name parts and their groups; ``s.host_s`` is the
+    block's whole time after the work queued before it, the profiler's
+    start and stop included."""
 
-    def __init__(self, counter):
+    def __init__(self, counter, parts: Mapping[str, str] = {}):
         self.counter = counter
+        self.parts = parts
 
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
@@ -99,18 +115,19 @@ class Stretch:
         return False
 
     def read(self) -> dict:
-        return dict(reduce_events(self.prof.events(), self.wall, self.launched),
+        return dict(reduce_events(self.prof.events(), self.wall, self.launched, self.parts),
                     host_s=self.host_s)
 
 
-def reduce_events(events, wall: float, k1_launched: int) -> dict:
+def reduce_events(events, wall: float, k1_launched: int,
+                  parts: Mapping[str, str] = {}) -> dict:
     device, host = [], []
     for e in events:
         start, end = e.time_range.start, e.time_range.end
         if e.device_type == torch.autograd.DeviceType.CUDA:
             if not _annotation(e):
                 device.append((start, end, e.name))
-        elif e.name.startswith(SPAN) or e.name.startswith("aten::"):
+        elif e.name.startswith((SPAN, PROGRAM_SPAN, "aten::")):
             host.append((start, end, e.name))
     busy_iv = _merge([(a, b) for a, b, _ in device])
     busy = sum(b - a for a, b in busy_iv) / 1e6
@@ -119,9 +136,10 @@ def reduce_events(events, wall: float, k1_launched: int) -> dict:
     seen = 0
     for a, b, name in device:
         s = (b - a) / 1e6
-        g = group_of(name)
+        g = group_of(name, parts)
         groups[g] = groups.get(g, 0.0) + s
-        ops[op_label(name)] = ops.get(op_label(name), 0.0) + s
+        label = op_label(name, parts)
+        ops[label] = ops.get(label, 0.0) + s
         seen += "gn_moments" in name
     gaps: Dict[str, float] = {}
     idle = sorted(((nxt - end, end) for (_, end), (nxt, _) in zip(busy_iv, busy_iv[1:])),
@@ -146,12 +164,13 @@ def _annotation(e) -> bool:
 
 
 def _host_at(host, t: float) -> str:
-    """The innermost benchmark span and host operator open at time ``t``."""
+    """The innermost benchmark or program span and host operator open at
+    time ``t``."""
     span, op = "", ""
     span_len = op_len = float("inf")
     for a, b, name in host:
         if a <= t <= b:
-            if name.startswith(SPAN) and b - a < span_len:
+            if name.startswith((SPAN, PROGRAM_SPAN)) and b - a < span_len:
                 span, span_len = name, b - a
             elif name.startswith("aten::") and b - a < op_len:
                 op, op_len = name, b - a
