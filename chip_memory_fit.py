@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Fit of the device-memory model's constants on one NVIDIA card.
 
-    python3 chip_memory_fit.py [--out memory_fit.json] [--train-only]
+    python3 chip_memory_fit.py [--out memory_fit.json] [--train-only | --double-only | --swin-only]
 
 Inference (the HBM guard's constants; skipped with ``--train-only``):
 
@@ -47,6 +47,9 @@ runs its UNet3D points and the inference half's UNet3D points alone:
 volume of 192^3 and 320^3 (n_tta 1) and of 192^3 (n_tta 8), each against
 the guard's estimate with its double-family terms, with the windows of
 ``JOIN_INFER_UNITS`` and ``NORM_FIRST_UNITS`` that keep them all in [1, 1.3].
+``--swin-only`` runs Swin UNETR's inference points alone
+(``infer_swin_fit``): the estimate from the model's own
+``config.infer_peak_bytes`` and the window of ``SWIN_INFER_WORK_UNITS``.
 
 It exits non-zero where a ratio leaves [1, 1.3] or the edge volume does
 not fit.
@@ -111,6 +114,12 @@ def main(argv) -> int:
               device=dev, hbm_guard="off")
     rng = np.random.default_rng(0)
     points = []
+    if "--swin-only" in argv:
+        swin = infer_swin_fit(torch, dev, memory, kw, rng)
+        if out_path is not None:
+            out_path.parent.mkdir(parents=True, exist_ok=True)
+            out_path.write_text(json.dumps(dict(card=smi, infer_swin=swin), indent=1))
+        return 0 if swin["ok"] else 1
     if train_only:
         double = infer_double_fit(torch, dev, memory, kw, rng) if double_only else None
         train = train_fit(torch, dev, memory, double_only)
@@ -277,6 +286,74 @@ def infer_double_fit(torch, dev, memory, kw, rng):
           + f"; every ratio in {list(RATIO)}: {ok}", flush=True)
     return dict(ok=ok, join_infer_units=memory.JOIN_INFER_UNITS,
                 norm_first_units=memory.NORM_FIRST_UNITS, windows=windows, points=points)
+
+
+def infer_swin_fit(torch, dev, memory, kw, rng):
+    """The HBM guard's Swin UNETR term: ``SwinUNETR`` at BTCV's widths
+    (feature_size 48, 1 input channel, 14 classes; seeded weights, bf16)
+    through both on-device stitches, one volume of 192^3 and 320^3 with
+    n_tta 1 and of 192^3 with n_tta 8 at batch 8, and of 192^3 at batch 2
+    and 1 (where the masks, which do not grow with the batch, weigh most):
+    peak reserved (and allocated) memory against the estimate from the
+    model's own ``config.infer_peak_bytes``, and the window of
+    ``SWIN_INFER_WORK_UNITS`` that keeps every point in [1, 1.3]."""
+    from tpu_mednet_torch.data import MemoryReader
+    from tpu_mednet_torch.inference import (predict_volumes_on_device,
+                                            predict_volumes_weighted_on_device)
+    from tpu_mednet_torch.models import SwinUNETR, SwinUNETRConfig
+    from tpu_mednet_torch.tasks import SegmentationTask
+
+    stitches = {"device": predict_volumes_on_device,
+                "gaussian": predict_volumes_weighted_on_device}
+    classes = 14
+    model = SwinUNETR(SwinUNETRConfig(1, classes, 48), device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    task = SegmentationTask(model=model)
+    params_b = memory.param_bytes(model)
+    points = []
+    warm = {"images": {"w": rng.standard_normal((1, 96, 96, 96), np.float32)
+                       .astype(np.float16)}}
+    for batch in (8, 2, 1):
+        for fn in stitches.values():
+            fn(task, None, ["w"], reader=MemoryReader(warm), **dict(kw, batch_size=batch))
+    for size, tta, batch in ((192, (), 8), (320, (), 8), (192, (0, 1, 2), 8), (192, (), 2),
+                             (192, (), 1)):
+        vol = rng.standard_normal((1, size, size, size), np.float32).astype(np.float16)
+        unit0 = memory._unit_bytes(batch, PATCH, 0, 48, 2)
+        for stitch, fn in stitches.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            fn(task, None, ["v"], reader=MemoryReader({"images": {"v": vol}}),
+               tta_flips=tta, **dict(kw, batch_size=batch))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            reserved = torch.cuda.max_memory_reserved(dev)
+            allocated = torch.cuda.max_memory_allocated(dev)
+            n_tta = 2 ** len(tta)
+            est, _ = memory.device_stitch_bytes(
+                (size,) * 3, PATCH, OVERLAP, batch, 1, 1, stitch=stitch,
+                params_bytes=params_b, n_tta=n_tta, acc_channels=classes,
+                net_bytes=model.config.infer_peak_bytes(batch, PATCH))
+            points.append(dict(stitch=stitch, size=size, n_tta=n_tta, batch=batch,
+                               reserved=reserved, allocated=allocated, estimate=est,
+                               ratio=est / reserved, unit0=unit0, seconds=seconds))
+            print(f"infer Swin UNETR {stitch:8s} {size}^3 n_tta {n_tta} batch {batch}: "
+                  f"max_memory_reserved {reserved / 2**30:.3f} GiB (allocated "
+                  f"{allocated / 2**30:.3f}), estimate {est / 2**30:.3f} GiB, ratio "
+                  f"{est / reserved:.3f}; {seconds:.2f} s", flush=True)
+        del vol
+    window = [memory.SWIN_INFER_WORK_UNITS + max((RATIO[0] * p["reserved"] - p["estimate"])
+                                                 / p["unit0"] for p in points),
+              memory.SWIN_INFER_WORK_UNITS + min((RATIO[1] * p["reserved"] - p["estimate"])
+                                                 / p["unit0"] for p in points)]
+    ok = all(RATIO[0] <= p["ratio"] <= RATIO[1] for p in points)
+    print(f"inference, Swin UNETR: SWIN_INFER_WORK_UNITS {memory.SWIN_INFER_WORK_UNITS}; "
+          f"the window keeping every point in {list(RATIO)}: [{window[0]:.3f}, "
+          f"{window[1]:.3f}]; every ratio in {list(RATIO)}: {ok}", flush=True)
+    return dict(ok=ok, swin_infer_work_units=memory.SWIN_INFER_WORK_UNITS, window=window,
+                points=points)
 
 
 def train_terms(memory, **kw):

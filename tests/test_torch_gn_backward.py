@@ -223,9 +223,9 @@ def test_every_parameter_gets_the_autograd_gradient_through_kernel_outputs(monke
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.normal(size=(2, 1, 16, 16, 16)).astype(np.float32))
     label = torch.from_numpy(rng.integers(0, 2, size=(2, 16, 16, 16)))
-    def plain(x, groups, w, b, eps, residual=None, act=None):
+    def plain(x, groups, w, b, eps, residual=None, act=None, slope=gn.LEAKY_SLOPE):
         mean_c, mul_c = gn.group_norm_moments_plain(x, groups, w, eps)[:2]
-        return gn.group_norm_apply_plain(x, mean_c, mul_c, b, residual, act)
+        return gn.group_norm_apply_plain(x, mean_c, mul_c, b, residual, act, slope)
 
     with monkeypatch.context() as m:
         m.setattr(blocks.gn, "group_norm", plain)

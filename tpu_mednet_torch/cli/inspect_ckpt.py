@@ -67,13 +67,14 @@ def inspect_checkpoint(ckpt_dir) -> dict:
             task = (LandmarkTask if task_name == "LandmarkNet"
                     else SegmentationTask).from_hparams(ns, device="meta")
             cfg = task.model.config
+            widths = ({"arch": "SwinUNETR", "feature_size": cfg.feature_size}
+                      if hasattr(cfg, "feature_size") else
+                      {"f_maps": list(cfg.feature_maps), "levels": len(cfg.feature_maps),
+                       "block": cfg.block, "layer_order": cfg.layer_order})
             info["model"] = {
                 "in_channels": cfg.in_channels,
                 "out_channels": cfg.out_channels,
-                "f_maps": list(cfg.feature_maps),
-                "levels": len(cfg.feature_maps),
-                "block": cfg.block,
-                "layer_order": cfg.layer_order,
+                **widths,
                 "dtype": str(cfg.dtype).removeprefix("torch."),
                 # a TPU layout the port has not; reported as the run set it
                 "packed": bool(getattr(ns, "packed", False)),
@@ -106,11 +107,11 @@ def _print_text(info: dict) -> None:
         print(f"task       : {info['task']}")
     model = info.get("model")
     if model and "error" not in model:
-        print(
-            "model      : {block} U-Net, f_maps={f_maps} ({levels} levels), "
-            "in={in_channels} out={out_channels}, order={layer_order}, "
-            "dtype={dtype}, packed={packed}".format(**model)
-        )
+        shape = ("Swin UNETR, feature_size={feature_size}" if "feature_size" in model else
+                 "{block} U-Net, f_maps={f_maps} ({levels} levels)")
+        order = "" if "feature_size" in model else ", order={layer_order}"
+        print(("model      : " + shape + ", in={in_channels} out={out_channels}" + order
+               + ", dtype={dtype}, packed={packed}").format(**model))
         print(f"params     : {model['params'] / 1e6:.2f}M "
               f"({model['params']:,})")
     elif model:

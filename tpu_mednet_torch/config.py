@@ -276,8 +276,15 @@ def add_seg_model_args(parser: argparse.ArgumentParser) -> None:
                         default="mean",
                         help="projection of the MIP sample figures logged every "
                              "--log_interval-th validation batch (needs matplotlib)")
-    parser.add_argument("--loss", choices=["DICE", "CE"], default="DICE")
+    parser.add_argument("--loss", choices=["DICE", "CE", "DICE_CE"], default="DICE")
     parser.add_argument("--loss_weight", nargs="+", type=float, default=None)
+    # the port's own: absent from the namespace unless given (flag or -c
+    # config), so a parse without them equals the JAX package's
+    parser.add_argument("--arch", choices=["ResidualUNet3D", "SwinUNETR"],
+                        default=argparse.SUPPRESS,
+                        help="model: ResidualUNet3D (the default) or SwinUNETR (v1)")
+    parser.add_argument("--feature_size", type=int, default=argparse.SUPPRESS,
+                        help="SwinUNETR's embedding width (default 48)")
 
 
 def add_landmark_model_args(parser: argparse.ArgumentParser) -> None:

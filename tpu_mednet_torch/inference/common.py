@@ -210,15 +210,20 @@ def budget_split(task, shapes, subject_keys, patch_size, patch_overlap, batch_si
     cfg = task.model.config
     params_b = param_bytes(task.model)
     n_tta = 2 ** len(tta_flips)
+    # a model that sizes its own forward gives it (Swin UNETR); a U-Net's is
+    # read from its widths
+    if hasattr(cfg, "infer_peak_bytes"):
+        net = dict(net_bytes=cfg.infer_peak_bytes(batch_size, patch_size))
+    else:
+        net = dict(feature_maps=cfg.feature_maps, block=cfg.block, layer_order=cfg.layer_order)
     fit, spill = [], []
     for key in subject_keys:
         ok = check_stitch_budget(
             key, shapes[key][1:], patch_size, patch_overlap, batch_size,
-            cfg.in_channels, getattr(task, "num_heatmaps", 0) + 1, cfg.feature_maps,
+            cfg.in_channels, getattr(task, "num_heatmaps", 0) + 1,
             stitch=stitch, dtype_bytes=torch.finfo(cfg.dtype).bits // 8,
             params_bytes=params_b, n_tta=n_tta, budget_bytes=hbm_budget, guard=hbm_guard,
-            acc_channels=cfg.out_channels, device=device, block=cfg.block,
-            layer_order=cfg.layer_order)
+            acc_channels=cfg.out_channels, device=device, **net)
         (fit if ok else spill).append(key)
     return fit, spill
 

@@ -98,18 +98,30 @@ class GroupNorm(nn.Module):
     """GroupNorm parameters (``weight``/``bias`` like ``nn.GroupNorm``) whose
     forward is K1, with an optional fused residual add and nonlinearity, and
     whose gradient is K1's backward (``gn.group_norm``'s autograd Function).
-    On a space axis the statistics are the whole volume's."""
+    On a space axis the statistics are the whole volume's.
+
+    ``affine=False`` holds no parameters (``nn.InstanceNorm3d``'s default at
+    ``num_groups == num_channels``): K1 then takes a weight of ones and a
+    bias of zeros, kept as buffers outside the state dict.  ``slope`` is
+    the negative slope of a fused LeakyReLU (``act="l"``)."""
 
     space = None
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
-                 device=None):
+                 device=None, affine: bool = True, slope: float = gn.LEAKY_SLOPE):
         super().__init__()
         self.num_groups = num_groups
         self.num_channels = num_channels
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(num_channels, device=device))
-        self.bias = nn.Parameter(torch.zeros(num_channels, device=device))
+        self.slope = slope
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_channels, device=device))
+            self.bias = nn.Parameter(torch.zeros(num_channels, device=device))
+        else:
+            self.register_buffer("weight", torch.ones(num_channels, device=device),
+                                 persistent=False)
+            self.register_buffer("bias", torch.zeros(num_channels, device=device),
+                                 persistent=False)
 
     def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
                 act: Optional[str] = None) -> torch.Tensor:
@@ -117,9 +129,9 @@ class GroupNorm(nn.Module):
             spatial = self.space.extent(x.shape[2]) * x.shape[3] * x.shape[4]
             return gn.SlabGroupNormFunction.apply(
                 x, self.weight, self.bias, residual, self.num_groups, self.eps, act,
-                self.space.reduce_, spatial)
+                self.space.reduce_, spatial, self.slope)
         return gn.group_norm(x, self.num_groups, self.weight, self.bias,
-                             self.eps, residual=residual, act=act)
+                             self.eps, residual=residual, act=act, slope=self.slope)
 
 
 _RECOMPUTE = threading.local()

@@ -52,6 +52,8 @@ BWD_APPLY_LAUNCHES = 0
 
 # order-string nonlinearity -> kernel act code (csrc/groupnorm.cu activate)
 ACT_CODES = {None: 0, "r": 1, "l": 2, "e": 3}
+# LeakyReLU's negative slope where a call gives none (the order-string
+# DSL's ``l``); every entry takes its own (InstanceNorm blocks: 0.01)
 LEAKY_SLOPE = 0.1
 CL3D = torch.channels_last_3d
 
@@ -127,14 +129,16 @@ _TICKETS: Dict[torch.device, torch.Tensor] = {}
 _BWD_TICKETS: Dict[torch.device, torch.Tensor] = {}
 
 
-def activation_plain(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
-    """The order-string nonlinearity (reference components.py:36-40)."""
+def activation_plain(x: torch.Tensor, act: Optional[str],
+                     slope: float = LEAKY_SLOPE) -> torch.Tensor:
+    """The order-string nonlinearity (reference components.py:36-40);
+    ``slope`` is LeakyReLU's negative slope."""
     if act is None:
         return x
     if act == "r":
         return torch.relu(x)
     if act == "l":
-        return torch.nn.functional.leaky_relu(x, LEAKY_SLOPE)
+        return torch.nn.functional.leaky_relu(x, slope)
     if act == "e":
         return torch.nn.functional.elu(x)
     raise ValueError(f"unknown nonlinearity {act!r}")
@@ -317,14 +321,15 @@ def _gn_moments_fake(x, num_groups, weight, eps):
 def group_norm_apply_plain(x: torch.Tensor, mean_c: torch.Tensor,
                            mul_c: torch.Tensor, bias: torch.Tensor,
                            residual: Optional[torch.Tensor] = None,
-                           act: Optional[str] = None) -> torch.Tensor:
+                           act: Optional[str] = None,
+                           slope: float = LEAKY_SLOPE) -> torch.Tensor:
     """fp32 ``act((x - mean) * mul + beta (+ residual))``, rounded once."""
     n, c = mean_c.shape
     y = (x.float() - mean_c.view(n, c, 1, 1, 1)) * mul_c.view(n, c, 1, 1, 1)
     y = y + bias.float().view(1, c, 1, 1, 1)
     if residual is not None:
         y = y + residual.float()
-    y = activation_plain(y, act)
+    y = activation_plain(y, act, slope)
     return y.to(x.dtype).contiguous(memory_format=CL3D)
 
 
@@ -478,7 +483,8 @@ def _apply_plan(x: torch.Tensor, *others: Optional[torch.Tensor]) -> ApplyPlan:
                       torch.cuda.get_device_properties(x.device).multi_processor_count)
 
 
-def _group_norm_apply_cuda(x, mean_c, mul_c, bias, residual=None, act=None):
+def _group_norm_apply_cuda(x, mean_c, mul_c, bias, residual=None, act=None,
+                           slope=LEAKY_SLOPE):
     global APPLY_LAUNCHES
     _build.require_cuda(x, "group_norm_apply")
     _check_activation(x, "group_norm_apply")
@@ -503,7 +509,7 @@ def _group_norm_apply_cuda(x, mean_c, mul_c, bias, residual=None, act=None):
     err = fn(x.data_ptr(), None if residual is None else residual.data_ptr(),
              y.data_ptr(), mean_c.data_ptr(), mul_c.data_ptr(), beta.data_ptr(),
              _build.DTYPE_CODES[x.dtype], n, x.numel() // (n * c), c,
-             ACT_CODES[act], LEAKY_SLOPE, *_plan_fields(plan), _build.stream_of(x))
+             ACT_CODES[act], slope, *_plan_fields(plan), _build.stream_of(x))
     _build.check(err, "tmt_gn_apply")
     APPLY_LAUNCHES += 1
     return y
@@ -511,47 +517,50 @@ def _group_norm_apply_cuda(x, mean_c, mul_c, bias, residual=None, act=None):
 
 def group_norm_apply(x: torch.Tensor, mean_c: torch.Tensor, mul_c: torch.Tensor,
                      bias: torch.Tensor, residual: Optional[torch.Tensor] = None,
-                     act: Optional[str] = None) -> torch.Tensor:
-    """K1 apply: ``act((x - mean) * mul + beta (+ residual))`` in x's dtype."""
+                     act: Optional[str] = None, slope: float = LEAKY_SLOPE) -> torch.Tensor:
+    """K1 apply: ``act((x - mean) * mul + beta (+ residual))`` in x's dtype
+    (``slope``: LeakyReLU's)."""
     if act not in ACT_CODES:
         raise ValueError(f"unknown nonlinearity {act!r}")
     if x.device.type == "cpu":
-        return group_norm_apply_plain(x, mean_c, mul_c, bias, residual, act)
-    return _group_norm_apply_cuda(x, mean_c, mul_c, bias, residual, act)
+        return group_norm_apply_plain(x, mean_c, mul_c, bias, residual, act, slope)
+    return _group_norm_apply_cuda(x, mean_c, mul_c, bias, residual, act, slope)
 
 
 @torch.library.custom_op("tpu_mednet_torch::gn_apply", mutates_args=(),
                          device_types=("cpu", "cuda"))
 def _gn_apply_op(x: Tensor, mean_c: Tensor, mul_c: Tensor, bias: Tensor,
-                 residual: Optional[Tensor], act: Optional[str]) -> Tensor:
-    return group_norm_apply(x, mean_c, mul_c, bias, residual, act)
+                 residual: Optional[Tensor], act: Optional[str],
+                 slope: float = LEAKY_SLOPE) -> Tensor:
+    return group_norm_apply(x, mean_c, mul_c, bias, residual, act, slope)
 
 
 @_gn_apply_op.register_fake
-def _gn_apply_fake(x, mean_c, mul_c, bias, residual, act):
+def _gn_apply_fake(x, mean_c, mul_c, bias, residual, act, slope=LEAKY_SLOPE):
     return torch.empty_like(x, memory_format=CL3D)
 
 
 def group_norm_plain(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
                      bias: torch.Tensor, eps: float = 1e-5,
                      residual: Optional[torch.Tensor] = None,
-                     act: Optional[str] = None) -> torch.Tensor:
+                     act: Optional[str] = None, slope: float = LEAKY_SLOPE) -> torch.Tensor:
     """The plain forward on any device, differentiated by torch autograd:
     the reference the kernels and the closed-form backward are held to."""
     stats = group_norm_moments_plain(x, num_groups, weight, eps)
-    return group_norm_apply_plain(x, stats.mean, stats.mul, bias, residual, act)
+    return group_norm_apply_plain(x, stats.mean, stats.mul, bias, residual, act, slope)
 
 
 # -- backward -----------------------------------------------------------------
 
-def activation_grad_plain(z: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+def activation_grad_plain(z: torch.Tensor, act: Optional[str],
+                          slope: float = LEAKY_SLOPE) -> torch.Tensor:
     """act'(z) in fp32, as torch's own backward of each nonlinearity takes it."""
     if act is None:
         return torch.ones_like(z)
     if act == "r":
         return (z > 0).to(z.dtype)
     if act == "l":
-        return torch.where(z > 0, 1.0, LEAKY_SLOPE).to(z.dtype)
+        return torch.where(z > 0, 1.0, slope).to(z.dtype)
     if act == "e":
         return torch.where(z > 0, torch.ones_like(z), torch.exp(z))
     raise ValueError(f"unknown nonlinearity {act!r}")
@@ -568,7 +577,8 @@ def group_norm_backward_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.T
                               rstd_c: torch.Tensor, weight: torch.Tensor,
                               bias: torch.Tensor, num_groups: int,
                               residual: Optional[torch.Tensor] = None,
-                              act: Optional[str] = None) -> GroupNormGrads:
+                              act: Optional[str] = None,
+                              slope: float = LEAKY_SLOPE) -> GroupNormGrads:
     """The closed-form backward of ``group_norm`` in fp32 torch ops.
 
     With z the forward's pre-activation, dz = dy * act'(z) and
@@ -580,7 +590,7 @@ def group_norm_backward_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.T
     except that the reduce sums B as rstd * sum dz * (x - mean).
     """
     xm, mul, dz, coef = backward_terms_plain(x, dy, mean_c, rstd_c, weight, bias,
-                                             num_groups, residual, act)
+                                             num_groups, residual, act, slope)
     dx, dr = _backward_apply_plain(x, xm, mul, dz, coef, residual)
     return GroupNormGrads(dx, coef[1].sum(0).to(weight.dtype), coef[0].sum(0).to(bias.dtype),
                           dr)
@@ -598,12 +608,12 @@ def _backward_apply_plain(x, xm, mul, dz, coef, residual):
 def backward_terms_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor,
                          rstd_c: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                          num_groups: int, residual: Optional[torch.Tensor] = None,
-                         act: Optional[str] = None):
+                         act: Optional[str] = None, slope: float = LEAKY_SLOPE):
     """fp32 (x - mean, mul = rstd * gamma (N, C), dz, coef) of
     ``group_norm_backward_plain``; coef (4, N, C) holds A, B, coeff_b and
     coeff_c, as the reduce kernel's output does."""
     xm, mul, dz, a, b = backward_sums_plain(x, dy, mean_c, rstd_c, weight, bias,
-                                            residual, act)
+                                            residual, act, slope)
     n, c = mean_c.shape
     count = (x.numel() // max(1, n * c)) * (c // num_groups)
     coeff_b, coeff_c = backward_coefficients(a, b, rstd_c, weight, num_groups, count)
@@ -613,7 +623,7 @@ def backward_terms_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor
 def backward_sums_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor,
                         rstd_c: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                         residual: Optional[torch.Tensor] = None,
-                        act: Optional[str] = None):
+                        act: Optional[str] = None, slope: float = LEAKY_SLOPE):
     """fp32 (x - mean, mul, dz, A, B) of the backward, before the group fold."""
     n, c = mean_c.shape
     view = (n, c, 1, 1, 1)
@@ -623,7 +633,7 @@ def backward_sums_plain(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor,
     z = xm * mul.view(view) + bias.float().view(1, c, 1, 1, 1)
     if residual is not None:
         z = z + residual.float()
-    dz = dy.float() * activation_grad_plain(z, act)
+    dz = dy.float() * activation_grad_plain(z, act, slope)
     del z
     a = dz.sum(dim=(2, 3, 4))
     b = (dz * (xm * rstd_c.view(view))).sum(dim=(2, 3, 4))
@@ -690,7 +700,8 @@ def reduce_info(x: torch.Tensor, num_groups: int, plan: ReducePlan,
     return dict(registers=info[0], blocks_per_sm=info[1], smem_bytes=info[2])
 
 
-def _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act, fold=True, plan=None):
+def _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act, fold=True, plan=None,
+                     slope=LEAKY_SLOPE):
     """One launch of ``gn_bwd_reduce_kernel`` (``plan``: ``reduce_plan``'s
     unless given): (4, N, C) A, B, coeff_b, coeff_c, or with ``fold`` off
     (2, N, C) A and B."""
@@ -705,7 +716,7 @@ def _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act, fold=True, plan=No
     err = fn(x.data_ptr(), dy.data_ptr(), None if residual is None else residual.data_ptr(),
              _build.DTYPE_CODES[x.dtype], n, s, c, num_groups, mean_c.data_ptr(),
              rstd_c.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ACT_CODES[act],
-             LEAKY_SLOPE, *_reduce_fields(plan), part.data_ptr(),
+             slope, *_reduce_fields(plan), part.data_ptr(),
              _tickets(x.device, n, _BWD_TICKETS).data_ptr(), coef.data_ptr(), int(fold),
              _build.stream_of(x))
     _build.check(err, "tmt_gn_bwd_reduce")
@@ -713,7 +724,7 @@ def _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act, fold=True, plan=No
     return coef
 
 
-def _bwd_apply_cuda(x, dy, stats, coef, residual, act):
+def _bwd_apply_cuda(x, dy, stats, coef, residual, act, slope=LEAKY_SLOPE):
     """One launch of ``gn_bwd_apply_kernel`` from coef (4, N, C): dx, and
     the residual's gradient where there is one."""
     global BWD_APPLY_LAUNCHES
@@ -726,7 +737,7 @@ def _bwd_apply_cuda(x, dy, stats, coef, residual, act):
              dx.data_ptr(), None if dr is None else dr.data_ptr(),
              _build.DTYPE_CODES[x.dtype], n, x.numel() // (n * c), c, mean_c.data_ptr(),
              rstd_c.data_ptr(), gamma.data_ptr(), beta.data_ptr(), coef.data_ptr(),
-             ACT_CODES[act], LEAKY_SLOPE,
+             ACT_CODES[act], slope,
              *_plan_fields(_apply_plan(x, dy, residual, dx, dr)), _build.stream_of(x))
     _build.check(err, "tmt_gn_bwd_apply")
     BWD_APPLY_LAUNCHES += 1
@@ -734,10 +745,10 @@ def _bwd_apply_cuda(x, dy, stats, coef, residual, act):
 
 
 def _group_norm_backward_cuda(x, dy, mean_c, rstd_c, weight, bias, num_groups,
-                              residual=None, act=None):
+                              residual=None, act=None, slope=LEAKY_SLOPE):
     stats = _backward_inputs(x, dy, mean_c, rstd_c, weight, bias, residual)
-    coef = _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act)
-    dx, dr = _bwd_apply_cuda(x, dy, stats, coef, residual, act)
+    coef = _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act, slope=slope)
+    dx, dr = _bwd_apply_cuda(x, dy, stats, coef, residual, act, slope)
     return GroupNormGrads(dx, coef[1].sum(0).to(weight.dtype),
                           coef[0].sum(0).to(bias.dtype), dr)
 
@@ -745,7 +756,8 @@ def _group_norm_backward_cuda(x, dy, mean_c, rstd_c, weight, bias, num_groups,
 def group_norm_backward(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor,
                         rstd_c: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                         num_groups: int, residual: Optional[torch.Tensor] = None,
-                        act: Optional[str] = None) -> GroupNormGrads:
+                        act: Optional[str] = None, slope: float = LEAKY_SLOPE
+                        ) -> GroupNormGrads:
     """K1 backward: (dx, dweight, dbias, dresidual) of ``group_norm``.
 
     On CUDA one launch of ``gn_bwd_reduce_kernel`` and one of
@@ -757,22 +769,23 @@ def group_norm_backward(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor,
         raise ValueError(f"unknown nonlinearity {act!r}")
     if x.device.type == "cpu":
         return group_norm_backward_plain(x, dy, mean_c, rstd_c, weight, bias,
-                                         num_groups, residual, act)
+                                         num_groups, residual, act, slope)
     return _group_norm_backward_cuda(x, dy, mean_c, rstd_c, weight, bias,
-                                     num_groups, residual, act)
+                                     num_groups, residual, act, slope)
 
 
 class GroupNormFunction(torch.autograd.Function):
     """``group_norm`` under autograd: K1's forward kernels, and K1's
     backward kernels for the gradient.  Saves x, the residual and the
-    per-(n, c) mean and rstd; z is recomputed in the backward."""
+    per-(n, c) mean and rstd; z is recomputed in the backward.  ``slope``,
+    LeakyReLU's, may be left out (``LEAKY_SLOPE``)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, residual, num_groups, eps, act):
+    def forward(ctx, x, weight, bias, residual, num_groups, eps, act, slope=LEAKY_SLOPE):
         stats = group_norm_moments(x, num_groups, weight, eps)
-        y = group_norm_apply(x, stats.mean, stats.mul, bias, residual, act)
+        y = group_norm_apply(x, stats.mean, stats.mul, bias, residual, act, slope)
         ctx.save_for_backward(x, weight, bias, residual, stats.mean, stats.rstd)
-        ctx.num_groups, ctx.act = num_groups, act
+        ctx.num_groups, ctx.act, ctx.slope = num_groups, act, slope
         return y
 
     @staticmethod
@@ -780,14 +793,15 @@ class GroupNormFunction(torch.autograd.Function):
         x, weight, bias, residual, mean_c, rstd_c = ctx.saved_tensors
         dy = dy.contiguous(memory_format=CL3D)
         g = group_norm_backward(x, dy, mean_c, rstd_c, weight, bias, ctx.num_groups,
-                                residual, ctx.act)
-        return g.dx, g.dweight, g.dbias, g.dresidual, None, None, None
+                                residual, ctx.act, ctx.slope)
+        return g.dx, g.dweight, g.dbias, g.dresidual, None, None, None, None
 
 
 def group_norm_backward_sums(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor,
                              rstd_c: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                              num_groups: int, residual: Optional[torch.Tensor] = None,
-                             act: Optional[str] = None) -> torch.Tensor:
+                             act: Optional[str] = None,
+                             slope: float = LEAKY_SLOPE) -> torch.Tensor:
     """K1's backward reduce with the fold off: (2, N, C) fp32 A = sum dz and
     B = sum dz * xhat of one slab, to be added over the slabs of a volume
     before ``backward_coefficients``.  On CUDA one launch of
@@ -795,26 +809,27 @@ def group_norm_backward_sums(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Te
     if act not in ACT_CODES:
         raise ValueError(f"unknown nonlinearity {act!r}")
     if x.device.type == "cpu":
-        *_, a, b = backward_sums_plain(x, dy, mean_c, rstd_c, weight, bias, residual, act)
+        *_, a, b = backward_sums_plain(x, dy, mean_c, rstd_c, weight, bias, residual, act,
+                                       slope)
         return torch.stack((a, b))
     stats = _backward_inputs(x, dy, mean_c, rstd_c, weight, bias, residual)
-    return _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act, fold=False)
+    return _bwd_reduce_cuda(x, dy, stats, num_groups, residual, act, fold=False, slope=slope)
 
 
 def group_norm_backward_apply(x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor,
                               rstd_c: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                               coef: torch.Tensor, residual: Optional[torch.Tensor] = None,
-                              act: Optional[str] = None
+                              act: Optional[str] = None, slope: float = LEAKY_SLOPE
                               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K1's backward apply from coef (4, N, C) = (A, B, coeff_b, coeff_c):
     dx and the residual's gradient (None without a residual).  On CUDA one
     launch of ``gn_bwd_apply_kernel``."""
     if x.device.type == "cpu":
         xm, mul, dz, _, _ = backward_sums_plain(x, dy, mean_c, rstd_c, weight, bias,
-                                                residual, act)
+                                                residual, act, slope)
         return _backward_apply_plain(x, xm, mul, dz, coef, residual)
     stats = _backward_inputs(x, dy, mean_c, rstd_c, weight, bias, residual)
-    return _bwd_apply_cuda(x, dy, stats, coef.contiguous(), residual, act)
+    return _bwd_apply_cuda(x, dy, stats, coef.contiguous(), residual, act, slope)
 
 
 class SlabGroupNormFunction(torch.autograd.Function):
@@ -828,13 +843,14 @@ class SlabGroupNormFunction(torch.autograd.Function):
     of each of K1's four kernels."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, residual, num_groups, eps, act, reduce, spatial):
+    def forward(ctx, x, weight, bias, residual, num_groups, eps, act, reduce, spatial,
+                slope=LEAKY_SLOPE):
         sums = group_norm_sums(x)
         reduce(sums)
         stats = fold_group_stats(sums[0], sums[1], spatial, num_groups, weight, eps)
-        y = group_norm_apply(x, stats.mean, stats.mul, bias, residual, act)
+        y = group_norm_apply(x, stats.mean, stats.mul, bias, residual, act, slope)
         ctx.save_for_backward(x, weight, bias, residual, stats.mean, stats.rstd)
-        ctx.num_groups, ctx.act, ctx.reduce = num_groups, act, reduce
+        ctx.num_groups, ctx.act, ctx.reduce, ctx.slope = num_groups, act, reduce, slope
         ctx.count = spatial * (x.shape[1] // num_groups)
         return y
 
@@ -843,23 +859,24 @@ class SlabGroupNormFunction(torch.autograd.Function):
         x, weight, bias, residual, mean_c, rstd_c = ctx.saved_tensors
         dy = dy.contiguous(memory_format=CL3D)
         ab = group_norm_backward_sums(x, dy, mean_c, rstd_c, weight, bias, ctx.num_groups,
-                                      residual, ctx.act)
+                                      residual, ctx.act, ctx.slope)
         dweight, dbias = ab[1].sum(0).to(weight.dtype), ab[0].sum(0).to(bias.dtype)
         ctx.reduce(ab)
         coeff_b, coeff_c = backward_coefficients(ab[0], ab[1], rstd_c, weight,
                                                  ctx.num_groups, ctx.count)
         dx, dr = group_norm_backward_apply(x, dy, mean_c, rstd_c, weight, bias,
                                            torch.stack((ab[0], ab[1], coeff_b, coeff_c)),
-                                           residual, ctx.act)
-        return dx, dweight, dbias, dr, None, None, None, None, None
+                                           residual, ctx.act, ctx.slope)
+        return dx, dweight, dbias, dr, None, None, None, None, None, None
 
 
 def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
                bias: torch.Tensor, eps: float = 1e-5,
                residual: Optional[torch.Tensor] = None,
-               act: Optional[str] = None) -> torch.Tensor:
-    """GroupNorm (+ residual add) (+ nonlinearity) of a channels_last_3d
-    activation, differentiable: the moments kernel, then the apply kernel;
+               act: Optional[str] = None, slope: float = LEAKY_SLOPE) -> torch.Tensor:
+    """GroupNorm (+ residual add) (+ nonlinearity, LeakyReLU at ``slope``) of
+    a channels_last_3d activation, differentiable: the moments kernel, then
+    the apply kernel;
     the backward kernels under autograd.  Where no input needs a gradient
     the forward goes through the two custom ops, which ``torch.export``
     traces; under autograd ``GroupNormFunction`` calls the wrappers
@@ -868,7 +885,8 @@ def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
         _build.require_cuda(x, "group_norm")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, weight, bias, residual)):
-        return GroupNormFunction.apply(x, weight, bias, residual, num_groups, eps, act)
+        return GroupNormFunction.apply(x, weight, bias, residual, num_groups, eps, act,
+                                       slope)
     ops = torch.ops.tpu_mednet_torch
     mean, mul, _ = ops.gn_moments(x, num_groups, weight, float(eps))
-    return ops.gn_apply(x, mean, mul, bias, residual, act)
+    return ops.gn_apply(x, mean, mul, bias, residual, act, float(slope))

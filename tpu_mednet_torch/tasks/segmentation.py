@@ -1,4 +1,4 @@
-"""Segmentation task: the residual 3D U-Net, Dice/CE loss and dice metrics.
+"""Segmentation task: the residual 3D U-Net or Swin UNETR, Dice/CE loss and dice metrics.
 
 Counterpart of ``tpu_mednet/tasks/segmentation.py`` (reference
 ``midasmednet/segmentation.py:22-131``): a small task object bundles the
@@ -6,7 +6,11 @@ model with the loss and metric functions the train and eval steps call.
 
 - the class-value map is the LAST label channel (segmentation.py:60,96);
 - the loss is ``dice_loss(weight)`` for 'DICE' or cross-entropy for 'CE'
-  (segmentation.py:43-49, without the reference's double softmax);
+  (segmentation.py:43-49, without the reference's double softmax), or
+  their sum for 'DICE_CE' (MONAI's ``DiceCELoss`` at its default weights
+  of 1 each, the Swin UNETR BTCV recipe's loss);
+- ``from_hparams`` builds ``ResidualUNet3D``, or with ``arch``
+  'SwinUNETR' ``models.SwinUNETR`` at ``feature_size`` (default 48);
 - validation reports ``val_loss`` and per-channel ``val_dice{c}``
   (segmentation.py:104-117);
 - ``predict_postprocess`` is softmax -> argmax -> uint8 with a singleton
@@ -19,25 +23,31 @@ and ``label`` (N, Cl, X, Y, Z).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from tpu_mednet_torch._device import DeviceLike
 from tpu_mednet_torch.config import parse_remat
+from tpu_mednet_torch.models.swin_unetr import SwinUNETR, SwinUNETRConfig
 from tpu_mednet_torch.models.unet import ResidualUNet3D, UNet3DBase
 from tpu_mednet_torch.ops import losses as L
+
+ARCHS = ("ResidualUNet3D", "SwinUNETR")
+LOSSES = ("DICE", "CE", "DICE_CE")
 
 
 @dataclasses.dataclass(eq=False)
 class SegmentationTask:
     """Bundles the model and the loss for volumetric multi-class segmentation."""
 
-    model: UNet3DBase
-    loss: str = "DICE"  # 'DICE' | 'CE'
+    model: Union[UNet3DBase, SwinUNETR]
+    loss: str = "DICE"  # 'DICE' | 'CE' | 'DICE_CE'
     loss_weight: Optional[Sequence[float]] = None
 
     def __post_init__(self):
+        if self.loss not in LOSSES:
+            raise ValueError(f"loss must be one of {LOSSES}, got {self.loss!r}")
         self._weights = L.HeldWeights(cls=(self.loss_weight, self.out_channels))
 
     @classmethod
@@ -45,15 +55,33 @@ class SegmentationTask:
                      generator: Optional[torch.Generator] = None
                      ) -> "SegmentationTask":
         """Build from a train_seg-style hparams namespace (in_channels/
-        out_channels/fmaps/bf16/remat/loss/loss_weight).  ``packed`` changes
-        neither parameters nor results and has no layout here, so it is
-        ignored."""
+        out_channels/fmaps/bf16/remat/loss/loss_weight, and ``arch`` and
+        ``feature_size`` where given).  ``packed`` changes neither
+        parameters nor results and has no layout here, so it is ignored.
+        Swin UNETR takes no ``remat``: it trains whole on one card."""
+        arch = getattr(hparams, "arch", "ResidualUNet3D")
+        dtype = torch.bfloat16 if getattr(hparams, "bf16", True) else torch.float32
+        if arch not in ARCHS:
+            raise ValueError(f"arch must be one of {ARCHS}, got {arch!r}")
+        if arch == "SwinUNETR":
+            if parse_remat(getattr(hparams, "remat", False)):
+                raise ValueError("--remat is not implemented for SwinUNETR")
+            if int(getattr(hparams, "spatial_shards", 1) or 1) > 1:
+                raise ValueError("--spatial_shards is not implemented for SwinUNETR "
+                                 "(its windows and merges have no halo exchange)")
+            config = SwinUNETRConfig(in_channels=hparams.in_channels,
+                                     out_channels=hparams.out_channels,
+                                     feature_size=int(getattr(hparams, "feature_size", 48)),
+                                     dtype=dtype)
+            return cls(model=SwinUNETR(config, device=device, generator=generator),
+                       loss=getattr(hparams, "loss", "DICE"),
+                       loss_weight=getattr(hparams, "loss_weight", None))
         model = ResidualUNet3D(
             in_channels=hparams.in_channels,
             out_channels=hparams.out_channels,
             final_sigmoid=False,
             f_maps=hparams.fmaps,
-            dtype=torch.bfloat16 if getattr(hparams, "bf16", True) else torch.float32,
+            dtype=dtype,
             device=device,
             generator=generator,
             remat=parse_remat(getattr(hparams, "remat", False)),
@@ -82,7 +110,8 @@ class SegmentationTask:
         elif self.loss == "CE":
             loss = L.ce_loss(outputs, labels, weight=weight, dp=dp)
         else:
-            raise ValueError(f"loss must be 'DICE' or 'CE', got {self.loss!r}")
+            loss = (L.dice_loss(outputs, labels, weight=weight, dp=dp)
+                    + L.ce_loss(outputs, labels, weight=weight, dp=dp))
         return loss, {}
 
     def val_metrics(self, outputs: torch.Tensor, batch: Dict[str, torch.Tensor], dp=None

@@ -79,16 +79,24 @@ def _check_resume_architecture(hp_prev: dict, config, resume) -> None:
     """Refuse a --resume whose CLI hparams build a different model.
 
     Compares the checkpoint's in/out channels and per-level feature maps
-    (an int ``fmaps`` expands over the default 5 levels) with the model
-    the Trainer was given."""
+    (an int ``fmaps`` expands over the default 5 levels), or a Swin
+    UNETR's ``feature_size``, with the model the Trainer was given."""
     problems = []
     for key, ours in (("in_channels", config.in_channels),
                       ("out_channels", config.out_channels)):
         theirs = hp_prev.get(key)
         if theirs is not None and int(theirs) != int(ours):
             problems.append(f"{key}: checkpoint {theirs} vs CLI {ours}")
+    swin = hasattr(config, "feature_size")
+    if swin != (hp_prev.get("arch", "ResidualUNet3D") == "SwinUNETR"):
+        problems.append(f"arch: checkpoint {hp_prev.get('arch', 'ResidualUNet3D')} vs CLI "
+                        f"{'SwinUNETR' if swin else 'ResidualUNet3D'}")
+    elif swin:
+        fs = hp_prev.get("feature_size", 48)
+        if int(fs) != config.feature_size:
+            problems.append(f"feature_size: checkpoint {fs} vs CLI {config.feature_size}")
     fm = hp_prev.get("fmaps")
-    if fm is not None:
+    if fm is not None and not swin:
         theirs = (create_feature_maps(int(fm), 5) if not isinstance(fm, (list, tuple))
                   else tuple(int(x) for x in fm))
         if theirs != tuple(config.feature_maps):

@@ -9,12 +9,14 @@ that run the model (cuDNN's algorithms, the packed TPU layout), so both
 packages report the same numbers for the same shapes.
 
 Reference geometry: ResidualUNet3D / UNet3D
-(`midasmednet/unet/model.py:11-213`).
+(`midasmednet/unet/model.py:11-213`); Swin UNETR v1 (MONAI's
+``SwinUNETR``, ``models/swin_unetr.py``), whose count adds its Linear
+layers' and window attention's matrix products to the convolutions'.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 
 def _conv_flops(spatial: Sequence[int], k: int, c_in: int, c_out: int) -> float:
@@ -90,3 +92,68 @@ def unet_train_step_flops(
     return 3.0 * batch * unet_forward_flops(
         in_channels, out_channels, feature_maps, patch, block=block
     )
+
+
+def swin_unetr_forward_terms(
+    in_channels: int,
+    out_channels: int,
+    feature_size: int,
+    patch: Tuple[int, int, int],
+    depths: Sequence[int] = (2, 2, 2, 2),
+    num_heads: Sequence[int] = (3, 6, 12, 24),
+    window: int = 7,
+    patch_size: int = 2,
+    mlp_ratio: int = 4,
+) -> Dict[str, float]:
+    """Logical forward flops of one sample through Swin UNETR v1, by kind:
+
+    - ``conv``: the patch embedding, every 3^3 and 1x1x1 convolution of the
+      residual blocks at its output extent, the 2^3 stride-2 transposed
+      convolutions at their input extent, the 1x1x1 head;
+    - ``linear``: qkv, proj and the MLP's two layers at the stage's own
+      tokens, and the patch merging at the merged tokens (2 x tokens x
+      C_in x C_out each);
+    - ``attention``: QK^T and PV, 4 n^2 d a window and head, over the
+      windows of the padded grid (padded tokens attend and are attended).
+    """
+    fs = feature_size
+    vox = [p // patch_size for p in patch]
+    n_vox = vox[0] * vox[1] * vox[2]
+    conv = _conv_flops(vox, 1, in_channels * patch_size ** 3, fs)
+    linear = attention = 0.0
+    for i, (depth, heads) in enumerate(zip(depths, num_heads)):
+        c = fs * 2 ** i
+        ext = [v // 2 ** i for v in vox]
+        tokens = ext[0] * ext[1] * ext[2]
+        ws = [e if e <= window else window for e in ext]
+        n = ws[0] * ws[1] * ws[2]
+        windows = 1
+        for e, w in zip(ext, ws):
+            windows *= -(-e // w)
+        per_block = 2.0 * tokens * (3 * c * c + c * c + 2 * mlp_ratio * c * c)
+        linear += depth * per_block + 2.0 * (tokens // 8) * 8 * c * 2 * c
+        attention += depth * 4.0 * n * n * (c // heads) * windows * heads
+
+    def res(spatial, c_in, c_out):
+        f = _conv_flops(spatial, 3, c_in, c_out) + _conv_flops(spatial, 3, c_out, c_out)
+        return f + (_conv_flops(spatial, 1, c_in, c_out) if c_in != c_out else 0.0)
+
+    def at(level):
+        return [p // 2 ** level for p in patch]
+
+    conv += res(at(0), in_channels, fs) + res(at(1), fs, fs) + res(at(2), 2 * fs, 2 * fs)
+    conv += res(at(3), 4 * fs, 4 * fs) + res(at(5), 16 * fs, 16 * fs)
+    for level, c_in, c_out in ((4, 16 * fs, 8 * fs), (3, 8 * fs, 4 * fs),
+                               (2, 4 * fs, 2 * fs), (1, 2 * fs, fs), (0, fs, fs)):
+        conv += _conv_flops(at(level + 1), 2, c_in, c_out) + res(at(level), 2 * c_out, c_out)
+    conv += _conv_flops(patch, 1, fs, out_channels)
+    return {"conv": conv, "linear": linear, "attention": attention}
+
+
+def swin_unetr_forward_flops(in_channels: int, out_channels: int, feature_size: int,
+                             patch: Tuple[int, int, int], **kw) -> float:
+    """Logical forward flops of one sample through Swin UNETR v1: every
+    convolution, Linear layer and attention product
+    (``swin_unetr_forward_terms``)."""
+    return float(sum(swin_unetr_forward_terms(in_channels, out_channels, feature_size,
+                                              patch, **kw).values()))

@@ -51,6 +51,21 @@ does not hold.  ``JOIN_INFER_UNITS`` and ``NORM_FIRST_UNITS`` are the
 centre of the window that keeps those twelve points in [1, 1.3] (1.111 to
 1.190, 11 % from each end).
 
+Swin UNETR (``models/swin_unetr.py``) gives its own forward working set
+(``SwinUNETRConfig.infer_peak_bytes``: ``swin_unetr_infer_peak_bytes``
+with its shifted blocks' masks), which the guard takes in place of the
+U-Net's.  ``chip_memory_fit.py --swin-only`` on the same card, BTCV's
+widths (feature_size 48, 1 -> 14, bf16), 96^3 tiles, overlap 16; peak
+reserved GiB (estimate / measured) on the device and the Gaussian stitch:
+192^3 5.764 (1.134), 7.660 (1.126); 320^3 5.908 (1.129), 9.613 (1.097);
+192^3 n_tta 8 7.029 (1.192), 8.926 (1.173), each at batch 8; 192^3 at
+batch 2 1.770 (1.177), 2.717 (1.130) and at batch 1 1.141 (1.176), 1.918
+(1.118), each ratio at the constant below (the run, at 8.0, read 1.165 to
+1.295).  ``SWIN_INFER_WORK_UNITS`` is the centre of the window that keeps
+those ten points in [1, 1.3] ([5.65, 8.06]).  Read as a residual U-Net's
+(widths 48, 48, 96, 192, 384, 768), the same points estimated 0.936 to
+1.195: under the peak at batch 1, where the masks weigh most.
+
 Two 192^3 volumes in one call peak as one does (the pipeline's pending
 uint8 result is small).  The constants are the centre of the window that
 keeps every point's ratio in [1, 1.3] (margin 1.3 % each side: the
@@ -151,6 +166,13 @@ TRAIN_WORK_UNITS = 13.5
 DOUBLE_OVERHEAD = 0.24
 JOIN_UNITS = 1.26
 
+# full-resolution units (feature_size channels) that one Swin UNETR
+# inference forward holds beyond the features its decoder joins and its
+# shifted blocks' masks: the last up block's transposed conv, concatenation
+# and residual block, the head and the allocator's cached blocks (fit on
+# the card, module docstring)
+SWIN_INFER_WORK_UNITS = 6.86
+
 # fp32 patch batches at the model's output width that mirror TTA keeps
 # live beside the forward: the running sum, a flipped activation and its
 # flip back (fit on the card, module docstring)
@@ -196,6 +218,26 @@ def unet_infer_peak_bytes(batch: int, patch: Sequence[int],
         joins = JOIN_INFER_UNITS + (NORM_FIRST_UNITS if norm_before_conv(layer_order) else 0)
         work += joins * _unit_bytes(batch, patch, 0, f[0] + f[1], dtype_bytes)
     return int(skips + work)
+
+
+def swin_unetr_infer_peak_bytes(batch: int, patch: Sequence[int], feature_size: int,
+                                fixed_bytes: int = 0, dtype_bytes: int = 2) -> int:
+    """Working set of one Swin UNETR inference forward
+    (``models/swin_unetr.py``): the features held to the end of the
+    forward (enc0 at full resolution; at levels 1-3 a hidden state and its
+    encoder block's output, ``feature_size`` wide at level 1 and doubling a
+    level; hs3 at level 4, hs4 at level 5), ``SWIN_INFER_WORK_UNITS``
+    full-resolution units, and ``fixed_bytes``, what the model holds
+    whatever the batch (its shifted blocks' masks,
+    ``SwinUNETRConfig.infer_peak_bytes``)."""
+    fs = feature_size
+    held = _unit_bytes(batch, patch, 0, fs, dtype_bytes)
+    held += sum(2 * _unit_bytes(batch, patch, lvl, fs << (lvl - 1), dtype_bytes)
+                for lvl in (1, 2, 3))
+    held += _unit_bytes(batch, patch, 4, 8 * fs, dtype_bytes)
+    held += _unit_bytes(batch, patch, 5, 16 * fs, dtype_bytes)
+    work = SWIN_INFER_WORK_UNITS * _unit_bytes(batch, patch, 0, fs, dtype_bytes)
+    return int(held + work + fixed_bytes)
 
 
 def unet_train_peak_bytes(batch: int, patch: Sequence[int], feature_maps: Sequence[int],
@@ -276,7 +318,7 @@ def device_stitch_bytes(
     batch_size: int,
     in_channels: int,
     out_channels: int,
-    feature_maps: Sequence[int],
+    feature_maps: Sequence[int] = (),
     stitch: str = "device",
     dtype_bytes: int = 2,
     params_bytes: int = 0,
@@ -284,6 +326,7 @@ def device_stitch_bytes(
     acc_channels: Optional[int] = None,
     block: str = "residual",
     layer_order: str = "cge",
+    net_bytes: Optional[int] = None,
 ) -> Tuple[int, Dict[str, int]]:
     """Estimated device bytes of one volume on an on-device stitch.
 
@@ -298,8 +341,11 @@ def device_stitch_bytes(
       fp32 weight accumulator instead of the padded result.
 
     ``acc_channels`` (default ``out_channels``) also sizes the TTA term,
-    whose running sum is the model's output width.  ``block`` and
-    ``layer_order`` are the model's (``unet_infer_peak_bytes``).
+    whose running sum is the model's output width.  The model's forward
+    working set is ``net_bytes`` where the model gives its own (Swin
+    UNETR's ``config.infer_peak_bytes``), else the U-Net's of
+    ``feature_maps``, ``block`` and ``layer_order``
+    (``unet_infer_peak_bytes``).
     """
     if acc_channels is None:
         acc_channels = out_channels
@@ -315,8 +361,8 @@ def device_stitch_bytes(
     patch_vox = float(np.prod(np.asarray(patch_size, dtype=np.float64)))
     acc_unit = batch_size * patch_vox * acc_channels * 4
     fwd = batch_size * patch_vox * in_channels * dtype_bytes + 2 * acc_unit
-    fwd += unet_infer_peak_bytes(batch_size, patch_size, feature_maps, dtype_bytes,
-                                 block, layer_order)
+    fwd += net_bytes if net_bytes is not None else unet_infer_peak_bytes(
+        batch_size, patch_size, feature_maps, dtype_bytes, block, layer_order)
     if stitch == "gaussian":
         fwd += GAUSSIAN_WORK_UNITS * acc_unit
     if n_tta > 1:
@@ -371,7 +417,7 @@ def check_stitch_budget(
     batch_size: int,
     in_channels: int,
     out_channels: int,
-    feature_maps: Sequence[int],
+    feature_maps: Sequence[int] = (),
     stitch: str = "device",
     dtype_bytes: int = 2,
     params_bytes: int = 0,
@@ -382,6 +428,7 @@ def check_stitch_budget(
     device=None,
     block: str = "residual",
     layer_order: str = "cge",
+    net_bytes: Optional[int] = None,
 ) -> bool:
     """True when the volume fits the on-device stitch.
 
@@ -397,7 +444,8 @@ def check_stitch_budget(
     total, breakdown = device_stitch_bytes(
         img_size, patch_size, patch_overlap, batch_size, in_channels, out_channels,
         feature_maps, stitch=stitch, dtype_bytes=dtype_bytes, params_bytes=params_bytes,
-        n_tta=n_tta, acc_channels=acc_channels, block=block, layer_order=layer_order)
+        n_tta=n_tta, acc_channels=acc_channels, block=block, layer_order=layer_order,
+        net_bytes=net_bytes)
     if total <= budget:
         return True
     detail = ", ".join(f"{k}={v / GiB:.2f}G" for k, v in breakdown.items())

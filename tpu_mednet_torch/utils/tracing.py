@@ -40,6 +40,10 @@ The spans, by layer:
   ``sampler.render`` (the landmarks' heatmaps);
 - model step (``train/step.py``): ``train.step`` (root), ``train.augment``,
   ``train.forward_backward``, ``train.update``;
+- Swin UNETR's forward (``models/swin_unetr.py``): ``swin.encoder`` (the
+  patch embedding, the four stages and the five hidden states' LayerNorms)
+  and ``swin.decoder`` (the residual conv blocks, the up blocks and the
+  head), inside ``train.forward_backward`` or ``serve.launch``;
 - spatial partitioning (``parallel/halo.py``): ``sp.halo_exchange``.
 """
 
